@@ -33,6 +33,7 @@ from toyrenderer_tpu.ops.geometry import (
 from toyrenderer_tpu.ops.raster_pallas import fill_resolve_stream as jfill
 from toyrenderer_tpu.scene import load_scene
 
+from test_torch_raster import _one_torch_thread  # noqa: F401
 from toyrenderer_tpu_torch.ops import gbuffer as TGB
 from toyrenderer_tpu_torch.ops import raster as TR
 from toyrenderer_tpu_torch.ops import raster_cuda as TRC

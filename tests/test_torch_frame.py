@@ -41,19 +41,12 @@ from toyrenderer_tpu.ops.geometry import node_world_matrices
 from toyrenderer_tpu.ops.geometry import static_meshlet_pairs
 from toyrenderer_tpu.scene import load_scene as jax_load_scene
 
+from test_torch_raster import _one_torch_thread, scene_arrays  # noqa: F401
 from toyrenderer_tpu_torch.engine import (
     RenderSettings, init_carry, make_render_fn, render_frame)
 from toyrenderer_tpu_torch.ops import raster_cuda
 from toyrenderer_tpu_torch.weights import (
     carry_from_numpy, frame_inputs_from_numpy, scene_from_numpy)
-
-
-def _scene_arrays(js) -> dict:
-    out = {f: np.asarray(getattr(js, f)) for f in js.__dataclass_fields__
-           if isinstance(getattr(js, f), jnp.ndarray)}
-    out.update(node_depth=js.node_depth, num_textures=js.num_textures,
-               tex_analytic=js.tex_analytic)
-    return out
 
 
 def _render_both(path, w, h, near=None, **kw):
@@ -88,7 +81,7 @@ def _render_both(path, w, h, near=None, **kw):
     jimg, _, jaux = frame(js, jnp.asarray(pi), jnp.asarray(pm), fi, jc, mask)
 
     port = dict(
-        scene=scene_from_numpy(_scene_arrays(js), "cpu"),
+        scene=scene_from_numpy(scene_arrays(js), "cpu"),
         pi=torch.from_numpy(pi), pm=torch.from_numpy(pm),
         fi=frame_inputs_from_numpy(fi, "cpu"),
         carry=carry_from_numpy({k: np.asarray(v) for k, v in jc.items()},
@@ -142,10 +135,10 @@ def test_courtyard_frame_matches_reference():
 
 
 @pytest.mark.parametrize("field,value", [
-    ('enable_culling', True), ('enable_shadows', True), ('enable_gi', True),
+    ('enable_shadows', True), ('enable_gi', True),
     ('enable_ao', True), ('enable_taa', True), ('enable_bloom', True),
     ('enable_auto_exposure', True), ('enable_restir', True),
-    ('enable_transparency', True), ('peel_merge_frac', 0.1),
+    ('enable_transparency', True),
     ('pack_gbuffer', True), ('debug_mode', 2)])
 def test_unported_settings_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -156,7 +149,7 @@ def test_init_carry_matches_reference():
     sh = jax_load_scene("resources/cornell.gltf", use_cache=False)
     js = sh.to_device()
     want = jax_init_carry(js, JaxSettings(width=64, height=32))
-    got = init_carry(scene_from_numpy(_scene_arrays(js), "cpu"),
+    got = init_carry(scene_from_numpy(scene_arrays(js), "cpu"),
                      RenderSettings(width=64, height=32))
     assert got.keys() == want.keys()
     for k in want:

@@ -1,4 +1,5 @@
-"""The CUDA fill+resolve kernel against its plain PyTorch version.
+"""The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2) against
+their plain PyTorch versions.
 
 These tests need the card (the kernel has no CPU mode) and skip
 elsewhere.  They import nothing of JAX, so they also run where only the
@@ -6,8 +7,8 @@ port is installed:
 
     python -m pytest --noconftest -q tests/test_torch_kernel.py
 
-Tolerances: ids and depth bit-equal -- the kernel is built with
--fmad=false and evaluates edges and depth in the plain version's order,
+Tolerances: ids and depth bit-equal -- the kernels are built with
+-fmad=false and evaluate edges and depth in the plain version's order,
 and PyTorch's elementwise kernels round each operation once; planes to
 1e-5, for the same sums with sqrt / divide rounding.
 """
@@ -20,6 +21,7 @@ import torch
 
 from toyrenderer_tpu_torch.engine import View, default_frame_inputs
 from toyrenderer_tpu_torch.ops import geometry as G
+from toyrenderer_tpu_torch.ops import peel_cuda as PC
 from toyrenderer_tpu_torch.ops import raster as R
 from toyrenderer_tpu_torch.ops import raster_cuda as RC
 from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
@@ -104,3 +106,48 @@ def test_wrapper_launches_for_cuda_tensors(cuda_device):
     assert z.is_cuda and z.shape == (256, 448) and planes.shape[0] == 32
     with pytest.raises(ValueError):            # wrong dtype is refused
         RC.launch(RC.fill_inputs(setup, recs.double(), bins, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,size,cfg_kw", [
+    ("cornell.gltf", (448, 256), dict(max_tris_per_tile=128,
+                                      max_big_tris=64)),
+    ("courtyard.glb", (640, 360), dict(max_tris_per_tile=2048,
+                                       max_big_tris=2048, bin_slots_y=8,
+                                       bin_slots_x=2, pair_capacity=4096)),
+])
+def test_peel_kernel_matches_plain_version(cuda_device, scene, size,
+                                           cfg_kw):
+    """1, 2 and 4 layers, without and with an occluder (part of the
+    nearest surface's depth) and an id offset; the courtyard case clips
+    the pair budget, so some tiles are not visited and keep the
+    occluder."""
+    setup, recs, bins, cfg = _inputs(scene, *size, cuda_device, **cfg_kw)
+    z0 = RC.fill_resolve_stream(setup, recs, bins, cfg)[0]
+    for layers, occ, emit in ((2, None, 0), (2, z0 * 0.5, 100),
+                              (1, z0 * 0.9, 0), (4, z0 * 0.25, 7)):
+        inp = PC.peel_inputs(setup, bins, cfg, layers, emit, occ)
+        before = PC.launches
+        z_k, id_k = PC.launch(inp)
+        torch.cuda.synchronize()
+        assert PC.launches == before + 1
+        z_p, id_p = PC.fill_peel_plain(inp)
+        assert torch.equal(id_k, id_p), (layers, int((id_k != id_p).sum()))
+        assert torch.equal(z_k, z_p), layers
+        assert bool((id_k[0] >= emit).any())
+    if 'pair_capacity' in cfg_kw:
+        assert bool((inp.lay['n_chunks'] == 0).any())
+
+
+@pytest.mark.cuda
+def test_peel_wrapper_launches_for_cuda_tensors(cuda_device):
+    setup, recs, bins, cfg = _inputs("cornell.gltf", 448, 256, cuda_device,
+                                     max_tris_per_tile=128, max_big_tris=64)
+    before = PC.launches
+    z, tid = PC.fill_peel_stream(setup, bins, cfg, layers=2)
+    assert PC.launches == before + 1
+    assert z.is_cuda and z.shape == (2, 256, 448) and tid.shape == z.shape
+    with pytest.raises(ValueError):            # wrong dtype is refused
+        PC.launch(PC.peel_inputs(setup, bins, cfg, 2, 0,
+                                 torch.zeros(256, 448, dtype=torch.float64,
+                                             device=cuda_device)))

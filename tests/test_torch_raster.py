@@ -44,6 +44,18 @@ CFG = dict(width=W, height=H, max_tris_per_tile=512, max_big_tris=512,
            bin_slots_y=8, bin_slots_x=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test lane runs several workers on a few
+    cores, and the plain fills' many small ops would otherwise wait at
+    every OpenMP barrier for descheduled threads (tens of times
+    slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x):
     return torch.from_numpy(np.array(x))
 
@@ -53,7 +65,7 @@ def scene_arrays(js) -> dict:
     out = {f: np.asarray(getattr(js, f)) for f in js.__dataclass_fields__
            if isinstance(getattr(js, f), jnp.ndarray)}
     out.update(node_depth=js.node_depth, num_textures=js.num_textures,
-               tex_analytic=js.tex_analytic)
+               tex_analytic=js.tex_analytic, num_instances=js.num_instances)
     return out
 
 

@@ -15,3 +15,7 @@ Layout mirrors the reference package:
   engine/   View, RenderSettings, render_frame
   csrc/     CUDA sources, built by nvcc at first use into build/
 """
+
+# first, before any module of the port computes: warms the CPU's vector
+# math so that its first frame-sized call is correctly rounded
+from toyrenderer_tpu_torch.mathlib import precise  # noqa: E402,F401

@@ -17,9 +17,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 
 def shared_library(compiler: list[str], src: Path, name: str,
-                   timeout: float = 600.0) -> Path:
+                   timeout: float = 600.0, headers: tuple = ()) -> Path:
     """Compile `src` into BUILD_DIR/`name` with `compiler` (the command
     and its flags, without the source and output); return the path.
+    The library is rebuilt when `src` or one of the `headers` it
+    includes is newer.
 
     Raises RuntimeError with the compiler's output when the build fails;
     a successful build leaves that output in `name`.log beside the
@@ -28,7 +30,8 @@ def shared_library(compiler: list[str], src: Path, name: str,
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / name
-    if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in (src, *headers))
+    if out.exists() and out.stat().st_mtime >= newest:
         return out
     fd, tmp = tempfile.mkstemp(prefix=name + ".", suffix=".tmp",
                                dir=BUILD_DIR)

@@ -13,16 +13,17 @@
 // evaluations per test and pixel, ~8.8e5 tile-triangle tests x 2048 px
 // for the opaque set of the unculled 1080p courtyard); the
 // epilogue is bytes (34 f32 planes written per pixel, ~0.28 GB per launch,
-// plus a 256-byte record gathered per covered pixel).  The design: one
-// 256-thread block per tile, each thread owning 8 pixels of one column, so
-// depth / winner stay in registers and every plane store of a warp is one
-// coalesced row segment; batches of 32 raster records (2 KB) are staged in
-// shared memory and reused by all 2048 pixels of the tile.  A tile tests
-// only the big triangles whose tile bbox holds it (one warp ballot per 32
-// list entries, stream order kept); testing every big triangle on every
-// tile a big bbox touches would double the opaque set's tests at 1080p.
-// The densest tile tests ~7x the mean, so blocks take the tiles heaviest
-// first (tile_order) and the densest ones do not start last.
+// plus a 256-byte record gathered per covered pixel).  The design is the
+// tile walk of tile_walk.cuh: one 256-thread block per tile, each thread
+// owning 8 pixels of one column, so depth / winner stay in registers and
+// every plane store of a warp is one coalesced row segment; batches of 32
+// raster records (2 KB) are staged in shared memory and reused by all 2048
+// pixels of the tile.  A tile tests only the big triangles whose tile bbox
+// holds it (one warp ballot per 32 list entries, stream order kept);
+// testing every big triangle on every tile a big bbox touches would double
+// the opaque set's tests at 1080p.  The densest tile tests ~7x the mean,
+// so blocks take the tiles heaviest first (tile_order) and the densest
+// ones do not start last.
 // The first layer passes no init planes: the kernel writes their
 // constants instead of reading 34 zero planes.
 // The TPU's VMEM record scratch (K x 64 f32 = 512 KiB) and its one-hot
@@ -35,32 +36,20 @@
 // from torch.linalg.vector_norm).
 
 #include <cuda_runtime.h>
-#include <cstdint>
+
+#include "tile_walk.cuh"
 
 namespace {
 
-constexpr int kTileH = 16;
-constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kRows = kTileH * kTileW / kThreads;   // pixels per thread
-constexpr int kBatch = 32;                          // records per stage
-static_assert(kBatch == 32, "the big-list filter is one warp ballot");
-constexpr int kRec = 16;                            // raster record floats
+using tile_walk::kRec;
+using tile_walk::kRows;
+using tile_walk::kThreads;
 constexpr int kRes = 64;                            // resolve record floats
 constexpr int kPlanes = 32;                         // interpolant planes
 
 struct Params {
-  const float* tri_rec;      // (T, 16) edges | num coeffs | den coeffs | id
+  tile_walk::Stream s;
   const float* res_rec;      // (T, 64) resolve records
-  const int* vals_s;         // sorted pair stream: triangle ids
-  const int* offs;           // (tiles,) first stream entry of each tile
-  const int* counts_eff;     // (tiles,) pairs each tile walks
-  const int* n_chunks;       // (tiles,) 0 = tile not visited (keeps init)
-  const int* bighit;         // (tiles,) 1 = a big triangle's bbox touches
-  const int* big_list;       // (B,) big triangle ids, -1 after the last
-  const int4* big_box;       // (B,) their tile bbox: tx0, tx1, ty0, ty1
-  const int* tile_order;     // (tiles,) the tile each block renders
-  int big_cap;
   const float* init_z;       // (Hp, Wp), or null: depth 0
   const int* init_id;        // (Hp, Wp), or null: id -1
   const float* init_rec;     // (32, Hp, Wp), or null: planes 0
@@ -68,8 +57,8 @@ struct Params {
   float* z_out;
   int* id_out;
   float* planes_out;         // (32, Hp, Wp)
-  int tiles_x, wp, hp, emit_base;
-  float inv_w, inv_h, peel_bound;
+  int hp, emit_base;
+  float peel_bound;
 };
 
 // Test one staged batch of raster records against this thread's pixels.
@@ -187,34 +176,14 @@ __device__ __forceinline__ void keep_init(const Params& p, size_t pix,
         p.init_rec ? p.init_rec[c * plane + pix] : 0.0f;
 }
 
-// Stage records of the n triangles tri[0..n) into shared memory.
-__device__ __forceinline__ void stage(const float* tri_rec,
-                                      float (*rec)[kRec], const int* tri,
-                                      int n) {
-  for (int j = threadIdx.x; j < n * kRec; j += kThreads)
-    rec[j / kRec][j % kRec] = tri_rec[(size_t)tri[j / kRec] * kRec
-                                      + j % kRec];
-}
-
 __global__ void __launch_bounds__(kThreads)
 fill_resolve_kernel(Params p) {
-  __shared__ float rec[kBatch][kRec];
-  __shared__ int tri[kBatch];
-  __shared__ int n_hit, list_end;
+  __shared__ tile_walk::Shared sh;
+  const tile_walk::Pixels px(p.s);
+  const size_t plane = (size_t)p.hp * p.s.wp;
+  const size_t* pix = px.pix;
 
-  const int tile = p.tile_order[blockIdx.x];
-  const int tx = tile % p.tiles_x;
-  const int ty = tile / p.tiles_x;
-  const int col = threadIdx.x % kTileW;
-  const int row0 = (threadIdx.x / kTileW) * kRows;
-  const int x = tx * kTileW + col;
-  const size_t plane = (size_t)p.hp * p.wp;
-  size_t pix[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-    pix[i] = (size_t)(ty * kTileH + row0 + i) * p.wp + x;
-
-  if (p.n_chunks[tile] == 0) {             // not visited: init stays
+  if (p.s.n_chunks[px.tile] == 0) {        // not visited: init stays
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       p.z_out[pix[i]] = p.init_z ? p.init_z[pix[i]] : 0.0f;
@@ -223,75 +192,33 @@ fill_resolve_kernel(Params p) {
     return;
   }
 
-  // normalized pixel centres, rounded as the plain version rounds them
-  const float px = ((float)tx * (float)kTileW + ((float)col + 0.5f)) * p.inv_w;
-  float py[kRows], pk[kRows], bz[kRows];
+  const float cx = px.centre_x(p.s);
+  float cy[kRows], pk[kRows], bz[kRows];
   int bw[kRows];
   const bool has_peel = p.peel != nullptr;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    py[i] = ((float)ty * (float)kTileH + ((float)(row0 + i) + 0.5f)) * p.inv_h;
+    cy[i] = px.centre_y(p.s, i);
     pk[i] = has_peel ? p.peel[pix[i]] * p.peel_bound : 0.0f;
     bz[i] = p.init_z ? p.init_z[pix[i]] : 0.0f;
     bw[i] = -1;
   }
-
-  // the tile's own pairs, in stream order
-  const int first = p.offs[tile];
-  const int count = p.counts_eff[tile];
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    const int n = min(kBatch, count - b0);
-    if (threadIdx.x < n)
-      tri[threadIdx.x] = p.vals_s[first + b0 + threadIdx.x];
-    __syncthreads();
-    stage(p.tri_rec, rec, tri, n);
-    __syncthreads();
-    raster_batch(rec, tri, n, px, py, pk, has_peel, bz, bw);
-    __syncthreads();
-  }
-
-  // then the resident big list, for tiles a big triangle touches: warp 0
-  // keeps, in list order, the entries whose tile bbox holds this tile
-  if (p.bighit[tile] > 0) {
-    for (int b0 = 0; b0 < p.big_cap; b0 += kBatch) {
-      if (threadIdx.x < kBatch) {
-        const int j = b0 + threadIdx.x;
-        const int t = j < p.big_cap ? p.big_list[j] : -1;
-        bool hit = false;
-        if (t >= 0) {
-          const int4 b = p.big_box[j];
-          hit = tx >= b.x && tx <= b.y && ty >= b.z && ty <= b.w;
-        }
-        const unsigned m = __ballot_sync(0xffffffffu, hit);
-        const unsigned ended = __ballot_sync(0xffffffffu, t < 0);
-        if (hit) tri[__popc(m & ((1u << threadIdx.x) - 1u))] = t;
-        if (threadIdx.x == 0) {
-          n_hit = __popc(m);
-          list_end = ended != 0u;
-        }
-      }
-      __syncthreads();
-      const int n = n_hit;
-      const bool done = list_end;
-      stage(p.tri_rec, rec, tri, n);
-      __syncthreads();
-      raster_batch(rec, tri, n, px, py, pk, has_peel, bz, bw);
-      __syncthreads();
-      if (done) break;
-    }
-  }
+  tile_walk::walk(p.s, px, sh, [&](float (*rec)[kRec], const int* tri,
+                                   int n) {
+    raster_batch(rec, tri, n, cx, cy, pk, has_peel, bz, bw);
+  });
 
   // epilogue: resolve each won pixel from its winner's record
-  const float dx = p.inv_w, dy = p.inv_h;
-  const float pxr = ((float)x + 0.5f) * p.inv_w;
+  const float dx = p.s.inv_w, dy = p.s.inv_h;
+  const float pxr = ((float)px.x + 0.5f) * p.s.inv_w;
   float out[kPlanes];
 #pragma unroll 1
   for (int i = 0; i < kRows; ++i) {
-    const int y = ty * kTileH + row0 + i;
+    const int y = px.ty * tile_walk::kTileH + px.row0 + i;
     if (bw[i] >= 0) {
       p.z_out[pix[i]] = bz[i];
       p.id_out[pix[i]] = bw[i] + p.emit_base;
-      const float pyr = ((float)y + 0.5f) * p.inv_h;
+      const float pyr = ((float)y + 0.5f) * p.s.inv_h;
       resolve_pixel(p.res_rec + (size_t)bw[i] * kRes, pxr, pyr, dx, dy, out);
       for (int c = 0; c < kPlanes; ++c)
         p.planes_out[c * plane + pix[i]] = out[c];
@@ -315,17 +242,10 @@ extern "C" int fill_resolve_launch(
     float inv_w, float inv_h, float peel_bound,
     void* stream) {
   Params p;
-  p.tri_rec = static_cast<const float*>(tri_rec);
+  p.s = tile_walk::make_stream(tri_rec, vals_s, offs, counts_eff, n_chunks,
+                               bighit, big_list, big_box, tile_order,
+                               big_cap, tiles_x, wp, inv_w, inv_h);
   p.res_rec = static_cast<const float*>(res_rec);
-  p.vals_s = static_cast<const int*>(vals_s);
-  p.offs = static_cast<const int*>(offs);
-  p.counts_eff = static_cast<const int*>(counts_eff);
-  p.n_chunks = static_cast<const int*>(n_chunks);
-  p.bighit = static_cast<const int*>(bighit);
-  p.big_list = static_cast<const int*>(big_list);
-  p.big_box = static_cast<const int4*>(big_box);
-  p.tile_order = static_cast<const int*>(tile_order);
-  p.big_cap = big_cap;
   p.init_z = static_cast<const float*>(init_z);
   p.init_id = static_cast<const int*>(init_id);
   p.init_rec = static_cast<const float*>(init_rec);
@@ -333,12 +253,8 @@ extern "C" int fill_resolve_launch(
   p.z_out = static_cast<float*>(z_out);
   p.id_out = static_cast<int*>(id_out);
   p.planes_out = static_cast<float*>(planes_out);
-  p.tiles_x = tiles_x;
-  p.wp = wp;
   p.hp = hp;
   p.emit_base = emit_base;
-  p.inv_w = inv_w;
-  p.inv_h = inv_h;
   p.peel_bound = peel_bound;
   fill_resolve_kernel<<<num_tiles, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(p);

@@ -2,11 +2,15 @@
 
 Counterpart of toyrenderer_tpu/engine/frame.py for the passes this port
 has: UpdateInstanceConsts -> GBuffer (raster through the fused
-fill+resolve kernel, textured resolve) -> the alpha-masked set, peeled
-`alpha_layers` times -> deferred lighting + sky -> tonemap.  Cross-frame
-state lives in an explicit `carry` dict, as in the reference package.
-Settings whose passes are not ported yet raise NotImplementedError
-naming their ROADMAP queue item; the frame never silently skips a pass.
+fill+resolve kernel, textured resolve; with `enable_culling`, the
+GPU-driven 2-phase frame: instance and meshlet culling, screen-error LOD
+and HZB occlusion) -> the alpha-masked set, peeled `alpha_layers` times
+(per layer, or in one peel fill and a compact merge with
+`peel_merge_frac` > 0) -> deferred lighting + sky -> tonemap.
+Cross-frame state (transforms, HZB) lives in an explicit `carry` dict,
+as in the reference package.  Settings whose passes are not ported yet
+raise NotImplementedError naming their ROADMAP queue item; the frame
+never silently skips a pass.
 """
 
 from __future__ import annotations
@@ -17,16 +21,19 @@ import numpy as np
 import torch
 
 from toyrenderer_tpu_torch.device import resolve_device
+from toyrenderer_tpu_torch.ops import culling as cull_mod
 from toyrenderer_tpu_torch.ops import geometry as geo_mod
+from toyrenderer_tpu_torch.ops import hzb as hzb_mod
 from toyrenderer_tpu_torch.ops import raster as raster_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
 from toyrenderer_tpu_torch.ops.gbuffer import (
-    finish_gbuffer, pack_resolve_records)
+    finish_gbuffer, masked_peel_merge_compact, pack_resolve_records)
 from toyrenderer_tpu_torch.ops.lighting import deferred_lighting
+from toyrenderer_tpu_torch.ops.peel_cuda import fill_peel_stream
 from toyrenderer_tpu_torch.ops.postprocess import compose_final
 from toyrenderer_tpu_torch.ops.raster import RasterConfig
 from toyrenderer_tpu_torch.ops.raster_cuda import (
-    fill_resolve_stream, stream_layout)
+    crop_image, fill_resolve_stream, stream_layout)
 
 
 @dataclass(frozen=True)
@@ -117,28 +124,24 @@ class RenderSettings:
 
 # setting -> (is it on?, the ROADMAP queue item that ports it)
 _NOT_PORTED = (
-    ('enable_culling', lambda s: s.enable_culling,
-     'queue 1 item 6 (culling)'),
     ('enable_shadows', lambda s: s.enable_shadows,
-     'queue 1 items 8-9 (RT shadows, sun map)'),
-    ('enable_gi', lambda s: s.enable_gi, 'queue 1 item 11 (GI)'),
-    ('enable_ao', lambda s: s.enable_ao, 'queue 1 item 10 (AO)'),
-    ('enable_taa', lambda s: s.enable_taa, 'queue 1 item 7 (post: TAA)'),
-    ('enable_bloom', lambda s: s.enable_bloom, 'queue 1 item 7 (post)'),
+     'queue 1 items 5-6 (RT shadows, sun map)'),
+    ('enable_gi', lambda s: s.enable_gi, 'queue 1 item 8 (GI)'),
+    ('enable_ao', lambda s: s.enable_ao, 'queue 1 item 7 (AO)'),
+    ('enable_taa', lambda s: s.enable_taa, 'queue 1 item 4 (post: TAA)'),
+    ('enable_bloom', lambda s: s.enable_bloom, 'queue 1 item 4 (post)'),
     ('enable_auto_exposure', lambda s: s.enable_auto_exposure,
-     'queue 1 item 7 (post)'),
+     'queue 1 item 4 (post)'),
     ('enable_restir', lambda s: s.enable_restir,
-     'queue 1 item 12 (opt-in paths)'),
+     'queue 1 item 9 (opt-in paths)'),
     ('enable_transparency', lambda s: s.enable_transparency,
-     'queue 1 item 12 (opt-in paths: transparency)'),
-    ('peel_merge_frac', lambda s: s.peel_merge_frac > 0,
-     'queue 1 item 6 (compact masked merge, with K2)'),
+     'queue 1 item 9 (opt-in paths: transparency)'),
     ('pack_gbuffer', lambda s: s.pack_gbuffer,
-     'queue 1 item 5b (packed GBuffer)'),
+     'queue 1 item 3 (packed GBuffer)'),
     ('debug_mode', lambda s: s.debug_mode != 0,
-     'queue 1 item 5b (debug views)'),
+     'queue 1 item 3 (debug views)'),
     ('use_bruteforce_raster', lambda s: s.use_bruteforce_raster,
-     'queue 1 item 5b (brute-force raster oracle)'),
+     'queue 1 item 3 (brute-force raster oracle)'),
 )
 
 
@@ -156,7 +159,7 @@ def init_carry(scene, settings: RenderSettings) -> dict:
     """Initial cross-frame state, on the scene's device."""
     dev = scene.device
     n_inst = scene.inst_node.shape[0]
-    return dict(
+    carry = dict(
         prev_inst_world=torch.eye(4, device=dev).expand(n_inst, 4, 4)
         .contiguous(),
         prev_depth=torch.zeros((settings.height, settings.width),
@@ -164,6 +167,10 @@ def init_carry(scene, settings: RenderSettings) -> dict:
         exposure=torch.tensor(settings.manual_exposure, device=dev),
         frame_index=torch.tensor(0, dtype=torch.int32, device=dev),
     )
+    if settings.enable_culling:
+        carry['hzb'] = hzb_mod.init_hzb(settings.width, settings.height,
+                                        device=dev)
+    return carry
 
 
 def _raster_stats(setup, bins):
@@ -191,22 +198,128 @@ def _bins_with_budget_drop(setup, cfg):
     return bins
 
 
+def _raster_with_records(scene, geo, cfg, inst_world, inst_adj,
+                         prev_inst_world, prev_vp, **fill_kw):
+    """setup + bin + fused fill+resolve of one triangle set.  Returns
+    (setup, records, depth, tri_id, interpolant planes, raster stats);
+    fill_kw goes to fill_resolve_stream (init planes, emit_base,
+    padded_io)."""
+    setup = raster_mod.setup_triangles(geo, cfg)
+    records = pack_resolve_records(setup, scene, inst_world, inst_adj,
+                                   prev_inst_world, prev_vp)
+    bins = _bins_with_budget_drop(setup, cfg)
+    depth, tri_id, interp = fill_resolve_stream(setup, records, bins, cfg,
+                                                **fill_kw)
+    return setup, records, depth, tri_id, interp, _raster_stats(setup, bins)
+
+
+def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
+                       frame_inputs, carry, pair_inst, cfg, settings):
+    """GPU-driven 2-phase occlusion-culled GBuffer pass (reference
+    package, frame.py:1311-1401).
+
+    Early: instances that pass the frustum AND were visible against the
+    PREVIOUS frame's HZB (tested with the previous transforms,
+    gpuculling.hlsl:143-146) render first, and an HZB is built from
+    their depth.  Late: the early-occluded candidates re-test against
+    that HZB with the current transforms, and the newly visible ones
+    render on top, continuing the early planes.  The final depth's HZB
+    culls the next frame.  The pair lists' capacities are Python ints
+    (pair_inst only sets the early one), so nothing here waits on the
+    device.  Returns (interp planes, depth, tri_id, aux, new_hzb)."""
+    planes = frame_inputs['cull_frustum_planes']
+    cam = frame_inputs['cull_cam_pos']
+    psc = frame_inputs['proj_scale_px']
+    w, h = settings.width, settings.height
+    cap1 = pair_inst.shape[0]
+    cap2 = max(int(cap1 * settings.late_capacity_frac), 64)
+    prev_vp = frame_inputs['prev_view_proj_nojitter']
+    vp_nojit = frame_inputs['view_proj_nojitter']
+    lod_kw = dict(error_threshold_px=settings.lod_error_px,
+                  forced_lod=settings.forced_lod)
+
+    # EARLY: cull against the previous HZB and transforms
+    cull1 = cull_mod.cull_instances(
+        scene, inst_world, planes, cam, psc, w, h, hzb=carry['hzb'],
+        hzb_view_proj=prev_vp, hzb_inst_world=prev_inst_world, **lod_kw)
+    pi1, pm1, pv1, total1 = cull_mod.build_pairs(
+        scene, cull1['visible'], cull1['lod'], cap1)
+    pv1 = cull_mod.cull_meshlets(
+        scene, pi1, pm1, pv1, inst_world, planes, cam, w, h,
+        cone_cull=settings.enable_cone_culling)
+    geo1 = geo_mod.meshlet_clip_triangles(
+        scene, inst_world, frame_inputs['view_proj'], pi1, pm1, pv1)
+    setup1, _, depth1, tid1, interp1, rs1 = _raster_with_records(
+        scene, geo1, cfg, inst_world, inst_adj, prev_inst_world, prev_vp,
+        padded_io=True)
+    hzb_mid = hzb_mod.build_hzb(crop_image(depth1, cfg), w, h)
+
+    # LATE: re-test the early-occluded candidates against the fresh HZB
+    cull2 = cull_mod.cull_instances(
+        scene, inst_world, planes, cam, psc, w, h, hzb=hzb_mid,
+        hzb_view_proj=vp_nojit, hzb_inst_world=inst_world, **lod_kw)
+    late_mask = cull1['occluded_candidate'] & cull2['visible']
+    pi2, pm2, pv2, total2 = cull_mod.build_pairs(
+        scene, late_mask, cull2['lod'], cap2)
+    pv2 = cull_mod.cull_meshlets(
+        scene, pi2, pm2, pv2, inst_world, planes, cam, w, h, hzb=hzb_mid,
+        hzb_view_proj=vp_nojit, cone_cull=settings.enable_cone_culling)
+    geo2 = geo_mod.meshlet_clip_triangles(
+        scene, inst_world, frame_inputs['view_proj'], pi2, pm2, pv2)
+    _, _, depth, tri_id, interp, rs2 = _raster_with_records(
+        scene, geo2, cfg, inst_world, inst_adj, prev_inst_world, prev_vp,
+        init_depth=depth1, init_tri_id=tid1, init_rec=interp1,
+        emit_base=setup1['valid'].shape[0], padded_io=True)
+
+    interp = crop_image(interp, cfg)
+    depth = crop_image(depth, cfg)
+    tri_id = crop_image(tri_id, cfg)
+    new_hzb = hzb_mod.build_hzb(depth, w, h)
+    aux = dict(
+        early_instances=torch.sum(cull1['visible'].to(torch.int32)),
+        late_instances=torch.sum(late_mask.to(torch.int32)),
+        early_pairs=total1, late_pairs=total2,
+        # pair-list capacity overflow (bounded amplification drops)
+        early_pair_dropped=torch.clamp(total1 - cap1, min=0),
+        late_pair_dropped=torch.clamp(total2 - cap2, min=0),
+        early_meshlets=torch.sum(pv1.to(torch.int32)),
+        late_meshlets=torch.sum(pv2.to(torch.int32)),
+        **{f'early_{k}': v for k, v in rs1.items()},
+        **{f'late_{k}': v for k, v in rs2.items()})
+    return interp, depth, tri_id, aux, new_hzb
+
+
 def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                  carry: dict, settings: RenderSettings,
-                 mask_pair_inst=None, mask_pair_meshlet=None):
+                 mask_pair_inst=None, mask_pair_meshlet=None,
+                 raster_cfg: RasterConfig | None = None,
+                 mask_raster_cfg: RasterConfig | None = None):
     """One frame.
 
     frame_inputs (tensors on the scene's device, see
-    weights.frame_inputs_from_numpy): view_proj, prev_view_proj_nojitter,
-    inv_view_proj, cam_pos, jitter, node_translation / rotation / scale,
-    sun_direction, sun_color, sun_intensity, sky_params.
+    weights.frame_inputs_from_numpy): view_proj, view_proj_nojitter,
+    prev_view_proj_nojitter, inv_view_proj, cam_pos, jitter,
+    cull_frustum_planes, cull_cam_pos, proj_scale_px, node_translation /
+    rotation / scale, sun_direction, sun_color, sun_intensity,
+    sky_params.  Under `enable_culling` the frame builds its own pair
+    lists, and pair_inst only sets the early list's capacity.
+    raster_cfg: a content-sized RasterConfig (engine/capacity.py) in
+    place of settings.raster_config(), for the same width and height;
+    mask_raster_cfg: the masked set's, sized for that set (default:
+    raster_cfg).
     Returns (image_u8 (H, W, 3), new_carry, aux dict).  aux holds the
     opaque set's raster counters as `raster_*` (`raster_dropped` sums its
-    drop counters, as the reference's does) and, when the masked set is
-    drawn, the same counters of that set as `raster_mask_*`.
+    drop counters, as the reference's does) or, culled, the reference's
+    `early_*` / `late_*` counters; and, when the masked set is drawn, the
+    same raster counters of that set as `raster_mask_*`.
     """
     check_settings(settings)
-    cfg = settings.raster_config()
+    cfg = settings.raster_config() if raster_cfg is None else raster_cfg
+    cfg_m = cfg if mask_raster_cfg is None else mask_raster_cfg
+    for name, c in (('raster_cfg', cfg), ('mask_raster_cfg', cfg_m)):
+        if (c.width, c.height) != (settings.width, settings.height):
+            raise ValueError(f"{name} is {c.width}x{c.height}, the "
+                             f"settings {settings.width}x{settings.height}")
 
     # -- UpdateInstanceConsts ------------------------------------------------
     world = geo_mod.node_world_matrices(
@@ -217,15 +330,18 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     prev_vp = frame_inputs['prev_view_proj_nojitter']
 
     # -- Geometry + raster (GBuffer pass) -------------------------------------
-    geo = geo_mod.meshlet_clip_triangles(
-        scene, inst_world, frame_inputs['view_proj'], pair_inst,
-        pair_meshlet)
-    setup = raster_mod.setup_triangles(geo, cfg)
-    records = pack_resolve_records(setup, scene, inst_world, inst_adj,
-                                   prev_inst_world, prev_vp)
-    bins = _bins_with_budget_drop(setup, cfg)
-    depth, tri_id, interp = fill_resolve_stream(setup, records, bins, cfg)
-    rstats = _raster_stats(setup, bins)
+    new_hzb = None
+    if settings.enable_culling:
+        interp, depth, tri_id, raster_aux, new_hzb = _gbuffer_two_phase(
+            scene, inst_world, inst_adj, prev_inst_world, frame_inputs,
+            carry, pair_inst, cfg, settings)
+    else:
+        geo = geo_mod.meshlet_clip_triangles(
+            scene, inst_world, frame_inputs['view_proj'], pair_inst,
+            pair_meshlet)
+        _, _, depth, tri_id, interp, rstats = _raster_with_records(
+            scene, geo, cfg, inst_world, inst_adj, prev_inst_world, prev_vp)
+        raster_aux = {f'raster_{k}': v for k, v in rstats.items()}
     mstats = {}     # the masked set's counters, when it is drawn
 
     atlas = None
@@ -233,7 +349,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         if not scene.tex_analytic:
             raise NotImplementedError(
                 "descriptor-row texture sampling (atlases with >= 64 "
-                "entries): not ported yet (ROADMAP queue 1 item 5b)")
+                "entries): not ported yet (ROADMAP queue 1 item 3)")
         atlas = dict(tex_texels=scene.tex_texels)
 
     def gbuffer(planes, d, t):
@@ -252,28 +368,54 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
             scene, inst_world, frame_inputs['view_proj'], mask_pair_inst,
             mask_pair_meshlet)
         # setup/records/bins are layer-invariant: each layer is one fill
-        setup_m = raster_mod.setup_triangles(geo_m, cfg)
+        setup_m = raster_mod.setup_triangles(geo_m, cfg_m)
         records_m = pack_resolve_records(
             setup_m, scene, inst_world, inst_adj, prev_inst_world, prev_vp)
-        bins_m = _bins_with_budget_drop(setup_m, cfg)
+        bins_m = _bins_with_budget_drop(setup_m, cfg_m)
         mstats = _raster_stats(setup_m, bins_m)
-        chosen = torch.zeros_like(depth, dtype=torch.bool)
-        peel = None
-        for _layer in range(max(settings.alpha_layers, 1)):
-            depth_m, tid_m, rec_m = fill_resolve_stream(
-                setup_m, records_m, bins_m, cfg, peel_depth=peel)
-            gb_m = gbuffer(rec_m, depth_m, tid_m)
-            passes = ((gb_m['alpha'] >= gb_m['alpha_cutoff'])
-                      & (depth_m > depth) & (depth_m > 0.0) & ~chosen)
-            for k in ('rough_f', 'metal_f'):
+        n_layers = max(settings.alpha_layers, 1)
+        merge_scalar = ('rough_f', 'metal_f')
+        merge_vec = ('motion', 'albedo_f', 'normal_f', 'emissive_f')
+        h0, w0 = depth.shape
+
+        def merge(passes, gb_m, depth_m, tid_m):
+            for k in merge_scalar:
                 gb[k] = torch.where(passes, gb_m[k], gb[k])
-            for k in ('motion', 'albedo_f', 'normal_f', 'emissive_f'):
+            for k in merge_vec:
                 gb[k] = torch.where(passes[..., None], gb_m[k], gb[k])
-            depth = torch.where(passes, depth_m, depth)
             # ids of those pixels index the MASKED setup (aux only)
-            tri_id = torch.where(passes, tid_m, tri_id)
-            chosen = chosen | passes
-            peel = depth_m
+            return (torch.where(passes, depth_m, depth),
+                    torch.where(passes, tid_m, tri_id))
+
+        if settings.peel_merge_frac > 0 and h0 % 2 == 0 and w0 % 2 == 0:
+            # every layer in ONE occluder-seeded peel fill (K2), then
+            # resolve + texture at compact rate, only on the quads a
+            # fragment reaches (reference package, frame.py:598-640)
+            depth_l, tid_l = fill_peel_stream(
+                setup_m, bins_m, cfg_m, layers=n_layers,
+                occluder_depth=depth)
+            cap_q = max(int((h0 // 2) * (w0 // 2)
+                            * settings.peel_merge_frac), 256)
+            gb_m = masked_peel_merge_compact(
+                records_m, depth_l, tid_l, frame_inputs['jitter'], cfg_m,
+                cap_q, atlas=atlas, quad_taps=settings.texture_quad_taps,
+                aniso=settings.texture_aniso,
+                channels=set(merge_scalar) | set(merge_vec))
+            depth, tri_id = merge(gb_m['passes'], gb_m, gb_m['depth'],
+                                  gb_m['tri_id'])
+        else:
+            # dense: one fill+resolve per layer, peeled behind the last
+            chosen = torch.zeros_like(depth, dtype=torch.bool)
+            peel = None
+            for _layer in range(n_layers):
+                depth_m, tid_m, rec_m = fill_resolve_stream(
+                    setup_m, records_m, bins_m, cfg_m, peel_depth=peel)
+                gb_m = gbuffer(rec_m, depth_m, tid_m)
+                passes = ((gb_m['alpha'] >= gb_m['alpha_cutoff'])
+                          & (depth_m > depth) & (depth_m > 0.0) & ~chosen)
+                depth, tri_id = merge(passes, gb_m, depth_m, tid_m)
+                chosen = chosen | passes
+                peel = depth_m
         gb['depth'] = depth
 
     # -- Deferred lighting + sky --------------------------------------------
@@ -297,9 +439,11 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
                      frame_index=carry['frame_index'] + 1,
                      exposure=carry['exposure'])
+    if new_hzb is not None:
+        new_carry['hzb'] = new_hzb
     aux = dict(depth=depth, tri_id=tri_id, motion=gb['motion'], hdr=hdr,
                resolved_pixels=torch.sum((tri_id >= 0).to(torch.int32)),
-               **{f'raster_{k}': v for k, v in rstats.items()},
+               **raster_aux,
                **{f'raster_mask_{k}': v for k, v in mstats.items()})
     image = compose_final(hdr, exposure=carry['exposure'])
     return image, new_carry, aux
@@ -332,10 +476,14 @@ def default_frame_inputs(scene_host, view_matrices: dict,
     return out
 
 
-def make_render_fn(settings: RenderSettings, device=None):
+def make_render_fn(settings: RenderSettings, device=None,
+                   raster_cfg: RasterConfig | None = None,
+                   mask_raster_cfg: RasterConfig | None = None):
     """Frame function for `settings` on `device` (default: the CUDA
-    device; raises when there is none).  Accepts frame_inputs as host
-    numpy arrays or tensors; returns render_frame's result."""
+    device; raises when there is none), with the content-sized
+    `raster_cfg` / `mask_raster_cfg` when given (see render_frame).
+    Accepts frame_inputs as host numpy arrays or tensors; returns
+    render_frame's result."""
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
     check_settings(settings)
     dev = resolve_device(device)
@@ -346,5 +494,6 @@ def make_render_fn(settings: RenderSettings, device=None):
                              f"function on {dev}")
         fi = frame_inputs_from_numpy(frame_inputs, dev)
         return render_frame(scene, pair_inst, pair_meshlet, fi, carry,
-                            settings, **kw)
+                            settings, raster_cfg=raster_cfg,
+                            mask_raster_cfg=mask_raster_cfg, **kw)
     return render

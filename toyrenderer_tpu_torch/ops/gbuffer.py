@@ -123,20 +123,26 @@ def _pixel_centres(h: int, w: int, device):
     return px[None, :].expand(h, w), py[:, None].expand(h, w)
 
 
-def resolve_interpolants(records, depth, tri_id, cfg, screen_wh=None):
+def resolve_interpolants(records, depth, tri_id, cfg, pixel_xy=None,
+                         screen_wh=None):
     """Per-pixel barycentric resolve: (T, 64) records + visibility buffer
     -> (INTERP_C, H, W) interpolant planes (layout above).
 
     The plain version of the fill kernel's epilogue; it evaluates every
     sum in the kernel's order (the reference package divides by the
     screen size where both multiply by its reciprocal: ~1 ulp apart).
-    screen_wh: the real screen size when the image is padded past it
-    (edge equations are normalized to it).
+    pixel_xy: (px, py) the true pixel centres of an image whose pixels
+    come from anywhere on screen (masked_peel_merge_compact's compact
+    quads); screen_wh: the real screen size when the image is not the
+    screen (edge equations are normalized to it).
     """
     h, w = depth.shape
     sw, sh = (w, h) if screen_wh is None else screen_wh
     rec = records[torch.clamp(tri_id, min=0).long()]      # (H, W, 64)
-    px, py = _pixel_centres(h, w, depth.device)
+    if pixel_xy is None:
+        px, py = _pixel_centres(h, w, depth.device)
+    else:
+        px, py = pixel_xy
     # multiply by the f32 reciprocal of the screen size, as the kernel
     # does: a division by a Python number may run as exactly that on one
     # device and as a true division on another
@@ -199,16 +205,23 @@ def resolve_interpolants(records, depth, tri_id, cfg, screen_wh=None):
 
 
 def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
-                   quad_taps: bool = False, aniso: int = 1):
+                   quad_taps: bool = False, aniso: int = 1, pixel_xy=None,
+                   screen_wh=None):
     """Interpolant planes (INTERP_C, H, W) -> textured shading planes.
 
     jitter: (2,) current sub-pixel jitter in pixels (motion vectors are
     unjittered).  atlas: the scene's texture atlas (DeviceScene
-    fields) or None for untextured shading.
+    fields) or None for untextured shading.  pixel_xy / screen_wh: as
+    resolve_interpolants takes them (motion vectors are in screen
+    pixels).
     """
     h, w = depth.shape
+    sw, sh = (w, h) if screen_wh is None else screen_wh
     hit = tri_id >= 0
-    px, py = _pixel_centres(h, w, depth.device)
+    if pixel_xy is None:
+        px, py = _pixel_centres(h, w, depth.device)
+    else:
+        px, py = pixel_xy
 
     def ch(sl):
         return torch.movedim(interp[sl], 0, -1)
@@ -219,8 +232,8 @@ def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
     pw_safe = torch.where(torch.abs(prev_xyw[..., 2:3]) < 1e-8, 1e-8,
                           prev_xyw[..., 2:3])
     prev_ndc = prev_xyw[..., :2] / pw_safe
-    prev_px = torch.stack([(prev_ndc[..., 0] * 0.5 + 0.5) * w,
-                           (0.5 - prev_ndc[..., 1] * 0.5) * h], -1)
+    prev_px = torch.stack([(prev_ndc[..., 0] * 0.5 + 0.5) * sw,
+                           (0.5 - prev_ndc[..., 1] * 0.5) * sh], -1)
     cur_px = torch.stack([px - jitter[0], py - jitter[1]], -1)
     motion = torch.where((hit & (prev_xyw[..., 2] > 0))[..., None],
                          cur_px - prev_px, 0.0)
@@ -299,3 +312,134 @@ def resolve_gbuffer(records, depth, tri_id, jitter, cfg, atlas=None,
         interp = resolve_interpolants(records, depth, tri_id, cfg)
     return finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=atlas,
                           quad_taps=quad_taps, aniso=aniso)
+
+
+def _merges(k: str, channels) -> bool:
+    """Does the compact merge carry channel k back?  By default every
+    shading channel (not uv, which only debug views read)."""
+    if k in ('alpha', 'alpha_cutoff', 'depth'):
+        return False
+    return k != 'uv' if channels is None else k in channels
+
+
+def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
+                              cap_quads: int, atlas=None,
+                              quad_taps: bool = False, aniso: int = 1,
+                              channels=None):
+    """Every masked peel layer -> the merged winner's channels, resolved
+    and textured only on the 2x2 quads that hold a fragment
+    (reference package, gbuffer.py:456-626).
+
+    The reference renderer alpha-tests cutout fragments inside the base
+    pass (basepass.hlsl ALPHA_MASK_MODE discard), so the nearest passing
+    fragment wins.  Here the L peel layers (fill_peel_stream, occluder-
+    seeded and nearest first) must be textured to learn their alpha; the
+    masked set covers a small share of the screen, so the quads holding
+    any layer's fragment are compacted (a stable sort of their quad
+    index), every layer is resolved and textured at compact rate, the
+    nearest alpha-passing fragment wins, and one quad-rate gather (slot
+    = cumsum rank of the hit quads) brings the winner's channels back.
+    Compact images keep the quad layout, so the quad texture sampler's
+    2x2 pools see the same pixels as at full resolution.
+
+    records: (T, 64) the masked set's resolve records; peel_depth /
+    peel_tid: (L, H, W).  Quads past cap_quads drop their fragments.
+    Returns full-resolution {'passes' (H, W) bool, 'depth', 'tri_id',
+    <channels>}; tri_id is -1 where no layer passed.
+    """
+    n_layers, h, w = peel_tid.shape
+    if h % 2 or w % 2:
+        raise ValueError("the compact merge needs an even image size")
+    hq, wq = h // 2, w // 2
+    q = hq * wq
+    c = 256
+    r = max(-(-min(cap_quads, q) // c), 4)
+    cap = r * c
+    dev = peel_tid.device
+    i32 = torch.int32
+
+    hit_any = (peel_tid >= 0).any(dim=0)                   # (H, W)
+    hitq = hit_any.reshape(hq, 2, wq, 2).any(dim=3).any(dim=1).reshape(-1)
+    # ascending quad order of the hit quads == their cumsum rank, so the
+    # build side (sort) and the expand side (cumsum) agree on slots
+    arange_q = torch.arange(q, dtype=i32, device=dev)
+    order = torch.sort(torch.where(hitq, arange_q, q), stable=True).values
+    if order.shape[0] < cap:
+        order = torch.cat([order, order.new_full((cap - q,), q)])
+    order = order[:cap]
+    okq = order < q
+    oq = torch.where(okq, order, 0)
+    qy, qx = oq // wq, oq % wq
+    d2 = torch.arange(2, dtype=i32, device=dev)
+    py_i = 2 * qy[:, None, None] + d2[None, :, None]       # (cap, 2, 1)
+    px_i = 2 * qx[:, None, None] + d2[None, None, :]       # (cap, 1, 2)
+    flat_v = (py_i * w + px_i).reshape(-1).long()          # (cap * 4,)
+
+    def quads_to_img(v):
+        rest = v.shape[3:]
+        v = v.reshape(r, c, 2, 2, *rest).movedim(2, 1)
+        return v.reshape(2 * r, 2 * c, *rest)
+
+    # one packed gather pulls every layer's depth and id into compact space
+    dz = torch.cat([peel_depth.movedim(0, -1),
+                    peel_tid.movedim(0, -1).contiguous().view(torch.float32)],
+                   -1).reshape(h * w, 2 * n_layers)
+    img = quads_to_img(dz[flat_v].reshape(cap, 2, 2, 2 * n_layers))
+    ok_img = quads_to_img(okq[:, None, None].expand(cap, 2, 2))
+    pix = (quads_to_img(px_i.expand(cap, 2, 2)).to(torch.float32) + 0.5,
+           quads_to_img(py_i.expand(cap, 2, 2)).to(torch.float32) + 0.5)
+
+    # resolve + texture every layer at compact rate; the nearest passing
+    # fragment wins (layers arrive nearest first)
+    win = depth_w = tid_w = None
+    merged = {}
+    for li in range(n_layers):
+        depth_c = img[..., li]
+        tid_c = img[..., n_layers + li].contiguous().view(i32)
+        tid_c = torch.where(ok_img, tid_c, -1)
+        interp = resolve_interpolants(records, depth_c, tid_c, cfg,
+                                      pixel_xy=pix, screen_wh=(w, h))
+        gb_l = finish_gbuffer(interp, depth_c, tid_c, jitter, cfg,
+                              atlas=atlas, quad_taps=quad_taps, aniso=aniso,
+                              pixel_xy=pix, screen_wh=(w, h))
+        # occluder-seeded peel: tid >= 0 already means in front of the
+        # opaque surface
+        p_l = (gb_l['alpha'] >= gb_l['alpha_cutoff']) & (tid_c >= 0)
+        sel = p_l if win is None else p_l & ~win
+        for k, v in gb_l.items():
+            if not _merges(k, channels):
+                continue
+            s = sel[..., None] if v.ndim == 3 else sel
+            merged[k] = torch.where(s, v, 0.0 if k not in merged
+                                    else merged[k])
+        depth_w = torch.where(sel, depth_c, 0.0 if depth_w is None
+                              else depth_w)
+        tid_w = torch.where(sel, tid_c, -1 if tid_w is None else tid_w)
+        win = p_l if win is None else win | p_l
+
+    # the winner's channels (+ depth, tri_id) in ONE quad-rate row table:
+    # all 4 pixels of a quad ride one row.  tri_id rides as a float VALUE
+    # (exact below 2^24): the pad row, for quads with no slot, reads -1
+    named = dict(depth=depth_w, tri_id=tid_w.to(torch.float32), **merged)
+    parts = [v[..., None] if v.ndim == 2 else v for v in named.values()]
+    widths = [p.shape[-1] for p in parts]
+    packed = torch.cat(parts, -1)                          # (2R, 2C, ct)
+    ct = packed.shape[-1]
+    pq = packed.reshape(r, 2, c, 2, ct).movedim(1, 2)
+    pad = torch.zeros((4, ct), dtype=torch.float32, device=dev)
+    pad[:, 1] = -1.0
+    table = torch.cat([pq.reshape(cap, 4 * ct), pad.reshape(1, 4 * ct)])
+    slot = torch.cumsum(hitq.to(i32), 0, dtype=i32) - 1
+    idx = torch.where(hitq & (slot < cap), slot, cap).reshape(hq, wq)
+    rows = table[idx.long()].reshape(hq, wq, 2, 2, ct).movedim(2, 1)
+    rows = rows.reshape(h, w, ct)
+
+    out = {}
+    o = 0
+    for k, wd in zip(named, widths):
+        v = rows[..., o:o + wd]
+        o += wd
+        out[k] = v[..., 0] if wd == 1 else v
+    out['tri_id'] = torch.round(out['tri_id']).to(i32)
+    out['passes'] = out['tri_id'] >= 0
+    return out

@@ -39,9 +39,11 @@ def instance_transforms(scene, world):
 
 
 def meshlet_clip_triangles(scene, inst_world, view_proj, pair_inst,
-                           pair_meshlet):
+                           pair_meshlet, pair_valid=None):
     """Expand (instance, meshlet) pairs into clip-space triangles.
 
+    pair_valid: optional (Tp,) bool, False for pairs culling removed (or
+    past a compacted list's end); their triangles are invalid.
     Returns dense (T = Tp*96, ...) tensors: clip (T, 3, 4), vtx_ids
     (T, 3), inst_id / mat_id (T,), double_sided / tri_valid (T,) bool,
     plus the (Tp,) pair arrays for pair-rate consumers.
@@ -52,6 +54,8 @@ def meshlet_clip_triangles(scene, inst_world, view_proj, pair_inst,
     tp, mt, _ = tris.shape
     tri_in_meshlet = torch.arange(mt, device=pm.device)[None, :]
     tri_valid = tri_in_meshlet < scene.meshlet_tri_count[pm][:, None]
+    if pair_valid is not None:
+        tri_valid = tri_valid & pair_valid[:, None]
 
     prim = scene.meshlet_prim[pm].long()
     mat = scene.prim_material[prim]                   # (Tp,)

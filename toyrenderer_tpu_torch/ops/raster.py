@@ -152,6 +152,22 @@ def setup_triangles(geo: dict, cfg: RasterConfig) -> dict:
 PEEL_BOUND = 1.0 - 4e-6
 
 
+def span_classes(setup: dict, cfg: RasterConfig) -> dict:
+    """(T,) bool masks of the binning classes: `big` (spans more tiles
+    than the slot grid: tested by every tile its bbox holds), and the
+    small triangles by tile span: `tiny` (1x1, one slot), `short` (1 x 2
+    tiles, two slots) and `rest` (the full grid)."""
+    spans_x = setup['tx1'] - setup['tx0'] + 1
+    spans_y = setup['ty1'] - setup['ty0'] + 1
+    big = setup['valid'] & ((spans_x > cfg.bin_slots_x)
+                            | (spans_y > cfg.bin_slots_y))
+    small = setup['valid'] & ~big
+    tiny = small & (spans_x == 1) & (spans_y == 1)
+    short = small & (spans_x == 1) & (spans_y == 2)
+    return dict(big=big, small=small, tiny=tiny, short=short,
+                rest=small & ~tiny & ~short)
+
+
 def _sort_pairs(setup: dict, cfg: RasterConfig):
     """Shared binning core: expand small triangles to (tile, tri) pairs,
     sort by tile, and compact big triangles.
@@ -164,11 +180,8 @@ def _sort_pairs(setup: dict, cfg: RasterConfig):
     i32 = torch.int32
     tx0, tx1 = setup['tx0'], setup['tx1']
     ty0, ty1 = setup['ty0'], setup['ty1']
-    spans_x = tx1 - tx0 + 1
-    spans_y = ty1 - ty0 + 1
-    is_big = setup['valid'] & ((spans_x > cfg.bin_slots_x)
-                               | (spans_y > cfg.bin_slots_y))
-    small = setup['valid'] & ~is_big
+    classes = span_classes(setup, cfg)
+    is_big, small = classes['big'], classes['small']
     arange_t = torch.arange(t, dtype=i32, device=dev)
 
     def _compact_coords(mask, cap):
@@ -205,9 +218,7 @@ def _sort_pairs(setup: dict, cfg: RasterConfig):
     if use_split:
         # span-classed expansion: 1x1-span tris get 1 slot, 2x1 get 2,
         # only the rest pay the full Sy*Sx grid (same sorted pair set)
-        tiny = small & (spans_x == 1) & (spans_y == 1)
-        short = small & (spans_x == 1) & (spans_y == 2)
-        rest = small & ~tiny & ~short
+        tiny, short, rest = (classes[k] for k in ('tiny', 'short', 'rest'))
         _class_drop('drop_tiny', tiny, cfg.compact_cap(t))
         _class_drop('drop_short', short, cfg.short_cap(t))
         _class_drop('drop_rest', rest, cfg.rest_cap(t))

@@ -33,6 +33,7 @@ from toyrenderer_tpu_torch.ops.raster import (
 
 REC = 16
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fill_resolve.cu"
+TILE_WALK = SOURCE.with_name("tile_walk.cuh")   # shared with fill_peel.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -140,7 +141,7 @@ def stream_layout(setup: dict, bins: dict, cfg: RasterConfig,
                 tile_order=tile_order.to(i32))
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -151,7 +152,8 @@ def _nvcc() -> str:
 @functools.lru_cache(maxsize=1)
 def kernel_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
-    so = shared_library([_nvcc(), *NVCC_FLAGS], SOURCE, "fill_resolve.so")
+    so = shared_library([nvcc_path(), *NVCC_FLAGS], SOURCE, "fill_resolve.so",
+                        headers=(TILE_WALK,))
     lib = ctypes.CDLL(str(so))
     fn = lib.fill_resolve_launch
     fn.restype = ctypes.c_int
@@ -290,15 +292,11 @@ def launch(inp: FillInputs):
     return z, tid, planes
 
 
-def fill_resolve_plain(inp: FillInputs):
-    """The kernel's function in plain PyTorch, on any device (the CPU
-    path, and the reference the kernel is held against on the card):
-    the same pair accounting, the chunked edge/depth loop of
-    `raster.fill_tiles` (each visited tile testing the big triangles
-    whose tile bbox holds it), then `gbuffer.resolve_interpolants` on
-    each won pixel.  Returns padded (depth, tri_id, planes)."""
-    from toyrenderer_tpu_torch.ops.gbuffer import resolve_interpolants
-    cfg, bins, lay = inp.cfg, inp.bins, inp.lay
+def walk_tables(bins: dict, lay: dict, cfg: RasterConfig):
+    """What each tile walks, as the kernels walk it: (tiles, K) its own
+    pairs in stream order (the pairs the budget admits), and (tiles, B)
+    the big triangles whose tile bbox holds it (none for unvisited
+    tiles), both -1 padded."""
     table = tile_table(bins['vals_s'], bins['offs'][:-1], lay['counts_eff'],
                        cfg.max_tris_per_tile)
     tiles = torch.arange(cfg.num_tiles, device=table.device)
@@ -307,7 +305,20 @@ def fill_resolve_plain(inp: FillInputs):
     in_box = ((tx >= box[None, :, 0]) & (tx <= box[None, :, 1])
               & (ty >= box[None, :, 2]) & (ty <= box[None, :, 3]))
     gets_big = ((lay['n_chunks'] > 0) & (lay['bighit'] > 0))[:, None]
-    big_table = torch.where(gets_big & in_box, bins['big_list'][None, :], -1)
+    return table, torch.where(gets_big & in_box, bins['big_list'][None, :],
+                              -1)
+
+
+def fill_resolve_plain(inp: FillInputs):
+    """The kernel's function in plain PyTorch, on any device (the CPU
+    path, and the reference the kernel is held against on the card):
+    the same pair accounting, the chunked edge/depth loop of
+    `raster.fill_tiles` (each visited tile testing the big triangles
+    whose tile bbox holds it), then `gbuffer.resolve_interpolants` on
+    each won pixel.  Returns padded (depth, tri_id, planes)."""
+    from toyrenderer_tpu_torch.ops.gbuffer import resolve_interpolants
+    cfg = inp.cfg
+    table, big_table = walk_tables(inp.bins, inp.lay, cfg)
     init_z, init_id, init_rec = init_planes(inp)
     z, win = fill_tiles(
         inp.tri_rec, table, big_table, cfg, image_to_tiles(init_z, cfg),

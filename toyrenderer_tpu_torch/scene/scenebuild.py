@@ -232,7 +232,8 @@ class SceneBuffers:
         return DeviceScene.from_arrays(
             arrays, dev, node_depth=self.node_depth,
             num_textures=self.num_textures,
-            tex_analytic=self.tex_analytic_ok())
+            tex_analytic=self.tex_analytic_ok(),
+            num_instances=self.num_instances)
 
 
 @dataclass
@@ -244,8 +245,19 @@ class DeviceScene:
     meshlet_tris: torch.Tensor
     meshlet_tri_count: torch.Tensor
     meshlet_prim: torch.Tensor
+    meshlet_center: torch.Tensor   # (M, 3) culling spheres and cones
+    meshlet_radius: torch.Tensor
+    meshlet_cone_axis: torch.Tensor
+    meshlet_cone_cutoff: torch.Tensor
+    prim_meshlet_offset: torch.Tensor  # (P, LODS) meshlet range per LOD
+    prim_meshlet_count: torch.Tensor
+    prim_lod_count: torch.Tensor
+    prim_lod_error: torch.Tensor
+    prim_center: torch.Tensor
+    prim_radius: torch.Tensor
     prim_material: torch.Tensor
     inst_node: torch.Tensor
+    inst_prim: torch.Tensor
     node_parent: torch.Tensor
     mat_base_color: torch.Tensor
     mat_metal_rough: torch.Tensor
@@ -264,15 +276,20 @@ class DeviceScene:
     num_textures: int = 0
     tex_analytic: bool = False     # records carry tex + 64*base11; the
     #   sampler derives mip descriptors analytically (textures.ATLAS_ALIGN)
+    num_instances: int = 0         # real instances; the arrays are padded
+
+    _STATICS = ('node_depth', 'num_textures', 'tex_analytic',
+                'num_instances')
 
     @classmethod
     def from_arrays(cls, arrays: dict, device, node_depth: int,
-                    num_textures: int, tex_analytic: bool) -> "DeviceScene":
+                    num_textures: int, tex_analytic: bool,
+                    num_instances: int) -> "DeviceScene":
         """Build from numpy arrays named as the fields (extra keys are
         ignored); float arrays become float32, integer arrays int32."""
         kw = {}
         for f in cls.__dataclass_fields__:
-            if f in ('node_depth', 'num_textures', 'tex_analytic'):
+            if f in cls._STATICS:
                 continue
             a = np.asarray(arrays[f])
             if f == 'tex_texels':
@@ -283,7 +300,8 @@ class DeviceScene:
                 a = a.astype(np.int32)
             kw[f] = torch.from_numpy(np.array(a)).to(device)
         return cls(node_depth=int(node_depth), num_textures=int(num_textures),
-                   tex_analytic=bool(tex_analytic), **kw)
+                   tex_analytic=bool(tex_analytic),
+                   num_instances=int(num_instances), **kw)
 
     @property
     def device(self) -> torch.device:

@@ -19,11 +19,13 @@ from toyrenderer_tpu_torch.scene.scenebuild import DeviceScene
 def scene_from_numpy(arrays: dict, device=None) -> DeviceScene:
     """DeviceScene from a dict of the scene's fields as numpy arrays
     (DeviceScene field names, including ml_verts / ml_local_tris) plus
-    the static `node_depth`, `num_textures` and `tex_analytic`."""
+    the statics `node_depth`, `num_textures`, `tex_analytic` and
+    `num_instances`."""
     return DeviceScene.from_arrays(
         arrays, resolve_device(device), node_depth=arrays['node_depth'],
         num_textures=arrays['num_textures'],
-        tex_analytic=arrays['tex_analytic'])
+        tex_analytic=arrays['tex_analytic'],
+        num_instances=arrays['num_instances'])
 
 
 def _tensor(v, device):
@@ -42,7 +44,9 @@ def frame_inputs_from_numpy(frame_inputs: dict, device=None) -> dict:
 
 
 def carry_from_numpy(carry: dict, device=None) -> dict:
-    """Carry (prev_inst_world, prev_depth, exposure, frame_index) as
-    numpy -> tensors on `device` (floats f32, integers i32)."""
+    """Carry (prev_inst_world, prev_depth, exposure, frame_index, and the
+    HZB's tuple of mips under culling) as numpy -> tensors on `device`
+    (floats f32, integers i32)."""
     dev = resolve_device(device)
-    return {k: _tensor(v, dev) for k, v in carry.items()}
+    return {k: tuple(_tensor(m, dev) for m in v) if isinstance(v, tuple)
+            else _tensor(v, dev) for k, v in carry.items()}
