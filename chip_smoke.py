@@ -17,7 +17,14 @@ both main paths through the port's entry points at 1920x1080:
   its late continuation) and the L-layer peel kernel (K2) held against
   their plain versions on the inputs of each of the frame's launches,
   1 + 5 frames with the carry (and its HZB) threaded, a 384x216 culled
-  frame on the card against the CPU, a profile.
+  frame on the card against the CPU, a profile;
+* the culled frame with RT sun shadows, the shadow denoiser, bloom,
+  auto-exposure and TAA (slice 3), over a slow camera pan: the RT
+  tree's host build, the BVH traversal kernel (K3, any-hit as the frame
+  traces, and closest-hit) and the reprojection warp kernel (K4, its
+  TAA and denoiser launches) held against their plain versions on the
+  inputs the frame launches them with, 1 + 5 frames, 384x216 frames on
+  the card against the CPU, a profile.
 
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
@@ -27,6 +34,7 @@ of the repo, it exits nonzero at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -57,6 +65,15 @@ PEAK_F32 = 67e12
 OPS_PER_TEST = 20
 OPS_PER_CASCADE_LAYER = 4
 OPS_PER_RESOLVE = 240
+# f32 operations of one ray-box slab test (6 multiply-subtract pairs, 12
+# min/max, the compare) and of one ray-triangle test (Moller-Trumbore:
+# two cross products, four dot products, the tests), counting a
+# multiply-add pair as two; under -fmad=false each pair compiles to two
+# instructions, so the kernels reach at most half the FMA peak on them
+OPS_PER_SLAB = 22
+OPS_PER_TRI_TEST = 54
+RAY_BYTES = 32 + 12              # origin, direction, t_max, live; t, tri, steps
+SHADOW_YAW = 0.002               # rad a frame: ~2 px of pan at 1080p
 # planes the kernel copies from the winner's record (material factors,
 # ids, texture statics, cutoff): bit-equal; the others are computed and
 # held to 1e-5, as tests/test_torch_kernel.py holds them
@@ -90,6 +107,25 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` calls after a warm-up: the
+    summed time of the device kernels it launched, from the profiler.
+    Events around a loop of short kernels would also count the gaps in
+    which the host is still launching the next one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def big_box_tests(inp):
@@ -257,29 +293,38 @@ def hold_k1(name, inp) -> dict:
     return st
 
 
-def launch_inputs(render, scene, pairs, fi_np, carry, mask_kw):
-    """The inputs of the kernel launches of one frame, in launch order:
-    (K1 inputs, K2 inputs), recorded by wrapping each wrapper's launch
-    for that frame; the kernels run as they do in any frame."""
-    import torch
-    from toyrenderer_tpu_torch.ops import peel_cuda, raster_cuda
-    seen = {raster_cuda: [], peel_cuda: []}
-    originals = {m: m.launch for m in seen}
+@contextlib.contextmanager
+def recorded(modules):
+    """While open, each module's kernel launch also appends (its
+    arguments, its result) to that module's list in the yielded dict;
+    the kernels run as they do in any frame."""
+    seen = {m: [] for m in modules}
+    originals = {m: m.launch for m in modules}
 
     def recording(m):
-        def launch(inp):
-            seen[m].append(inp)
-            return originals[m](inp)
+        def launch(*args):
+            out = originals[m](*args)
+            seen[m].append((args, out))
+            return out
         return launch
     try:
-        for m in seen:
+        for m in modules:
             m.launch = recording(m)
-        render(scene, *pairs, fi_np, carry, **mask_kw)
-        torch.cuda.synchronize()
+        yield seen
     finally:
         for m, f in originals.items():
             m.launch = f
-    return seen[raster_cuda], seen[peel_cuda]
+
+
+def launch_inputs(render, scene, pairs, fi_np, carry, kw, modules):
+    """The arguments of each kernel launch of one frame, in launch order:
+    one list of argument tuples per wrapper module.  Returns (those
+    lists, the frame's result)."""
+    import torch
+    with recorded(modules) as seen:
+        out = render(scene, *pairs, fi_np, carry, **kw)
+        torch.cuda.synchronize()
+    return [[a for a, _ in seen[m]] for m in modules], out
 
 
 def drops_of(aux) -> tuple[int, int]:
@@ -292,28 +337,37 @@ def drops_of(aux) -> tuple[int, int]:
     return opaque, int(aux['raster_mask_dropped'])
 
 
+def kernel_modules():
+    from toyrenderer_tpu_torch.ops import (
+        bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
+    return raster_cuda, peel_cuda, bvh_cuda, warp_cuda
+
+
 def drive(render, scene, pairs, fi_np, carry, mask_kw, frames, per_frame):
     """One warm-up frame, then `frames` timed ones with the carry
-    threaded.  Returns (device ms, host ms, last image, last aux, carry,
-    per_frame(aux) of each timed frame)."""
+    threaded; fi_np is a frame's inputs or a callable giving the next
+    frame's.  Every kernel's launch count is set to 0 after the warm-up.
+    Returns (device ms, host ms, last image, last aux, carry,
+    per_frame(aux, carry) of each timed frame)."""
     import torch
-    img, carry, aux = render(scene, *pairs, fi_np, carry, **mask_kw)
+    inputs = fi_np if callable(fi_np) else (lambda: fi_np)
+    img, carry, aux = render(scene, *pairs, inputs(), carry, **mask_kw)
     torch.cuda.synchronize()
-    from toyrenderer_tpu_torch.ops import peel_cuda, raster_cuda
-    raster_cuda.launches = 0
-    peel_cuda.launches = 0
+    for m in kernel_modules():
+        m.launches = 0
     times, walls, rows = [], [], []
     for _ in range(frames):
+        fi = inputs()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
         start.record()
-        img, carry, aux = render(scene, *pairs, fi_np, carry, **mask_kw)
+        img, carry, aux = render(scene, *pairs, fi, carry, **mask_kw)
         end.record()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
         times.append(start.elapsed_time(end))
-        rows.append(per_frame(aux))
+        rows.append(per_frame(aux, carry))
     return times, walls, img, aux, carry, rows
 
 
@@ -351,7 +405,8 @@ def profile_frame(render, scene, pairs, fi_np, carry, mask_kw):
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
                if e.device_type == DeviceType.CUDA) / 1e3
-    mine = ("fill_resolve_kernel", "fill_peel_kernel")
+    mine = ("fill_resolve_kernel", "fill_peel_kernel", "traverse_kernel",
+            "warp_kernel")
 
     def name(key):
         return next((m for m in mine if m in key), key)
@@ -363,13 +418,15 @@ def profile_frame(render, scene, pairs, fi_np, carry, mask_kw):
     return busy, by_op
 
 
-def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw):
+def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw,
+                yaw=0.0, kw_on=lambda dev: {}, min_share=0.999):
     """The same frames on the card (kernels) and on the CPU (plain
-    versions): u8 images within 1 on >= 99.9% of the pixels (the two
-    devices' 4x4 products may round apart by an ulp, so a few edge
-    pixels may change triangle), no drops.  cfg_kw: the frame's
-    raster_cfg / mask_raster_cfg.  Returns (share within 1, max
-    difference)."""
+    versions), the camera turning `yaw` a frame: u8 images within 1 on
+    >= min_share of the pixels (default 99.9%: the two devices' 4x4
+    products may round apart by an ulp, so a few edge pixels may change
+    triangle), no drops.  cfg_kw: the frame's raster_cfg /
+    mask_raster_cfg; kw_on(device): further render keywords on that
+    device.  Returns (share within 1, max difference)."""
     import numpy as np
     import torch
     from toyrenderer_tpu_torch.engine import (
@@ -387,17 +444,141 @@ def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw):
             mats = view.matrices()
             img, carry, aux = render(
                 sc, p[0], p[1], default_frame_inputs(host, mats), carry,
-                mask_pair_inst=p[2], mask_pair_meshlet=p[3])
+                mask_pair_inst=p[2], mask_pair_meshlet=p[3], **kw_on(d))
             view.advance(mats)
+            view.rotate_yaw_pitch(yaw, 0.0)
             out.append(img.cpu().numpy().astype(int))
             drops.append(drops_of(aux))
         imgs.append(np.stack(out))
     diff = np.abs(imgs[0] - imgs[1]).max(-1)
     close = float((diff <= 1).mean())
-    if close < 0.999 or any(x != (0, 0) for x in drops):
+    if close < min_share or any(x != (0, 0) for x in drops):
         raise AssertionError(f"{w}x{h} frames: card vs CPU within 1 on "
                              f"{close:.5f} of pixels, drops {drops}")
     return close, int(diff.max())
+
+
+def traverse_bound_ms(census, n_slots) -> tuple[float, str]:
+    """Least time the card could take for these rays: operations, every
+    slab test of the internal nodes and every triangle test of the
+    leaves the rays visit (the plain version's census of this run's
+    walk); bytes, the distinct tree rows read once and each ray slot's
+    inputs read and outputs written once."""
+    leaf = int(census['leaf_steps'].sum())
+    inner = int(census['steps'].sum()) - leaf
+    ops = inner * 8 * OPS_PER_SLAB + leaf * 12 * OPS_PER_TRI_TEST
+    bytes_ = (int(census['box_rows_read'].sum()) * 48 * 4
+              + int(census['leaf_rows_read'].sum()) * 120 * 4
+              + n_slots * RAY_BYTES)
+    return bound(ops, bytes_)
+
+
+def hold_k3(args) -> dict:
+    """K3 against its plain version on one recorded launch, in the
+    frame's any-hit mode and in closest-hit mode: hit, t and tri (and
+    the visit counts) bit-equal.  Prints a phase line per mode; returns
+    per mode its err, ms, plain_ms, bound and rates."""
+    import torch
+    from toyrenderer_tpu_torch.ops import bvh_cuda
+    bvh, o, d, t_max, _, live = args
+    n_live = int((live > 0).sum())
+    out = {}
+    for mode, any_hit in (("any-hit", True), ("closest-hit", False)):
+        run = (bvh, o, d, t_max, any_hit, live)
+        got = bvh_cuda.launch(*run)
+        t = time.time()
+        want = bvh_cuda.traverse_plain(*run, census=True)
+        torch.cuda.synchronize()
+        plain_wall = time.time() - t
+        for k in ('hit', 't', 'tri', 'steps'):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(
+                    f"K3 {mode}: {k} differs on "
+                    f"{int((got[k] != want[k]).sum())} rays")
+        steps = want['steps'][live > 0].float()
+        st = dict(err=float((got['t'] - want['t']).abs().max()),
+                  ms=device_ms(lambda: bvh_cuda.launch(*run), KERNEL_REPS),
+                  events_ms=cuda_ms(lambda: bvh_cuda.launch(*run),
+                                    KERNEL_REPS),
+                  plain_ms=cuda_ms(
+                      lambda: bvh_cuda.traverse_plain(*run), 1),
+                  bound=traverse_bound_ms(want, o.shape[0]))
+        st['mrays_s'] = n_live / st['ms'] / 1e3
+        out[mode] = st
+        phase("K3 vs plain", mode=mode, ray_slots=o.shape[0],
+              live_rays=n_live,
+              hit_share=f"{float(got['hit'][live > 0].float().mean()):.4f}",
+              visits_mean=f"{float(steps.mean()):.1f}",
+              visits_max=int(steps.max()),
+              leaf_visits=int(want['leaf_steps'].sum()),
+              rows_read=f"{int(want['box_rows_read'].sum())}"
+              f"+{int(want['leaf_rows_read'].sum())}",
+              hit_t_tri="bit-equal", kernel_ms=f"{st['ms']:.4f}",
+              kernel_events_ms=f"{st['events_ms']:.4f}",
+              mrays_per_s=f"{st['mrays_s']:.1f}",
+              plain_ms=f"{st['plain_ms']:.1f}",
+              plain_first_wall_s=f"{plain_wall:.1f}",
+              bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
+    return out
+
+
+def hold_k4(name, args) -> dict:
+    """K4 against its plain version on one recorded launch: bit-equal.
+    Also times torch.nn.functional.grid_sample (bilinear, border
+    padding, align_corners) on the same clamped sample points as a
+    yardstick; the port never calls it."""
+    import torch
+    from toyrenderer_tpu_torch.ops import warp_cuda
+    img, mot, max_disp = args
+    got = warp_cuda.launch(*args)
+    want = warp_cuda.warp_bilinear_plain(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 ({name}): max |d| "
+                             f"{float((got - want).abs().max())}")
+    h, w, c = img.shape
+    lim = warp_cuda._reach(max_disp)
+    yg = torch.arange(h, dtype=torch.float32, device=img.device)[:, None]
+    xg = torch.arange(w, dtype=torch.float32, device=img.device)[None, :]
+    y = yg + torch.clamp(torch.clamp(yg - mot[..., 1], 0.0, h - 1.0) - yg,
+                         -lim, lim)
+    x = xg + torch.clamp(torch.clamp(xg - mot[..., 0], 0.0, w - 1.0) - xg,
+                         -lim, lim)
+    grid = torch.stack([x / (w - 1) * 2 - 1, y / (h - 1) * 2 - 1],
+                       -1)[None].contiguous()
+    planar = img.permute(2, 0, 1)[None].contiguous()
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            planar, grid, mode='bilinear', padding_mode='border',
+            align_corners=True)
+    lib_err = float((library()[0].permute(1, 2, 0) - got).abs().max())
+    st = dict(err=float((got - want).abs().max()),
+              ms=device_ms(lambda: warp_cuda.launch(*args), KERNEL_REPS),
+              events_ms=cuda_ms(lambda: warp_cuda.launch(*args),
+                                KERNEL_REPS),
+              plain_ms=cuda_ms(lambda: warp_cuda.warp_bilinear_plain(*args),
+                               KERNEL_REPS),
+              library_ms=device_ms(library, KERNEL_REPS),
+              bound=bound(h * w * (6 * c + 30),
+                          h * w * (2 * c * 4 + 8)))
+    phase("K4 vs plain", input=json.dumps(name), shape=f"{h}x{w}x{c}",
+          motion_max_px=f"{float(mot.abs().max()):.2f}", out="bit-equal",
+          kernel_ms=f"{st['ms']:.4f}",
+          kernel_events_ms=f"{st['events_ms']:.4f}",
+          plain_ms=f"{st['plain_ms']:.4f}",
+          grid_sample_ms=f"{st['library_ms']:.4f}",
+          grid_sample_max_abs_diff=f"{lib_err:.3g}",
+          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
+    return st
+
+
+def rt_static_on(rts, dev):
+    """The static RT topology's tensors moved to `dev`."""
+    import torch
+    return dataclasses.replace(rts, **{
+        f.name: getattr(rts, f.name).to(dev)
+        for f in dataclasses.fields(rts)
+        if isinstance(getattr(rts, f.name), torch.Tensor)})
 
 
 def main() -> int:
@@ -420,11 +601,12 @@ def main() -> int:
     from toyrenderer_tpu_torch.engine.capacity import (
         culled_pair_counts, sized_culled_settings, sized_raster_config,
         sized_settings, tile_pair_counts)
+    from toyrenderer_tpu_torch.ops import bvh as bvh_mod
     from toyrenderer_tpu_torch.ops import culling as cull_mod
     from toyrenderer_tpu_torch.ops import geometry as geo_mod
-    from toyrenderer_tpu_torch.ops import peel_cuda
     from toyrenderer_tpu_torch.ops import raster as raster_mod
-    from toyrenderer_tpu_torch.ops import raster_cuda
+    from toyrenderer_tpu_torch.ops import (
+        bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
     from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
     from toyrenderer_tpu_torch.scene import load_scene
     from toyrenderer_tpu_torch.scene.gltf import (
@@ -444,7 +626,8 @@ def main() -> int:
 
     # 2. kernel builds: one nvcc per source, started together ---------------
     t = time.time()
-    libs = {"fill_resolve": raster_cuda, "fill_peel": peel_cuda}
+    libs = {"fill_resolve": raster_cuda, "fill_peel": peel_cuda,
+            "traverse": bvh_cuda, "warp": warp_cuda}
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(m.kernel_library) for m in libs.values()]:
             f.result()
@@ -455,7 +638,7 @@ def main() -> int:
             ln.strip() for ln in (log.read_text().splitlines()
                                   if log.exists() else [])
             if "registers" in ln or "spill" in ln)
-    phase("build", kernels="fill_resolve.cu,fill_peel.cu",
+    phase("build", kernels=",".join(f"{k}.cu" for k in libs),
           seconds=f"{time.time() - t:.1f}", ptxas=json.dumps(ptxas))
 
     # 3. scene build with the port's loader ---------------------------------
@@ -515,8 +698,10 @@ def main() -> int:
     # 4. K1 against its plain version on the inputs of each of the
     #    frame's launches: the opaque set, the masked set's two layers
     render = make_render_fn(settings, **cfg_kw)
-    k1_in, k2_in = launch_inputs(render, scene, (pair_inst, pair_meshlet),
-                                 fi_np, init_carry(scene, settings), mask_kw)
+    (k1_in, k2_in), _ = launch_inputs(
+        render, scene, (pair_inst, pair_meshlet), fi_np,
+        init_carry(scene, settings), mask_kw, (raster_cuda, peel_cuda))
+    k1_in = [a[0] for a in k1_in]
     if (len(k1_in), len(k2_in)) != (3, 0):
         raise AssertionError(f"default frame: {len(k1_in)} K1 and "
                              f"{len(k2_in)} K2 launches; want 3 and 0")
@@ -550,7 +735,7 @@ def main() -> int:
     # 5. the default frame at 1920x1080 through the entry points ------------
     times, walls, img, aux, carry, _ = drive(
         render, scene, (pair_inst, pair_meshlet), fi_np,
-        init_carry(scene, settings), mask_kw, FRAMES, lambda a: None)
+        init_carry(scene, settings), mask_kw, FRAMES, lambda a, c: None)
     k1_default, k2_default = raster_cuda.launches, peel_cuda.launches
     coverage = check_frame(img, aux, k1_default, k2_default, 3 * FRAMES, 0,
                            "default frame")
@@ -622,8 +807,10 @@ def main() -> int:
     c_render = make_render_fn(c_set, **c_kw)
     _, c_carry, _ = c_render(scene, *c_pairs, fi_np,
                              init_carry(scene, c_set), **mask_kw)
-    k1_in, k2_in = launch_inputs(c_render, scene, c_pairs, fi_np, c_carry,
-                                 mask_kw)
+    (k1_in, k2_in), _ = launch_inputs(c_render, scene, c_pairs, fi_np,
+                                      c_carry, mask_kw,
+                                      (raster_cuda, peel_cuda))
+    k1_in, k2_in = [a[0] for a in k1_in], [a[0] for a in k2_in]
     if (len(k1_in), len(k2_in)) != (2, 1):
         raise AssertionError(f"culled frame: {len(k1_in)} K1 and "
                              f"{len(k2_in)} K2 launches; want 2 and 1")
@@ -738,7 +925,7 @@ def main() -> int:
             'early_meshlets', 'late_meshlets')
     c_times, c_walls, c_img, c_aux, c_carry, c_rows = drive(
         c_render, scene, c_pairs, fi_np, c_carry, mask_kw, FRAMES,
-        lambda a: {k: int(a[k]) for k in keys})
+        lambda a, c: {k: int(a[k]) for k in keys})
     k1_culled, k2_culled = raster_cuda.launches, peel_cuda.launches
     c_coverage = check_frame(c_img, c_aux, k1_culled, k2_culled, 2 * FRAMES,
                              FRAMES, "culled frame")
@@ -789,10 +976,151 @@ def main() -> int:
               else "not measured"),
           by_op_ms_calls=json.dumps(c_by_op[:16]))
 
-    # 11. kernels -------------------------------------------------------------
+    # ================= the shadowed culled frame (slice 3) ===================
+    # the bench's all-on frame (bench.py:480-498) without AO and GI: the
+    # culled frame with RT sun shadows (shadow_ray_scale 2, checkerboard),
+    # the denoiser, bloom, auto-exposure and TAA, sized as the culled
+    # frame; the RT tree holds the LOD0 pair list (rt_lod_pairs under a
+    # 500k-triangle budget, bench.py:153-161) and the coverage-kept masked
+    # pairs, and is refit every frame
+
+    # 11. the RT topology: built once on the host, at scene load
+    t = time.time()
+    rpi, rpm, rlod = geo_mod.rt_lod_pairs(host, 'not_mask',
+                                          budget_tris=500_000)
+    rts = bvh_mod.build_rt_static(host, rpi, rpm, mask_pair_inst=mk_i,
+                                  mask_pair_meshlet=mk_m, device=dev)
+    rt_build_s = time.time() - t
+    tree = bvh_mod.refit_bvh(rts, inst_world)
+    mt = host.meshlet_tris.shape[1]
+    masked_tris = int(host.meshlet_tri_count[mk_m].sum())
+    masked_kept = int(rts.pair_keep[len(rpi) * mt:].sum())
+    tree_mb = (tree.child_boxes.numel() + tree.leaf_rows.numel()) * 4 / 1e6
+    phase("RT topology", host_build_s=f"{rt_build_s:.2f}", lod=rlod,
+          pairs=len(rpi) + len(mk_i), n_mask_pairs=rts.n_mask_pairs,
+          triangles_kept=int((rts.payload >= 0).sum()),
+          masked_tris=masked_tris,
+          masked_dropped_by_coverage=masked_tris - masked_kept,
+          levels=rts.num_levels, node_rows=tree.child_boxes.shape[0],
+          leaf_rows=tree.leaf_rows.shape[0], tree_mb=f"{tree_mb:.2f}")
+    del tree
+    s_set = dataclasses.replace(
+        c_set, enable_shadows=True, shadow_technique='rt', enable_taa=True,
+        enable_bloom=True, enable_auto_exposure=True)
+    s_render = make_render_fn(s_set, **c_kw)
+    s_kw = dict(mask_kw, rt_static=rts,
+                rt_pair_inst=torch.from_numpy(rpi).to(dev),
+                rt_pair_meshlet=torch.from_numpy(rpm).to(dev))
+    # a slow pan, ~2 px a frame: TAA and the denoiser reproject real
+    # motion, inside the warp's reach
+    pan = View.from_scene(host, WIDTH, HEIGHT)
+    pan_fi = []
+    for _ in range(4 + FRAMES):
+        mats = pan.matrices()
+        pan_fi.append(default_frame_inputs(host, mats))
+        pan.advance(mats)
+        pan.rotate_yaw_pitch(SHADOW_YAW, 0.0)
+    pan_fi.reverse()
+
+    # 12. K3 and K4 against their plain versions on the inputs of one
+    #     frame's launches, its history valid (the second frame)
+    _, s_carry, _ = s_render(scene, *c_pairs, pan_fi.pop(),
+                             init_carry(scene, s_set), **s_kw)
+    (k3_in, k4_in), (_, s_carry, _) = launch_inputs(
+        s_render, scene, c_pairs, pan_fi.pop(), s_carry, s_kw,
+        (bvh_cuda, warp_cuda))
+    if (len(k3_in), len(k4_in)) != (1, 2):
+        raise AssertionError(f"shadowed frame: {len(k3_in)} K3 and "
+                             f"{len(k4_in)} K4 launches; want 1 and 2")
+    k3 = hold_k3(k3_in[0])
+    k4 = {name: hold_k4(name, args) for name, args in zip(
+        ("denoiser history, half res", "TAA history, full res"), k4_in)}
+    del k3_in, k4_in
+
+    # 13. the shadowed frame at 1920x1080 through the entry points: 1 + 5
+    #     frames of the pan; every timed frame launches K1 twice, K2 once,
+    #     K3 once and K4 twice, drops nothing, traces a lit side that is
+    #     neither all lit nor all shadowed, and keeps a finite exposure
+    def per_frame(aux, carry):
+        return dict(launches=[m.launches for m in kernel_modules()],
+                    drops=drops_of(aux), exposure=float(carry['exposure']),
+                    target_exposure=float(aux['target_exposure']))
+    with recorded((bvh_cuda,)) as traced:
+        s_times, s_walls, s_img, s_aux, s_carry, s_rows = drive(
+            s_render, scene, c_pairs, pan_fi.pop, s_carry, s_kw, FRAMES,
+            per_frame)
+    lit = []
+    for args, res in traced[bvh_cuda][1:]:
+        live = args[5] > 0
+        lit.append(1.0 - float(res['hit'][live].float().mean()))
+    prev = [0, 0, 0, 0]
+    for i, r in enumerate(s_rows):
+        per = [a - b for a, b in zip(r['launches'], prev)]
+        prev = r['launches']
+        if per != [2, 1, 1, 2] or r['drops'] != (0, 0):
+            raise AssertionError(f"shadowed frame {i}: launches K1-K4 {per},"
+                                 f" drops {r['drops']}")
+        if not 0.01 < lit[i] < 0.99:
+            raise AssertionError(f"shadowed frame {i}: lit share of the "
+                                 f"traced lit side {lit[i]}")
+        if not (np.isfinite(r['exposure']) and r['exposure'] > 0):
+            raise AssertionError(f"shadowed frame {i}: exposure "
+                                 f"{r['exposure']}")
+    s_launches = prev
+    s_coverage = check_frame(s_img, s_aux, s_launches[0], s_launches[1],
+                             2 * FRAMES, FRAMES, "shadowed frame")
+    motion = s_aux['motion'][s_aux['depth'] > 0].abs().amax(0)
+    np.save(BUILD_DIR / f"chip_smoke_shadowed_{WIDTH}x{HEIGHT}.npy",
+            s_img.cpu().numpy())
+    phase("frame", path="shadowed", size=f"{WIDTH}x{HEIGHT}", frames=FRAMES,
+          median_ms=f"{statistics.median(s_times):.3f}",
+          all_ms=json.dumps([round(x, 3) for x in s_times]),
+          host_wall_ms=json.dumps([round(x, 3) for x in s_walls]),
+          launches_k1_k2_k3_k4=json.dumps(s_launches),
+          coverage=f"{s_coverage:.4f}", raster_dropped=drops_of(s_aux)[0],
+          raster_mask_dropped=drops_of(s_aux)[1],
+          traced_lit_share=json.dumps([round(x, 4) for x in lit]),
+          shadow_mean=f"{float(s_aux['shadow'].mean()):.4f}",
+          exposure=json.dumps([round(r['exposure'], 5) for r in s_rows]),
+          target_exposure=json.dumps(
+              [round(r['target_exposure'], 5) for r in s_rows]),
+          geometry_motion_max_px=json.dumps(
+              [round(float(x), 3) for x in motion]))
+
+    # 14. small shadowed frames on the card against the CPU: the whole
+    #     RT tree, 2 frames of a pan of ~2 px a frame at this size
+    small_s = dataclasses.replace(
+        small_c, enable_shadows=True, enable_taa=True, enable_bloom=True,
+        enable_auto_exposure=True)
+    rts_cpu = rt_static_on(rts, torch.device("cpu"))
+    close, max_diff = card_vs_cpu(
+        host, scene, small_s, [cpi, cpm, mk_i, mk_m], 2, dict(
+            raster_cfg=sized_raster_config(
+                small_s, {"opaque": s_counts["opaque"]}),
+            mask_raster_cfg=sized_raster_config(
+                small_s, {"masked": s_counts["masked"]})),
+        yaw=SHADOW_YAW * WIDTH / SMALL[0], min_share=0.995,
+        kw_on=lambda d: dict(rt_static=rts if d.type == "cuda" else rts_cpu))
+    phase("small shadowed frames card vs cpu", size=f"{SMALL[0]}x{SMALL[1]}",
+          frames=2, within_1=f"{close:.6f}", max_diff=max_diff,
+          min_share=0.995)
+
+    # 15. where the shadowed frame's device time goes
+    s_busy, s_by_op = profile_frame(s_render, scene, c_pairs, pan_fi.pop(),
+                                    s_carry, s_kw)
+    phase("profile", path="shadowed", device_busy_ms=f"{s_busy:.3f}",
+          busy_share_of_median_frame=(
+              f"{s_busy / statistics.median(s_times):.3f}" if s_busy
+              else "not measured"),
+          by_op_ms_calls=json.dumps(s_by_op[:20]))
+
+    # 16. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
-    #     fill_peel: the input the culled frame launches it with
+    #     fill_peel: the input the culled frame launches it with;
+    #     traverse: the shadowed frame's any-hit launch (closest-hit on
+    #     the same rays listed beside it); warp: the mean over the
+    #     shadowed frame's two launches, each listed
     def row(name, st, main):
         return dict(input=name, main_path=main, ms=st['ms'],
                     plain_ms=st['plain_ms'], bound_ms=st['bound'][0],
@@ -802,7 +1130,7 @@ def main() -> int:
         dict(name="fill_resolve", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_resolve.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:294",
-             launches=k1_default + k1_culled,
+             launches=k1_default + k1_culled + s_launches[0],
              max_abs_err=max(s['err'] for s in [*main_in, *split.values()]),
              ms=statistics.mean(s['ms'] for s in main_in),
              plain_ms=statistics.mean(s['plain_ms'] for s in main_in),
@@ -814,18 +1142,40 @@ def main() -> int:
         dict(name="fill_peel", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_peel.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:778",
-             launches=k2_default + k2_culled,
+             launches=k2_default + k2_culled + s_launches[1],
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
              bound_by=k2['occluder']['bound'][1], library_ms=None,
              inputs=[row(f"masked set, {k}", v, k == "occluder")
-                     for k, v in k2.items()])]
+                     for k, v in k2.items()]),
+        dict(name="traverse", route="cuda",
+             source="toyrenderer_tpu_torch/csrc/traverse.cu",
+             replaces="toyrenderer_tpu/ops/bvh_pallas.py:250",
+             launches=s_launches[2],
+             max_abs_err=max(v['err'] for v in k3.values()),
+             ms=k3['any-hit']['ms'], plain_ms=k3['any-hit']['plain_ms'],
+             bound_ms=k3['any-hit']['bound'][0],
+             bound_by=k3['any-hit']['bound'][1], library_ms=None,
+             inputs=[dict(row(f"shadow rays, {k}", v, k == "any-hit"),
+                          mrays_per_s=v['mrays_s']) for k, v in k3.items()]),
+        dict(name="warp", route="cuda",
+             source="toyrenderer_tpu_torch/csrc/warp.cu",
+             replaces="toyrenderer_tpu/ops/warp_pallas.py:41",
+             launches=s_launches[3],
+             max_abs_err=max(v['err'] for v in k4.values()),
+             ms=statistics.mean(v['ms'] for v in k4.values()),
+             plain_ms=statistics.mean(v['plain_ms'] for v in k4.values()),
+             bound_ms=statistics.mean(v['bound'][0] for v in k4.values()),
+             bound_by="bytes",
+             library_ms=statistics.mean(v['library_ms'] for v in k4.values()),
+             inputs=[dict(row(k, v, True), library_ms=v['library_ms'])
+                     for k, v in k4.items()])]
     print(json.dumps({"kernels": kernels,
                       "wall_s": round(time.time() - t_start, 1)}),
           flush=True)
 
-    # 12. result --------------------------------------------------------------
+    # 17. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

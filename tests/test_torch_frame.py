@@ -135,14 +135,17 @@ def test_courtyard_frame_matches_reference():
 
 
 @pytest.mark.parametrize("field,value", [
-    ('enable_shadows', True), ('enable_gi', True),
-    ('enable_ao', True), ('enable_taa', True), ('enable_bloom', True),
-    ('enable_auto_exposure', True), ('enable_restir', True),
+    ('shadow_technique', 'map'), ('enable_gi', True),
+    ('enable_ao', True), ('enable_restir', True),
     ('enable_transparency', True),
     ('pack_gbuffer', True), ('debug_mode', 2)])
 def test_unported_settings_raise(field, value):
+    """Each setting whose pass is not ported yet raises, naming its
+    ROADMAP item (the sun shadow map with shadows on)."""
+    settings = RenderSettings(enable_shadows=True, **{field: value}) \
+        if field == 'shadow_technique' else RenderSettings(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_render_fn(RenderSettings(**{field: value}), device="cpu")
+        make_render_fn(settings, device="cpu")
 
 
 def test_init_carry_matches_reference():

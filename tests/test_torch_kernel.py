@@ -1,5 +1,6 @@
-"""The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2) against
-their plain PyTorch versions.
+"""The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2; BVH
+traversal, K3; reprojection warp, K4) against their plain PyTorch
+versions.
 
 These tests need the card (the kernel has no CPU mode) and skip
 elsewhere.  They import nothing of JAX, so they also run where only the
@@ -10,7 +11,9 @@ port is installed:
 Tolerances: ids and depth bit-equal -- the kernels are built with
 -fmad=false and evaluate edges and depth in the plain version's order,
 and PyTorch's elementwise kernels round each operation once; planes to
-1e-5, for the same sums with sqrt / divide rounding.
+1e-5, for the same sums with sqrt / divide rounding.  K3's hit, t and
+tri and K4's output bit-equal, for the same reason (each ray walks the
+tree in the plain version's order).
 """
 
 from pathlib import Path
@@ -20,10 +23,13 @@ import pytest
 import torch
 
 from toyrenderer_tpu_torch.engine import View, default_frame_inputs
+from toyrenderer_tpu_torch.ops import bvh as B
+from toyrenderer_tpu_torch.ops import bvh_cuda as BC
 from toyrenderer_tpu_torch.ops import geometry as G
 from toyrenderer_tpu_torch.ops import peel_cuda as PC
 from toyrenderer_tpu_torch.ops import raster as R
 from toyrenderer_tpu_torch.ops import raster_cuda as RC
+from toyrenderer_tpu_torch.ops import warp_cuda as WC
 from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
 from toyrenderer_tpu_torch.scene import load_scene
 from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
@@ -151,3 +157,94 @@ def test_peel_wrapper_launches_for_cuda_tensors(cuda_device):
         PC.launch(PC.peel_inputs(setup, bins, cfg, 2, 0,
                                  torch.zeros(256, 448, dtype=torch.float64,
                                              device=cuda_device)))
+
+
+def _tree_and_rays(dev, n=20000, seed=0):
+    """The courtyard's RT tree under the rest pose (LOD0 opaque pairs and
+    the coverage-kept masked ones), and rays from points near its
+    triangles: half toward the sun (shadow rays), half in random
+    directions, ~10% dead."""
+    host = load_scene(ROOT / "resources" / "courtyard.glb", use_cache=False)
+    scene = host.to_device(dev)
+    mk_i, mk_m = G.static_meshlet_pairs(host, 'mask')
+    pi, pm, _ = G.rt_lod_pairs(host, 'not_mask')
+    rts = B.build_rt_static(host, pi, pm, mask_pair_inst=mk_i,
+                            mask_pair_meshlet=mk_m, device=dev)
+    fi = frame_inputs_from_numpy(default_frame_inputs(
+        host, View.from_scene(host, 64, 64).matrices()), dev)
+    world = G.node_world_matrices(scene, fi['node_translation'],
+                                  fi['node_rotation'], fi['node_scale'])
+    bvh = B.refit_bvh(rts, G.instance_transforms(scene, world)[0])
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    rows = bvh.leaf_rows.reshape(-1, 10, 12).transpose(1, 2).reshape(-1, 10)
+    rows = rows[rows[:, 9] >= 0]
+    pick = rows[torch.randint(0, rows.shape[0], (n,), generator=g).to(dev)]
+    o = pick[:, 0:3] + 0.3 * pick[:, 3:6] + 0.3 * pick[:, 6:9]
+    d = torch.randn(n, 3, generator=g).to(dev)
+    d[: n // 2] = -fi['sun_direction'] + 0.01 * d[: n // 2]
+    d = d / torch.linalg.vector_norm(d, dim=1, keepdim=True)
+    o = (o + 0.02 * d).contiguous()
+    live = (torch.rand(n, generator=g) > 0.1).to(torch.float32).to(dev)
+    return bvh, o, d.contiguous(), live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [True, False])
+def test_traverse_kernel_matches_plain_version(cuda_device, any_hit):
+    bvh, o, d, live = _tree_and_rays(cuda_device)
+    before = BC.launches
+    got = BC.launch(bvh, o, d, 1e4, any_hit, live)
+    torch.cuda.synchronize()
+    assert BC.launches == before + 1
+    want = BC.traverse_plain(bvh, o, d, 1e4, any_hit, live)
+    for k in ('hit', 't', 'tri'):
+        assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k]).sum()))
+    assert torch.equal(got['steps'], want['steps'])
+    hit = got['hit'][live > 0].float().mean()
+    assert 0.05 < float(hit) < 0.95
+    assert not bool(got['hit'][live == 0].any())
+
+
+@pytest.mark.cuda
+def test_traverse_wrapper_launches_for_cuda_tensors(cuda_device):
+    bvh, o, d, live = _tree_and_rays(cuda_device, n=512)
+    before = BC.launches
+    res = BC.traverse_auto(bvh, o, d, 1e4, any_hit=True, live=live)
+    assert BC.launches == before + 1 and res['t'].is_cuda
+    with pytest.raises(ValueError):            # wrong dtype is refused
+        BC.launch(bvh, o.double(), d, 1e4)
+    with pytest.raises(ValueError):            # wrong shape is refused
+        BC.launch(bvh, o[:, :2].contiguous(), d, 1e4)
+    with pytest.raises(ValueError):            # rays on another device
+        BC.launch(bvh, o.cpu(), d.cpu(), 1e4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,reach", [(1080, 1920, 3, 6.0),
+                                         (540, 960, 2, 20.0),
+                                         (37, 75, 3, 9.0)])
+def test_warp_kernel_matches_plain_version(cuda_device, h, w, c, reach):
+    g = torch.Generator(device='cpu').manual_seed(h + c)
+    img = torch.rand(h, w, c, generator=g).to(cuda_device)
+    mot = ((torch.rand(h, w, 2, generator=g) * 2 - 1) * reach).to(
+        cuda_device)
+    before = WC.launches
+    got = WC.launch(img, mot)
+    torch.cuda.synchronize()
+    assert WC.launches == before + 1
+    assert torch.equal(got, WC.warp_bilinear_plain(img, mot))
+
+
+@pytest.mark.cuda
+def test_warp_wrapper_launches_for_cuda_tensors(cuda_device):
+    img = torch.rand(64, 96, 3, device=cuda_device)
+    mot = torch.zeros(64, 96, 2, device=cuda_device)
+    before = WC.launches
+    assert torch.equal(WC.warp_bilinear(img, mot), img)
+    assert WC.launches == before + 1
+    with pytest.raises(ValueError):            # wrong dtype is refused
+        WC.launch(img.double(), mot)
+    with pytest.raises(ValueError):            # wrong shape is refused
+        WC.launch(img, mot[:, :, :1].contiguous())
+    with pytest.raises(ValueError):            # motion on another device
+        WC.launch(img, mot.cpu())

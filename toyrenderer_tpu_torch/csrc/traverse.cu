@@ -1,0 +1,232 @@
+// 8-ary BVH ray traversal, any-hit or closest-hit, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel _traverse_kernel
+// (toyrenderer_tpu/ops/bvh_pallas.py:250) on the complete tree of
+// ops/bvh.py: child rows (R, 48) f32, component-major
+// [lo.x x8 | lo.y x8 | lo.z x8 | hi.x x8 | hi.y x8 | hi.z x8], stored per
+// level as its reachable prefix from level_offset[level]; leaf rows
+// (G, 120) f32, [v0.x x12 | v0.y | v0.z | e1.x .. e2.z | payload x12].
+//
+// The TPU kernel walks packets of 4096 rays with one shared scalar DFS
+// stack, because a TPU core has no per-lane control flow; every visit
+// evaluates the whole packet.  Here each thread walks its own ray with
+// its own DFS stack (at most (levels-1)*7+1 entries, in local memory):
+// pop a node; at an internal node slab-test its 8 children from one
+// 192-byte row (12 16-byte loads) and push the ones the ray enters,
+// far-to-near by the ray's own direction signs (child k ^ flip pops
+// nearest first); at a leaf, Moller-Trumbore against its 12 triangles,
+// read four at a time as 16-byte loads of each component (a 480-byte
+// row), folding the nearest hit in triangle order with a strict
+// t < best_t.  Any-hit rays leave at the first leaf that gives a hit;
+// closest-hit rays run until their stack is empty.  Dead rays (live <= 0
+// or t_max <= 0) report a miss at once.  The tree stays resident in the
+// 50 MB L2 (the courtyard's is ~18 MB).
+//
+// Arithmetic is the TPU kernel's, operation for operation: the
+// direction guard |d| < 1e-12 -> +-1e-12, the slab t = lo * inv - o * inv
+// with tmin clamped at 0 and tmax at the best t, Moller-Trumbore with
+// |det| < 1e-7 -> no hit and t > 1e-7, sums left to right.  Built with
+// -fmad=false, so hit, t and tri are bit-equal to traverse_plain, which
+// walks each ray in this same order.
+//
+// Bound: operations for coherent shadow rays (slab tests and triangle
+// tests of the nodes each ray visits), the tree's bytes read once.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kArity = 8;
+constexpr int kLeafTris = 12;
+constexpr int kMaxLevels = 9;                  // node << 4 stays in an int
+constexpr int kStack = (kMaxLevels - 1) * 7 + 1;
+constexpr int kLevelBits = 4;
+
+struct Tree {
+  const float4* boxes;                         // (R, 12) float4
+  const float4* leaves;                        // (G, 30) float4
+  int n_box_rows, n_leaf_rows, n_levels;
+  int level_offset[kMaxLevels];
+};
+
+struct Rays {
+  const float* origins;                        // (N, 3)
+  const float* dirs;                           // (N, 3)
+  const float* t_max;                          // (N,)
+  const float* live;                           // (N,)
+  float* t_out;                                // (N,)
+  int* tri_out;                                // (N,) payload, -1 = miss
+  int* steps_out;                              // (N,) nodes visited
+  int n;
+};
+
+__device__ __forceinline__ float lane(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// the 8 children of one parent row that the ray enters before best_t
+__device__ __forceinline__ int child_mask(const float4* row, float ix,
+                                          float iy, float iz, float oxi,
+                                          float oyi, float ozi,
+                                          float best_t) {
+  float4 b[12];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) b[q] = __ldg(row + q);
+  int mask = 0;
+#pragma unroll
+  for (int k = 0; k < kArity; ++k) {
+    const int h = k >> 2;
+    const int j = k & 3;
+    const float lox = lane(b[0 + h], j), loy = lane(b[2 + h], j);
+    const float loz = lane(b[4 + h], j), hix = lane(b[6 + h], j);
+    const float hiy = lane(b[8 + h], j), hiz = lane(b[10 + h], j);
+    const float t0x = lox * ix - oxi, t1x = hix * ix - oxi;
+    const float t0y = loy * iy - oyi, t1y = hiy * iy - oyi;
+    const float t0z = loz * iz - ozi, t1z = hiz * iz - ozi;
+    const float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                             fmaxf(fminf(t0z, t1z), 0.0f));
+    const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                             fminf(fmaxf(t0z, t1z), best_t));
+    if (tmax >= tmin) mask |= 1 << k;
+  }
+  return mask;
+}
+
+// Moller-Trumbore against one leaf row's 12 triangles, nearest first in
+// triangle order
+__device__ __forceinline__ void leaf_test(const float4* row, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float& best_t,
+                                          float& best_tri) {
+#pragma unroll
+  for (int q = 0; q < kLeafTris / 4; ++q) {
+    float4 c[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) c[k] = __ldg(row + k * 3 + q);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v0x = lane(c[0], j), v0y = lane(c[1], j);
+      const float v0z = lane(c[2], j), e1x = lane(c[3], j);
+      const float e1y = lane(c[4], j), e1z = lane(c[5], j);
+      const float e2x = lane(c[6], j), e2y = lane(c[7], j);
+      const float e2z = lane(c[8], j), pay = lane(c[9], j);
+      const float px = dy * e2z - dz * e2y;
+      const float py = dz * e2x - dx * e2z;
+      const float pz = dx * e2y - dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const float inv_det = fabsf(det) < 1e-7f ? 0.0f : 1.0f / det;
+      const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
+      const float u = (tx * px + ty * py + tz * pz) * inv_det;
+      const float qx = ty * e1z - tz * e1y;
+      const float qy = tz * e1x - tx * e1z;
+      const float qz = tx * e1y - ty * e1x;
+      const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+      const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      const bool ok = inv_det != 0.0f && u >= 0.0f && v >= 0.0f &&
+                      u + v <= 1.0f && tt > 1e-7f && pay >= 0.0f;
+      if (ok && tt < best_t) {
+        best_t = tt;
+        best_tri = pay;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float guard(float d) {
+  return fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads)
+traverse_kernel(Tree tree, Rays rays) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= rays.n) return;
+  const float t_cap = rays.t_max[i];
+  float best_t = t_cap;
+  float best_tri = -1.0f;
+  int visits = 0;
+  if (rays.live[i] > 0.0f && t_cap > 0.0f) {
+    const float ox = rays.origins[3 * i], oy = rays.origins[3 * i + 1];
+    const float oz = rays.origins[3 * i + 2];
+    const float dx = rays.dirs[3 * i], dy = rays.dirs[3 * i + 1];
+    const float dz = rays.dirs[3 * i + 2];
+    const float ix = 1.0f / guard(dx), iy = 1.0f / guard(dy);
+    const float iz = 1.0f / guard(dz);
+    const float oxi = ox * ix, oyi = oy * iy, ozi = oz * iz;
+    const int flip = ((dx < 0.0f) << 2) | ((dy < 0.0f) << 1) | (dz < 0.0f);
+    const int leaf_level = tree.n_levels - 1;
+    int stack[kStack];
+    int sp = 1;
+    stack[0] = 0;                              // the root: node 0, level 0
+    while (sp > 0) {
+      const int e = stack[--sp];
+      const int level = e & ((1 << kLevelBits) - 1);
+      const int node = e >> kLevelBits;
+      ++visits;
+      if (level == leaf_level) {
+        if (node < tree.n_leaf_rows) {
+          leaf_test(tree.leaves + static_cast<long long>(node) * 30, ox, oy,
+                    oz, dx, dy, dz, best_t, best_tri);
+          if (kAnyHit && best_tri >= 0.0f) break;
+        }
+        continue;
+      }
+      const int row = tree.level_offset[level] + node;
+      if (row >= tree.n_box_rows) continue;    // not on a well-formed tree
+      const int want = child_mask(tree.boxes + static_cast<long long>(row) * 12,
+                                  ix, iy, iz, oxi, oyi, ozi, best_t);
+#pragma unroll
+      for (int jj = kArity - 1; jj >= 0; --jj) {
+        const int k = jj ^ flip;
+        if ((want >> k) & 1)
+          stack[sp++] = ((node * kArity + k) << kLevelBits) | (level + 1);
+      }
+    }
+  }
+  rays.t_out[i] = best_t;
+  rays.tri_out[i] = static_cast<int>(best_tri);
+  rays.steps_out[i] = visits;
+}
+
+}  // namespace
+
+// Tree rows and rays as described above, contiguous on the device (tree
+// rows 16-byte aligned); level_offset is a host array of n_levels - 1
+// ints.  Launches on `stream`; returns the launch's cudaError_t (0 =
+// queued), or cudaErrorInvalidValue for a tree deeper than the stack.
+extern "C" int traverse_launch(const void* boxes, int n_box_rows,
+                               const void* leaves, int n_leaf_rows,
+                               int n_levels, const int* level_offset,
+                               const void* origins, const void* dirs,
+                               const void* t_max, const void* live,
+                               void* t_out, void* tri_out, void* steps_out,
+                               int n, int any_hit, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  Tree tree;
+  tree.boxes = static_cast<const float4*>(boxes);
+  tree.leaves = static_cast<const float4*>(leaves);
+  tree.n_box_rows = n_box_rows;
+  tree.n_leaf_rows = n_leaf_rows;
+  tree.n_levels = n_levels;
+  for (int l = 0; l < kMaxLevels; ++l)
+    tree.level_offset[l] = l < n_levels - 1 ? level_offset[l] : 0;
+  Rays rays;
+  rays.origins = static_cast<const float*>(origins);
+  rays.dirs = static_cast<const float*>(dirs);
+  rays.t_max = static_cast<const float*>(t_max);
+  rays.live = static_cast<const float*>(live);
+  rays.t_out = static_cast<float*>(t_out);
+  rays.tri_out = static_cast<int*>(tri_out);
+  rays.steps_out = static_cast<int*>(steps_out);
+  rays.n = n;
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit)
+    traverse_kernel<true><<<blocks, kThreads, 0, s>>>(tree, rays);
+  else
+    traverse_kernel<false><<<blocks, kThreads, 0, s>>>(tree, rays);
+  return static_cast<int>(cudaGetLastError());
+}

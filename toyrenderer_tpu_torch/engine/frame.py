@@ -6,11 +6,13 @@ fill+resolve kernel, textured resolve; with `enable_culling`, the
 GPU-driven 2-phase frame: instance and meshlet culling, screen-error LOD
 and HZB occlusion) -> the alpha-masked set, peeled `alpha_layers` times
 (per layer, or in one peel fill and a compact merge with
-`peel_merge_frac` > 0) -> deferred lighting + sky -> tonemap.
-Cross-frame state (transforms, HZB) lives in an explicit `carry` dict,
-as in the reference package.  Settings whose passes are not ported yet
-raise NotImplementedError naming their ROADMAP queue item; the frame
-never silently skips a pass.
+`peel_merge_frac` > 0) -> ray-traced sun shadows (tree refit, rays
+through the traversal kernel, temporal + spatial denoise) -> deferred
+lighting + sky -> bloom, auto-exposure, TAA -> tonemap.
+Cross-frame state (transforms, HZB, exposure, TAA and shadow histories)
+lives in an explicit `carry` dict, as in the reference package.
+Settings whose passes are not ported yet raise NotImplementedError
+naming their ROADMAP queue item; the frame never silently skips a pass.
 """
 
 from __future__ import annotations
@@ -21,26 +23,38 @@ import numpy as np
 import torch
 
 from toyrenderer_tpu_torch.device import resolve_device
+from toyrenderer_tpu_torch.mathlib.transforms import normalize
+from toyrenderer_tpu_torch.ops import bloom as bloom_mod
 from toyrenderer_tpu_torch.ops import culling as cull_mod
+from toyrenderer_tpu_torch.ops import exposure as exposure_mod
 from toyrenderer_tpu_torch.ops import geometry as geo_mod
 from toyrenderer_tpu_torch.ops import hzb as hzb_mod
 from toyrenderer_tpu_torch.ops import raster as raster_mod
+from toyrenderer_tpu_torch.ops import shadows as shadows_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
+from toyrenderer_tpu_torch.ops.bvh import refit_bvh
+from toyrenderer_tpu_torch.ops.denoise import denoise_shadow
 from toyrenderer_tpu_torch.ops.gbuffer import (
-    finish_gbuffer, masked_peel_merge_compact, pack_resolve_records)
-from toyrenderer_tpu_torch.ops.lighting import deferred_lighting
+    finish_gbuffer, masked_peel_merge_compact, pack_resolve_records,
+    unpack_gbuffer)
+from toyrenderer_tpu_torch.ops.lighting import (
+    deferred_lighting, world_pos_from_depth)
 from toyrenderer_tpu_torch.ops.peel_cuda import fill_peel_stream
 from toyrenderer_tpu_torch.ops.postprocess import compose_final
 from toyrenderer_tpu_torch.ops.raster import RasterConfig
 from toyrenderer_tpu_torch.ops.raster_cuda import (
     crop_image, fill_resolve_stream, stream_layout)
+from toyrenderer_tpu_torch.ops.taa import taa_resolve
+from toyrenderer_tpu_torch.ops.texture import _quad_expand
 
 
 @dataclass(frozen=True)
 class RenderSettings:
     """Render configuration: the reference package's RenderSettings,
     field for field and default for default (engine/frame.py:46-227
-    there documents each knob)."""
+    there documents each knob).  `shadow_max_steps` is accepted and, as
+    for the reference's traversal kernel, does not bound the shadow
+    rays' walk: every ray visits every node it needs."""
     width: int = 1920
     height: int = 1080
     # pass toggles
@@ -124,14 +138,11 @@ class RenderSettings:
 
 # setting -> (is it on?, the ROADMAP queue item that ports it)
 _NOT_PORTED = (
-    ('enable_shadows', lambda s: s.enable_shadows,
-     'queue 1 items 5-6 (RT shadows, sun map)'),
+    ('shadow_technique', lambda s: (s.enable_shadows
+                                    and s.shadow_technique == 'map'),
+     'queue 1 item 6 (sun map)'),
     ('enable_gi', lambda s: s.enable_gi, 'queue 1 item 8 (GI)'),
     ('enable_ao', lambda s: s.enable_ao, 'queue 1 item 7 (AO)'),
-    ('enable_taa', lambda s: s.enable_taa, 'queue 1 item 4 (post: TAA)'),
-    ('enable_bloom', lambda s: s.enable_bloom, 'queue 1 item 4 (post)'),
-    ('enable_auto_exposure', lambda s: s.enable_auto_exposure,
-     'queue 1 item 4 (post)'),
     ('enable_restir', lambda s: s.enable_restir,
      'queue 1 item 9 (opt-in paths)'),
     ('enable_transparency', lambda s: s.enable_transparency,
@@ -167,9 +178,16 @@ def init_carry(scene, settings: RenderSettings) -> dict:
         exposure=torch.tensor(settings.manual_exposure, device=dev),
         frame_index=torch.tensor(0, dtype=torch.int32, device=dev),
     )
+    hw = (settings.height, settings.width)
+    if settings.enable_taa:
+        carry['taa_history'] = torch.zeros(hw + (3,), device=dev)
+        carry['taa_valid'] = torch.zeros((), device=dev)
     if settings.enable_culling:
         carry['hzb'] = hzb_mod.init_hzb(settings.width, settings.height,
                                         device=dev)
+    if settings.enable_shadows:
+        carry['shadow_history'] = torch.ones(hw, device=dev)
+        carry['shadow_valid'] = torch.zeros((), device=dev)
     return carry
 
 
@@ -289,11 +307,50 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     return interp, depth, tri_id, aux, new_hzb
 
 
+def _shadow_raw(bvh, normal, depth, frame_inputs, carry, settings):
+    """The raw 1-spp sun visibility (H, W) of the ShadowMask pass
+    (reference package, frame.py:830-887).  With shadow_ray_scale = sc
+    (a power of two dividing the frame), rays trace at 1/sc resolution
+    from each sc x sc quad's nearest surface (reverse-Z max depth; the
+    quad's mean normal for the bias), on the checkerboard half of that
+    grid when shadow_checkerboard is on (alternating with the frame's
+    parity); the result expands back to full resolution."""
+    h, w = depth.shape
+    inv_vp = frame_inputs['inv_view_proj']
+    to_light = -frame_inputs['sun_direction']
+    trace = dict(frame_index=carry['frame_index'],
+                 max_steps=settings.shadow_max_steps)
+    sc = max(settings.shadow_ray_scale, 1)
+    if not (sc > 1 and h % sc == 0 and w % sc == 0 and (sc & (sc - 1)) == 0):
+        wp = world_pos_from_depth(depth, inv_vp, w, h)
+        return shadows_mod.trace_shadow_mask(bvh, wp, normal, depth > 0.0,
+                                             to_light, **trace)
+    hs, ws = h // sc, w // sc
+    d_h = depth.reshape(hs, sc, ws, sc).amax(dim=(1, 3))
+    wp_h = world_pos_from_depth(d_h, inv_vp, ws, hs)
+    n_h = normalize(normal.reshape(hs, sc, ws, sc, 3).sum(dim=(1, 3))
+                    * (1.0 / (sc * sc)))
+    if settings.shadow_checkerboard and ws % 2 == 0:
+        par = carry['frame_index'] % 2
+        d_c, wp_c, n_c = shadows_mod.checkerboard_pack((d_h, wp_h, n_h), par)
+        raw_c = shadows_mod.trace_shadow_mask(bvh, wp_c, n_c, d_c > 0.0,
+                                              to_light, **trace)
+        raw = shadows_mod.checkerboard_unpack(raw_c, par)
+    else:
+        raw = shadows_mod.trace_shadow_mask(bvh, wp_h, n_h, d_h > 0.0,
+                                            to_light, **trace)
+    raw = raw[..., None]
+    for _ in range(sc.bit_length() - 1):          # log2(sc) doublings
+        raw = _quad_expand(raw)
+    return raw[..., 0]
+
+
 def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                  carry: dict, settings: RenderSettings,
                  mask_pair_inst=None, mask_pair_meshlet=None,
                  raster_cfg: RasterConfig | None = None,
-                 mask_raster_cfg: RasterConfig | None = None):
+                 mask_raster_cfg: RasterConfig | None = None,
+                 rt_static=None, rt_pair_inst=None, rt_pair_meshlet=None):
     """One frame.
 
     frame_inputs (tensors on the scene's device, see
@@ -307,13 +364,25 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     place of settings.raster_config(), for the same width and height;
     mask_raster_cfg: the masked set's, sized for that set (default:
     raster_cfg).
+    rt_static: the static RT topology (ops/bvh.build_rt_static over the
+    RT pair list, the masked set appended), which RT shadows need; the
+    frame refits it every frame.  rt_pair_inst / rt_pair_meshlet: that
+    RT pair list (its payloads index it), accepted as the reference's
+    frame takes it; this frame's passes read only the tree.
     Returns (image_u8 (H, W, 3), new_carry, aux dict).  aux holds the
     opaque set's raster counters as `raster_*` (`raster_dropped` sums its
     drop counters, as the reference's does) or, culled, the reference's
-    `early_*` / `late_*` counters; and, when the masked set is drawn, the
-    same raster counters of that set as `raster_mask_*`.
+    `early_*` / `late_*` counters; when the masked set is drawn, the same
+    raster counters of that set as `raster_mask_*`; and, with their
+    passes on, `shadow` (the denoised mask), `bloom`, and exposure's
+    `avg_luminance` / `target_exposure`.
     """
     check_settings(settings)
+    if settings.enable_shadows and rt_static is None:
+        raise ValueError(
+            "RT shadows need rt_static (ops/bvh.build_rt_static); the "
+            "per-frame tree build without one is not ported (ROADMAP "
+            "queue 1 item 5)")
     cfg = settings.raster_config() if raster_cfg is None else raster_cfg
     cfg_m = cfg if mask_raster_cfg is None else mask_raster_cfg
     for name, c in (('raster_cfg', cfg), ('mask_raster_cfg', cfg_m)):
@@ -418,6 +487,20 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 peel = depth_m
         gb['depth'] = depth
 
+    # -- ShadowMask: the RT tree refit (every frame), rays through the
+    #    traversal kernel, then the temporal + spatial denoise ---------------
+    shadow_mask = None
+    new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
+                     frame_index=carry['frame_index'] + 1)
+    if settings.enable_shadows:
+        bvh = refit_bvh(rt_static, inst_world)
+        raw = _shadow_raw(bvh, unpack_gbuffer(gb)['normal'], depth,
+                          frame_inputs, carry, settings)
+        shadow_mask, new_carry['shadow_history'] = denoise_shadow(
+            raw, gb['motion'], carry['shadow_history'],
+            carry['shadow_valid'], depth, carry['prev_depth'])
+        new_carry['shadow_valid'] = torch.ones_like(carry['shadow_valid'])
+
     # -- Deferred lighting + sky --------------------------------------------
     to_light_sky = -frame_inputs['sun_direction']
     if settings.sky_model == 'hosek':
@@ -434,18 +517,38 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         gb, frame_inputs['cam_pos'], frame_inputs['inv_view_proj'],
         frame_inputs['sun_direction'], frame_inputs['sun_color'],
         frame_inputs['sun_intensity'], sky_fn,
-        ambient_factor=settings.ambient_factor)
+        ambient_factor=settings.ambient_factor, shadow_mask=shadow_mask)
 
-    new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
-                     frame_index=carry['frame_index'] + 1,
-                     exposure=carry['exposure'])
     if new_hzb is not None:
         new_carry['hzb'] = new_hzb
     aux = dict(depth=depth, tri_id=tri_id, motion=gb['motion'], hdr=hdr,
                resolved_pixels=torch.sum((tri_id >= 0).to(torch.int32)),
                **raster_aux,
                **{f'raster_mask_{k}': v for k, v in mstats.items()})
-    image = compose_final(hdr, exposure=carry['exposure'])
+    if shadow_mask is not None:
+        aux['shadow'] = shadow_mask
+
+    # -- HDR post, in the reference's pass order: bloom from the lighting
+    #    output, exposure adapted on the device (frame 0 snaps to the
+    #    target), TAA on HDR before the tonemap ---------------------------
+    bloom_tex = None
+    if settings.enable_bloom:
+        bloom_tex = bloom_mod.bloom(hdr, num_mips=settings.bloom_mips)
+        aux['bloom'] = bloom_tex
+    exposure = carry['exposure']
+    if settings.enable_auto_exposure:
+        adapted, exp_aux = exposure_mod.adapt_exposure(hdr, exposure)
+        exposure = torch.where(carry['frame_index'] == 0,
+                               exp_aux['target_exposure'], adapted)
+        aux.update(exp_aux)
+    new_carry['exposure'] = exposure
+    aa = hdr
+    if settings.enable_taa:
+        aa, new_carry['taa_history'] = taa_resolve(
+            hdr, gb['motion'], carry['taa_history'], carry['taa_valid'])
+        new_carry['taa_valid'] = torch.ones_like(carry['taa_valid'])
+    image = compose_final(aa, exposure=exposure, bloom=bloom_tex,
+                          bloom_strength=settings.bloom_strength)
     return image, new_carry, aux
 
 
@@ -482,8 +585,9 @@ def make_render_fn(settings: RenderSettings, device=None,
     """Frame function for `settings` on `device` (default: the CUDA
     device; raises when there is none), with the content-sized
     `raster_cfg` / `mask_raster_cfg` when given (see render_frame).
-    Accepts frame_inputs as host numpy arrays or tensors; returns
-    render_frame's result."""
+    Accepts frame_inputs as host numpy arrays or tensors, and passes its
+    keyword arguments (mask_pair_*, rt_static, rt_pair_*) to
+    render_frame; returns render_frame's result."""
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
     check_settings(settings)
     dev = resolve_device(device)

@@ -1,0 +1,281 @@
+"""Ray traversal of the 8-ary tree (ops/bvh.py): the CUDA kernel's
+wrapper, its plain PyTorch version, and the dispatch the frame calls.
+
+Counterpart of toyrenderer_tpu/ops/bvh_pallas.py's `traverse_auto` /
+`traverse_pallas` on the complete tree.  The TPU kernel it replaces,
+`_traverse_kernel` (bvh_pallas.py:250), becomes csrc/traverse.cu, built
+by nvcc into the build directory at first use and called through ctypes.
+
+The contract is the reference kernel's: `traverse(bvh, origins (N, 3),
+directions (N, 3), t_max (N,) or scalar, any_hit, live)` returns
+dict(hit (N,) bool, t (N,) f32 -- the hit distance, t_max on a miss --,
+tri (N,) i32 -- the hit triangle's payload, -1 on a miss --, steps (N,)
+i32 -- nodes the ray visited).  Every node a ray needs is visited: there
+is no step budget.  Any-hit rays stop at the first leaf that gives a hit,
+so their `t` / `tri` are that leaf's nearest, not the scene's.
+
+The kernel walks each ray depth-first with its own stack, children
+pushed far-to-near by the ray's direction signs; `traverse_plain` walks
+every ray in exactly that order, lockstep over the rays (one node per
+ray per step, until every stack is empty), with the kernel's arithmetic
+operation for operation, so hit, t and tri are bit-equal between them.
+It is the port of the reference package's lockstep `bvh.traverse`, with
+the kernel's semantics, and the oracle the kernel is held against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from toyrenderer_tpu_torch._build import shared_library
+from toyrenderer_tpu_torch.ops.bvh import ARITY, LEAF_TRIS, Bvh
+from toyrenderer_tpu_torch.ops.raster_cuda import NVCC_FLAGS, _check, nvcc_path
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse.cu"
+MAX_LEVELS = 9          # the kernel's stack bound; node << 4 fits an int
+_LEVEL_BITS = 4         # stack entry = (node << 4) | level
+_EPS_DIR = 1e-12
+
+# launches of the CUDA kernel since the last reset; the plain version
+# never counts
+launches = 0
+
+
+def _rays(origins, t_max, live):
+    """(t_max (N,) f32, live (N,) f32) broadcast to the ray count."""
+    n = origins.shape[0]
+    dev = origins.device
+    if isinstance(t_max, torch.Tensor):
+        t_max = t_max.to(dev, torch.float32).expand(n).contiguous()
+    else:                       # a fill on the device, no host copy
+        t_max = torch.full((n,), float(t_max), device=dev)
+    if live is None:
+        live = torch.ones(n, dtype=torch.float32, device=dev)
+    return t_max, live.to(dev, torch.float32).contiguous()
+
+
+def _slab_mask(rows, inv, oinv, best_t):
+    """(m, 8) bool: the children of parent rows (m, 48) the rays enter
+    before best_t; the kernel's slab test, t = lo * inv - o * inv."""
+    b = rows.reshape(-1, 6, ARITY)
+    t0 = [b[:, c] * inv[:, c, None] - oinv[:, c, None] for c in range(3)]
+    t1 = [b[:, 3 + c] * inv[:, c, None] - oinv[:, c, None]
+          for c in range(3)]
+    mn = [torch.minimum(a, z) for a, z in zip(t0, t1)]
+    mx = [torch.maximum(a, z) for a, z in zip(t0, t1)]
+    tmin = torch.maximum(torch.maximum(mn[0], mn[1]),
+                         torch.clamp(mn[2], min=0.0))
+    tmax = torch.minimum(torch.minimum(mx[0], mx[1]),
+                         torch.minimum(mx[2], best_t[:, None]))
+    return tmax >= tmin
+
+
+def _leaf_fold(rows, o, d, best_t, best_tri):
+    """Moller-Trumbore of rays (m,) against leaf rows (m, 120), the nearest
+    hit folded in triangle order (strict t < best_t).  Returns the new
+    (best_t, best_tri)."""
+    r = rows.reshape(-1, 10, LEAF_TRIS)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pay = r.unbind(1)
+    ox, oy, oz = (o[:, c, None] for c in range(3))
+    dx, dy, dz = (d[:, c, None] for c in range(3))
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = torch.where(torch.abs(det) < 1e-7, 0.0, 1.0 / det)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((inv_det != 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (tt > 1e-7) & (pay >= 0.0))
+    for j in range(LEAF_TRIS):
+        upd = ok[:, j] & (tt[:, j] < best_t)
+        best_t = torch.where(upd, tt[:, j], best_t)
+        best_tri = torch.where(upd, pay[:, j], best_tri)
+    return best_t, best_tri
+
+
+def traverse_plain(bvh: Bvh, origins, directions, t_max, any_hit=False,
+                   live=None, census: bool = False) -> dict:
+    """The kernel's function in plain PyTorch, on any device: each ray's
+    depth-first walk, in the kernel's order, lockstep over the rays.
+    Returns the contract's dict (see the module docstring); with
+    `census`, also what the walk read, for a bound on the work:
+    `leaf_steps` (N,) i32 (the leaf visits among `steps`) and
+    `box_rows_read` (R,) / `leaf_rows_read` (G,) bool (the rows some ray
+    read)."""
+    if bvh.num_levels > MAX_LEVELS:
+        raise ValueError(f"tree of {bvh.num_levels} levels: at most "
+                         f"{MAX_LEVELS}")
+    dev = origins.device
+    n = origins.shape[0]
+    t_max, live = _rays(origins, t_max, live)
+    o, d = origins, directions
+    sd = torch.where(torch.abs(d) < _EPS_DIR,
+                     torch.where(d < 0.0, -_EPS_DIR, _EPS_DIR), d)
+    inv = 1.0 / sd
+    oinv = o * inv
+    neg = (d < 0.0).to(torch.int64)
+    flip = (neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2]
+
+    best_t = t_max.clone()
+    best_tri = torch.full((n,), -1.0, device=dev)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    alive = (live > 0.0) & (t_max > 0.0)
+    n_stack = (bvh.num_levels - 1) * (ARITY - 1) + 2
+    stack = torch.zeros((n, n_stack), dtype=torch.int64, device=dev)
+    sp = alive.to(torch.int64)              # the root, entry 0, pushed
+    offsets = torch.tensor(list(bvh.level_offset) or [0], dtype=torch.int64,
+                           device=dev)
+    n_box, n_leaf = bvh.child_boxes.shape[0], bvh.leaf_rows.shape[0]
+    leaf_level = bvh.num_levels - 1
+    if census:
+        leaf_steps = torch.zeros(n, dtype=torch.int32, device=dev)
+        box_read = torch.zeros(n_box, dtype=torch.bool, device=dev)
+        leaf_read = torch.zeros(n_leaf, dtype=torch.bool, device=dev)
+    run = torch.nonzero(alive).flatten()
+    while run.numel() > 0:
+        top = sp[run] - 1
+        entry = stack[run, top]
+        sp[run] = top
+        steps[run] += 1
+        level = entry & ((1 << _LEVEL_BITS) - 1)
+        node = entry >> _LEVEL_BITS
+        is_leaf = level == leaf_level
+
+        sel = is_leaf & (node < n_leaf)
+        rl = run[sel]
+        if census:
+            leaf_steps[rl] += 1
+            leaf_read[node[sel]] = True
+        if rl.numel() > 0:
+            best_t[rl], best_tri[rl] = _leaf_fold(
+                bvh.leaf_rows[node[sel]], o[rl], d[rl], best_t[rl],
+                best_tri[rl])
+
+        inner = ~is_leaf
+        ri, ni, li = run[inner], node[inner], level[inner]
+        row = offsets[torch.clamp(li, max=offsets.numel() - 1)] + ni
+        there = row < n_box                 # not on a well-formed tree
+        ri, ni, li, row = ri[there], ni[there], li[there], row[there]
+        if census:
+            box_read[row] = True
+        if ri.numel() > 0:
+            want = _slab_mask(bvh.child_boxes[row], inv[ri], oinv[ri],
+                              best_t[ri])
+            fl = flip[ri]
+            spi = sp[ri]
+            for jj in range(ARITY - 1, -1, -1):
+                k = jj ^ fl
+                bit = torch.gather(want, 1, k[:, None])[:, 0]
+                # written at the top either way; kept only when pushed
+                stack[ri, spi] = (((ni * ARITY + k) << _LEVEL_BITS)
+                                  | (li + 1))
+                spi = spi + bit.to(torch.int64)
+            sp[ri] = spi
+
+        go = sp[run] > 0
+        if any_hit:
+            go = go & (best_tri[run] < 0.0)
+        run = run[go]
+    tri = best_tri.to(torch.int32)
+    out = dict(hit=tri >= 0, t=best_t, tri=tri, steps=steps)
+    if census:
+        out.update(leaf_steps=leaf_steps, box_rows_read=box_read,
+                   leaf_rows_read=leaf_read)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library."""
+    so = shared_library([nvcc_path(), *NVCC_FLAGS], SOURCE, "traverse.so")
+    lib = ctypes.CDLL(str(so))
+    fn = lib.traverse_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    return lib
+
+
+def launch(bvh: Bvh, origins, directions, t_max, any_hit=False,
+           live=None) -> dict:
+    """One launch of the CUDA kernel on the current stream; returns the
+    contract's dict."""
+    global launches
+    if bvh.num_levels > MAX_LEVELS:
+        raise ValueError(f"tree of {bvh.num_levels} levels: at most "
+                         f"{MAX_LEVELS}")
+    dev = origins.device
+    n = origins.shape[0]
+    f32 = torch.float32
+    t_max, live = _rays(origins, t_max, live)
+    boxes, leaves = bvh.child_boxes, bvh.leaf_rows
+    _check(boxes, 'child_boxes', f32, (boxes.shape[0], 6 * ARITY), dev)
+    _check(leaves, 'leaf_rows', f32, (leaves.shape[0], 10 * LEAF_TRIS), dev)
+    _check(origins, 'origins', f32, (n, 3), dev)
+    _check(directions, 'directions', f32, (n, 3), dev)
+    if boxes.data_ptr() % 16 or leaves.data_ptr() % 16:
+        raise ValueError("tree rows must be 16-byte aligned")
+    offs = list(bvh.level_offset)
+    if len(offs) != bvh.num_levels - 1:
+        raise ValueError(f"level_offset has {len(offs)} entries for "
+                         f"{bvh.num_levels} levels")
+    t = torch.empty(n, dtype=f32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    steps = torch.empty(n, dtype=torch.int32, device=dev)
+    offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
+    err = kernel_library().traverse_launch(
+        boxes.data_ptr(), boxes.shape[0], leaves.data_ptr(), leaves.shape[0],
+        bvh.num_levels, offs_c, origins.data_ptr(), directions.data_ptr(),
+        t_max.data_ptr(), live.data_ptr(), t.data_ptr(), tri.data_ptr(),
+        steps.data_ptr(), n, int(any_hit),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
+    launches += 1
+    return dict(hit=tri >= 0, t=t, tri=tri, steps=steps)
+
+
+def traverse(bvh: Bvh, origins, directions, t_max, any_hit=False,
+             live=None) -> dict:
+    """Trace rays through the tree: CUDA tensors launch the kernel, CPU
+    tensors run the plain version."""
+    dev = origins.device
+    if dev.type == 'cuda':
+        return launch(bvh, origins, directions, t_max, any_hit, live)
+    if dev.type == 'cpu':
+        return traverse_plain(bvh, origins, directions, t_max, any_hit,
+                              live)
+    raise ValueError(f"traverse: unsupported device {dev}")
+
+
+def traverse_auto(bvh: Bvh, origins, directions, t_max,
+                  any_hit: bool = False, max_steps: int = 128, live=None,
+                  sp_mesh=None, group_dirs=None, chunked: bool = False,
+                  pairs: bool = False, pair_tables=None) -> dict:
+    """The frame's entry to the traversal (bvh_pallas.py:96): `traverse`
+    on the complete tree.  `max_steps` is accepted and, as for the
+    reference's kernel, does not bound the walk.  The reference's other
+    routes are not ported yet and raise, naming their ROADMAP item."""
+    for on, what in (
+            (sp_mesh is not None, "sp_mesh (multi-device rays): ROADMAP "
+             "queue 1 item 12"),
+            (group_dirs is not None, "group_dirs (the grouped-direction "
+             "kernel K5): ROADMAP queue 1 item 9"),
+            (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 9"),
+            (pairs or pair_tables is not None, "pairs (the pair kernel "
+             "K6): ROADMAP queue 1 item 9")):
+        if on:
+            raise NotImplementedError(f"traverse_auto {what}")
+    return traverse(bvh, origins, directions, t_max, any_hit, live)

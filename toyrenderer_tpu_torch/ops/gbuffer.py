@@ -314,6 +314,19 @@ def resolve_gbuffer(records, depth, tri_id, jitter, cfg, atlas=None,
                           quad_taps=quad_taps, aniso=aniso)
 
 
+def unpack_gbuffer(gb: dict):
+    """GBuffer channels -> shading inputs (lightingcommon.hlsli unpack),
+    from the full-precision float planes.  The packed 4 x u32 GBuffer
+    (`pack_gbuffer=True`) is not ported yet."""
+    if 'albedo_f' not in gb:
+        raise NotImplementedError(
+            "unpack_gbuffer of the packed GBuffer: not ported yet (ROADMAP "
+            "queue 1 item 3)")
+    return dict(albedo=gb['albedo_f'], normal=gb['normal_f'],
+                emissive=gb['emissive_f'], roughness=gb['rough_f'],
+                metallic=gb['metal_f'], depth=gb['depth'])
+
+
 def _merges(k: str, channels) -> bool:
     """Does the compact merge carry channel k back?  By default every
     shading channel (not uv, which only debug views read)."""

@@ -83,6 +83,21 @@ def meshlet_clip_triangles(scene, inst_world, view_proj, pair_inst,
     )
 
 
+def rt_lod_pairs(scene_host, alpha_filter: str = 'all',
+                 budget_tris: int = 500_000):
+    """The RT pair list at the finest LOD whose triangle count fits the
+    budget (shadow rays of large scenes trace simplified geometry;
+    primary visibility stays at full LOD).  Returns (pair_inst,
+    pair_meshlet, lod)."""
+    max_lods = int(np.asarray(scene_host.prim_meshlet_offset).shape[1])
+    counts = np.asarray(scene_host.meshlet_tri_count)
+    for lod in range(max_lods):
+        pi, pm = static_meshlet_pairs(scene_host, alpha_filter, lod=lod)
+        if int(counts[pm].sum()) <= budget_tris or lod == max_lods - 1:
+            return pi, pm, lod
+    return pi, pm, max_lods - 1
+
+
 def static_meshlet_pairs(scene_host, alpha_filter: str = 'all',
                          lod: int = 0):
     """Host helper: the no-culling (instance, meshlet) pair list at a

@@ -4,8 +4,9 @@ Counterpart of toyrenderer_tpu/ops/lighting.py (reference:
 source/DeferredLightingRenderer.cpp + deferredlighting.hlsl): read the
 GBuffer shading planes, evaluate the directional sun BRDF, add ambient
 and emissive, and write sky radiance where no geometry was rasterized
-(depth == 0).  Shadow, AO and GI terms and the debug views wait for the
-slices that port those passes.
+(depth == 0); the sun term is multiplied by the shadow mask when one is
+given.  AO and GI terms and the debug views wait for the slices that
+port those passes.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ def world_pos_from_depth(depth, inv_view_proj, width, height):
 
 def deferred_lighting(gb: dict, cam_pos, inv_view_proj, sun_direction,
                       sun_color, sun_intensity, sky_fn,
-                      ambient_factor: float = 0.03):
+                      ambient_factor: float = 0.03, shadow_mask=None):
     """HDR lighting (H, W, 3).  sky_fn: callable(dirs (..., 3)) ->
-    (..., 3) sky radiance (Hosek or Preetham, chosen by the frame)."""
+    (..., 3) sky radiance (Hosek or Preetham, chosen by the frame);
+    shadow_mask: optional (H, W) sun visibility (1 = lit)."""
     depth = gb['depth']
     h, w = depth.shape
     hit = depth > 0.0
@@ -52,6 +54,8 @@ def deferred_lighting(gb: dict, cam_pos, inv_view_proj, sun_direction,
         gb['normal_f'], view_dir, light_dir.expand(view_dir.shape), albedo,
         gb['rough_f'], gb['metal_f'])
     lit = radiance * (sun_color * sun_intensity)
+    if shadow_mask is not None:
+        lit = lit * shadow_mask[..., None]
     ambient = albedo * ambient_factor * sun_intensity
     lit = lit + ambient + gb['emissive_f']
 

@@ -1,8 +1,8 @@
 """Final post-process: exposure, tonemap, sRGB encode, u8 quantize.
 
 Counterpart of toyrenderer_tpu/ops/postprocess.py (reference:
-PostProcessRenderer.cpp + postprocess.hlsl:44-69: exposure scale,
-Khronos PBR-neutral tonemap, linear -> sRGB).  Bloom waits for its slice.
+PostProcessRenderer.cpp + postprocess.hlsl:44-69: bloom lerp, exposure
+scale, Khronos PBR-neutral tonemap, linear -> sRGB).
 """
 
 from __future__ import annotations
@@ -33,8 +33,12 @@ def tonemap_pbr_neutral(color):
     return torch.clamp(out, 0.0, 1.0)
 
 
-def compose_final(hdr, exposure=1.0):
-    """HDR (H, W, 3) -> sRGB u8 (H, W, 3)."""
+def compose_final(hdr, exposure=1.0, bloom=None,
+                  bloom_strength: float = 0.04):
+    """HDR (H, W, 3) -> sRGB u8 (H, W, 3); `bloom` (H, W, 3) is lerped
+    in at `bloom_strength` first."""
+    if bloom is not None:
+        hdr = hdr * (1.0 - bloom_strength) + bloom * bloom_strength
     x = tonemap_pbr_neutral(hdr * exposure)
     x = linear_to_srgb(x)
     return torch.clamp(x * 255.0 + 0.5, 0, 255).to(torch.uint8)

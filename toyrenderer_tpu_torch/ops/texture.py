@@ -134,6 +134,14 @@ def _minpool2(x):
     return x.reshape(h // 2, 2, w // 2, 2).amin(dim=(1, 3))
 
 
+def _avgpool2(x):
+    """2x2 stride-2 average over the last two axes (H, W even)."""
+    h, w = x.shape[-2:]
+    q = x.reshape(*x.shape[:-2], h // 2, 2, w // 2, 2)
+    return (((q[..., 0, :, 0] + q[..., 0, :, 1]) + q[..., 1, :, 0])
+            + q[..., 1, :, 1]) * 0.25
+
+
 def _maxpool2(x):
     h, w = x.shape
     return x.reshape(h // 2, 2, w // 2, 2).amax(dim=(1, 3))

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from toyrenderer_tpu_torch.device import resolve_device
+from toyrenderer_tpu_torch.ops.bvh import Bvh, RtStatic
 from toyrenderer_tpu_torch.scene.scenebuild import DeviceScene
 
 
@@ -44,9 +45,42 @@ def frame_inputs_from_numpy(frame_inputs: dict, device=None) -> dict:
 
 
 def carry_from_numpy(carry: dict, device=None) -> dict:
-    """Carry (prev_inst_world, prev_depth, exposure, frame_index, and the
-    HZB's tuple of mips under culling) as numpy -> tensors on `device`
-    (floats f32, integers i32)."""
+    """Carry (prev_inst_world, prev_depth, exposure, frame_index, the
+    HZB's tuple of mips under culling, the TAA and shadow histories and
+    their validity) as numpy -> tensors on `device` (floats f32,
+    integers i32)."""
     dev = resolve_device(device)
     return {k: tuple(_tensor(m, dev) for m in v) if isinstance(v, tuple)
             else _tensor(v, dev) for k, v in carry.items()}
+
+
+def rt_static_from_numpy(arrays: dict, device=None) -> RtStatic:
+    """RtStatic from its fields as numpy arrays (obj_v0, obj_e1, obj_e2,
+    tri_inst, payload, pair_keep) plus the statics num_levels,
+    n_real_groups and n_mask_pairs -- a static topology built by either
+    package."""
+    dev = resolve_device(device)
+
+    def on(k, dtype):
+        return torch.from_numpy(np.array(arrays[k], dtype=dtype)).to(dev)
+    return RtStatic(
+        obj_v0=on('obj_v0', np.float32), obj_e1=on('obj_e1', np.float32),
+        obj_e2=on('obj_e2', np.float32), tri_inst=on('tri_inst', np.int32),
+        payload=on('payload', np.int32), pair_keep=on('pair_keep', bool),
+        num_levels=int(arrays['num_levels']),
+        n_real_groups=int(arrays['n_real_groups']),
+        n_mask_pairs=int(arrays.get('n_mask_pairs', 0)))
+
+
+def bvh_from_numpy(arrays: dict, device=None) -> Bvh:
+    """Bvh from child_boxes (R, 48) and leaf_rows (G, 120) as numpy plus
+    the statics level_offset and num_levels -- a refitted tree of either
+    package."""
+    dev = resolve_device(device)
+    return Bvh(
+        child_boxes=torch.from_numpy(
+            np.array(arrays['child_boxes'], np.float32)).to(dev),
+        level_offset=tuple(int(x) for x in arrays['level_offset']),
+        num_levels=int(arrays['num_levels']),
+        leaf_rows=torch.from_numpy(
+            np.array(arrays['leaf_rows'], np.float32)).to(dev))
