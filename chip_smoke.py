@@ -24,7 +24,17 @@ both main paths through the port's entry points at 1920x1080:
   traces, and closest-hit) and the reprojection warp kernel (K4, its
   TAA and denoiser launches) held against their plain versions on the
   inputs the frame launches them with, 1 + 5 frames, 384x216 frames on
-  the card against the CPU, a profile.
+  the card against the CPU, a profile;
+* the bench's all-on frame (slice 4): the shadowed frame with GTAO and
+  DDGI on its own LOD-reduced SAH tree (gi_update_phases 4, interval
+  mode): the GI tree's host build, the SAH traversal (K3-SAH) held
+  against its plain version on an update frame's own probe rays,
+  closest-hit and any-hit, the grouped-direction traversal (K5) on the
+  same rays in the gdir layout (TR_GI_GDIR=1) held against its plain
+  version and against K3-SAH, that frame's image against the default
+  layout's, 1 + 8 frames (two of them update frames) with per-frame
+  gates, update-frame and hold-frame medians and profiles, 384x216
+  frames on the card against the CPU through one update.
 
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
@@ -37,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -49,6 +60,7 @@ SCENE = ROOT / "resources" / "courtyard.glb"
 WIDTH, HEIGHT = 1920, 1080
 SMALL = (384, 216)               # card-vs-CPU frames
 FRAMES = 5                       # timed frames after one warm-up
+ALLON_FRAMES = 8                 # the all-on path's: two update frames
 KERNEL_REPS = 10                 # timed launches per kernel input
 OPAQUE_PAIR_FRAC = 0.6           # bench.py:140-146: the culled frame's
 #                                  early pair list, as a share of LOD0
@@ -72,7 +84,12 @@ OPS_PER_RESOLVE = 240
 # instructions, so the kernels reach at most half the FMA peak on them
 OPS_PER_SLAB = 22
 OPS_PER_TRI_TEST = 54
-RAY_BYTES = 32 + 12              # origin, direction, t_max, live; t, tri, steps
+# bytes the traversal moves for a ray slot: every slot reads t_max and
+# live and writes t, tri and steps; only a live slot also reads its
+# origin and direction (a grouped one: its origin, and its group's
+# direction once per group)
+SLOT_BYTES = 4 + 4 + 12
+VEC3_BYTES = 12
 SHADOW_YAW = 0.002               # rad a frame: ~2 px of pan at 1080p
 # planes the kernel copies from the winner's record (material factors,
 # ids, texture statics, cutoff): bit-equal; the others are computed and
@@ -337,10 +354,22 @@ def drops_of(aux) -> tuple[int, int]:
     return opaque, int(aux['raster_mask_dropped'])
 
 
-def kernel_modules():
+def reset_launch_counts():
+    """Set every kernel wrapper's launch count to 0."""
     from toyrenderer_tpu_torch.ops import (
         bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
-    return raster_cuda, peel_cuda, bvh_cuda, warp_cuda
+    for m in (raster_cuda, peel_cuda, warp_cuda):
+        m.launches = 0
+    bvh_cuda.reset_launches()
+
+
+def launch_counts() -> list[int]:
+    """The launch counts K1 K2 K3 K4 K3-SAH K5 since the last reset."""
+    from toyrenderer_tpu_torch.ops import (
+        bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
+    by = bvh_cuda.launches_by_kernel
+    return [raster_cuda.launches, peel_cuda.launches, by['K3'],
+            warp_cuda.launches, by['K3-SAH'], by['K5']]
 
 
 def drive(render, scene, pairs, fi_np, carry, mask_kw, frames, per_frame):
@@ -353,8 +382,7 @@ def drive(render, scene, pairs, fi_np, carry, mask_kw, frames, per_frame):
     inputs = fi_np if callable(fi_np) else (lambda: fi_np)
     img, carry, aux = render(scene, *pairs, inputs(), carry, **mask_kw)
     torch.cuda.synchronize()
-    for m in kernel_modules():
-        m.launches = 0
+    reset_launch_counts()
     times, walls, rows = [], [], []
     for _ in range(frames):
         fi = inputs()
@@ -392,15 +420,15 @@ def check_frame(img, aux, k1, k2, want_k1, want_k2, name):
 
 def profile_frame(render, scene, pairs, fi_np, carry, mask_kw):
     """One frame under the profiler: device busy ms (each device kernel
-    once) and (op, ms, calls) by the PyTorch op that launched them (the
-    hand-written kernels, launched through ctypes, by their own
-    names)."""
+    once), (op, ms, calls) by the PyTorch op that launched them (the
+    hand-written kernels, launched through ctypes, by their own names),
+    and the frame's result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        render(scene, *pairs, fi_np, carry, **mask_kw)
+        out = render(scene, *pairs, fi_np, carry, **mask_kw)
         torch.cuda.synchronize()
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events
@@ -415,18 +443,20 @@ def profile_frame(render, scene, pairs, fi_np, carry, mask_kw):
                   e.device_type == DeviceType.CPU
                   or any(m in e.key for m in mine))]
     by_op.sort(key=lambda r: -r[1])
-    return busy, by_op
+    return busy, by_op, out
 
 
 def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw,
-                yaw=0.0, kw_on=lambda dev: {}, min_share=0.999):
+                yaw=0.0, kw_on=lambda dev: {}, min_share=0.999,
+                volume=None):
     """The same frames on the card (kernels) and on the CPU (plain
     versions), the camera turning `yaw` a frame: u8 images within 1 on
     >= min_share of the pixels (default 99.9%: the two devices' 4x4
     products may round apart by an ulp, so a few edge pixels may change
     triangle), no drops.  cfg_kw: the frame's raster_cfg /
     mask_raster_cfg; kw_on(device): further render keywords on that
-    device.  Returns (share within 1, max difference)."""
+    device; volume: the DDGI probe grid of the carry.  Returns (share
+    within 1, max difference)."""
     import numpy as np
     import torch
     from toyrenderer_tpu_torch.engine import (
@@ -437,7 +467,7 @@ def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw,
         d = sc.device
         p = [torch.from_numpy(a).to(d) for a in pairs_np]
         render = make_render_fn(settings, d, **cfg_kw)
-        carry = init_carry(sc, settings)
+        carry = init_carry(sc, settings, volume)
         view = View.from_scene(host, w, h)
         out = []
         for _ in range(frames):
@@ -458,68 +488,92 @@ def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw,
     return close, int(diff.max())
 
 
-def traverse_bound_ms(census, n_slots) -> tuple[float, str]:
+def traverse_bound_ms(census, alive, node_floats=48,
+                      grouped=False) -> tuple[float, str]:
     """Least time the card could take for these rays: operations, every
     slab test of the internal nodes and every triangle test of the
     leaves the rays visit (the plain version's census of this run's
-    walk); bytes, the distinct tree rows read once and each ray slot's
-    inputs read and outputs written once."""
+    walk); bytes, the distinct tree rows read once (node rows of
+    `node_floats` floats: 48 on the complete tree, 64 on the SAH tree),
+    each slot's SLOT_BYTES, and the origin and direction of each live
+    slot (`alive` (N,) bool) read once -- with `grouped` directions, the
+    direction of each group of 128 that holds a live slot."""
+    from toyrenderer_tpu_torch.ops.bvh_cuda import GROUP
     leaf = int(census['leaf_steps'].sum())
     inner = int(census['steps'].sum()) - leaf
     ops = inner * 8 * OPS_PER_SLAB + leaf * 12 * OPS_PER_TRI_TEST
-    bytes_ = (int(census['box_rows_read'].sum()) * 48 * 4
+    n_live = int(alive.sum())
+    n_dirs = (int(alive.reshape(-1, GROUP).any(1).sum()) if grouped
+              else n_live)
+    bytes_ = (int(census['box_rows_read'].sum()) * node_floats * 4
               + int(census['leaf_rows_read'].sum()) * 120 * 4
-              + n_slots * RAY_BYTES)
+              + alive.numel() * SLOT_BYTES + (n_live + n_dirs) * VEC3_BYTES)
     return bound(ops, bytes_)
 
 
-def hold_k3(args) -> dict:
-    """K3 against its plain version on one recorded launch, in the
-    frame's any-hit mode and in closest-hit mode: hit, t and tri (and
-    the visit counts) bit-equal.  Prints a phase line per mode; returns
-    per mode its err, ms, plain_ms, bound and rates."""
+def hold_trace(label, args) -> dict:
+    """One recorded launch of the traversal (K3, K3-SAH or K5) against
+    the plain version in its own mode: hit, t, tri and the visit counts
+    bit-equal; for K5 also against the kernel on the expanded directions
+    (K3 / K3-SAH on the same rays).
+    Prints a phase line; returns its err, ms (the profiler's device time
+    per launch), events ms, plain ms, bound, Mrays/s over live rays and
+    the visit census."""
     import torch
     from toyrenderer_tpu_torch.ops import bvh_cuda
-    bvh, o, d, t_max, _, live = args
-    n_live = int((live > 0).sum())
-    out = {}
-    for mode, any_hit in (("any-hit", True), ("closest-hit", False)):
-        run = (bvh, o, d, t_max, any_hit, live)
-        got = bvh_cuda.launch(*run)
-        t = time.time()
-        want = bvh_cuda.traverse_plain(*run, census=True)
-        torch.cuda.synchronize()
-        plain_wall = time.time() - t
+    from toyrenderer_tpu_torch.ops.bvh_sah import BvhSah
+    bvh, o, d, t_max, any_hit, live, gd = args
+    mode = "any-hit" if any_hit else "closest-hit"
+    got = bvh_cuda.launch(*args)
+    t = time.time()
+    want = bvh_cuda.traverse_plain(bvh, o, d, t_max, any_hit, live,
+                                   census=True, group_dirs=gd)
+    torch.cuda.synchronize()
+    plain_wall = time.time() - t
+    checks = [("plain", want)]
+    if gd is not None:
+        expanded = bvh_cuda.expand_group_dirs(gd, o.shape[0]).contiguous()
+        checks.append(("per-ray kernel", bvh_cuda.launch(
+            bvh, o, expanded, t_max, any_hit, live)))
+    for what, ref in checks:
         for k in ('hit', 't', 'tri', 'steps'):
-            if not torch.equal(got[k], want[k]):
+            if not torch.equal(got[k], ref[k]):
                 raise AssertionError(
-                    f"K3 {mode}: {k} differs on "
-                    f"{int((got[k] != want[k]).sum())} rays")
-        steps = want['steps'][live > 0].float()
-        st = dict(err=float((got['t'] - want['t']).abs().max()),
-                  ms=device_ms(lambda: bvh_cuda.launch(*run), KERNEL_REPS),
-                  events_ms=cuda_ms(lambda: bvh_cuda.launch(*run),
-                                    KERNEL_REPS),
-                  plain_ms=cuda_ms(
-                      lambda: bvh_cuda.traverse_plain(*run), 1),
-                  bound=traverse_bound_ms(want, o.shape[0]))
-        st['mrays_s'] = n_live / st['ms'] / 1e3
-        out[mode] = st
-        phase("K3 vs plain", mode=mode, ray_slots=o.shape[0],
-              live_rays=n_live,
-              hit_share=f"{float(got['hit'][live > 0].float().mean()):.4f}",
-              visits_mean=f"{float(steps.mean()):.1f}",
-              visits_max=int(steps.max()),
-              leaf_visits=int(want['leaf_steps'].sum()),
-              rows_read=f"{int(want['box_rows_read'].sum())}"
-              f"+{int(want['leaf_rows_read'].sum())}",
-              hit_t_tri="bit-equal", kernel_ms=f"{st['ms']:.4f}",
-              kernel_events_ms=f"{st['events_ms']:.4f}",
-              mrays_per_s=f"{st['mrays_s']:.1f}",
-              plain_ms=f"{st['plain_ms']:.1f}",
-              plain_first_wall_s=f"{plain_wall:.1f}",
-              bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
-    return out
+                    f"{label} {mode} vs {what}: {k} differs on "
+                    f"{int((got[k] != ref[k]).sum())} rays")
+    # the kernel's dead slots: live <= 0 or t_max <= 0
+    alive = (live > 0) & (torch.as_tensor(t_max, device=o.device) > 0)
+    n_live = int(alive.sum())
+    steps = want['steps'][alive].float()
+    st = dict(err=float((got['t'] - want['t']).abs().max()),
+              ms=device_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS),
+              events_ms=cuda_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS),
+              plain_ms=cuda_ms(lambda: bvh_cuda.traverse_plain(
+                  bvh, o, d, t_max, any_hit, live, group_dirs=gd), 1),
+              bound=traverse_bound_ms(
+                  want, alive, 64 if isinstance(bvh, BvhSah) else 48,
+                  gd is not None),
+              visits_mean=float(steps.mean()), visits_max=int(steps.max()),
+              ray_slots=o.shape[0], live_rays=n_live)
+    st['mrays_s'] = n_live / st['ms'] / 1e3
+    phase(label + " vs plain", mode=mode, ray_slots=o.shape[0],
+          live_rays=n_live, stack_entries=bvh_cuda.stack_entries(bvh),
+          group_dirs=0 if gd is None else gd.shape[0],
+          hit_share=f"{float(got['hit'][alive].float().mean()):.4f}",
+          visits_mean=f"{st['visits_mean']:.1f}",
+          visits_max=st['visits_max'],
+          leaf_visits=int(want['leaf_steps'].sum()),
+          rows_read=f"{int(want['box_rows_read'].sum())}"
+          f"+{int(want['leaf_rows_read'].sum())}",
+          hit_t_tri_visits="bit-equal to " + " and ".join(
+              w for w, _ in checks),
+          kernel_ms=f"{st['ms']:.4f}",
+          kernel_events_ms=f"{st['events_ms']:.4f}",
+          mrays_per_s=f"{st['mrays_s']:.1f}",
+          plain_ms=f"{st['plain_ms']:.1f}",
+          plain_first_wall_s=f"{plain_wall:.1f}",
+          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
+    return st
 
 
 def hold_k4(name, args) -> dict:
@@ -606,7 +660,7 @@ def main() -> int:
     from toyrenderer_tpu_torch.ops import geometry as geo_mod
     from toyrenderer_tpu_torch.ops import raster as raster_mod
     from toyrenderer_tpu_torch.ops import (
-        bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
+        bvh_cuda, bvh_sah, ddgi, peel_cuda, raster_cuda, warp_cuda)
     from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
     from toyrenderer_tpu_torch.scene import load_scene
     from toyrenderer_tpu_torch.scene.gltf import (
@@ -755,7 +809,7 @@ def main() -> int:
           masked_dropped=json.dumps(mask_drops),
           binned_pairs=int(aux['raster_binned_pairs']),
           big_tris=int(aux['raster_big_tris']))
-    busy, by_op = profile_frame(render, scene, (pair_inst, pair_meshlet),
+    busy, by_op, _ = profile_frame(render, scene, (pair_inst, pair_meshlet),
                                 fi_np, carry, mask_kw)
     phase("profile", path="default", device_busy_ms=f"{busy:.3f}",
           busy_share_of_median_frame=(
@@ -968,7 +1022,7 @@ def main() -> int:
           frames=2, within_1=f"{close:.6f}", max_diff=max_diff)
 
     # 10. where the culled frame's device time goes ---------------------------
-    c_busy, c_by_op = profile_frame(c_render, scene, c_pairs, fi_np,
+    c_busy, c_by_op, _ = profile_frame(c_render, scene, c_pairs, fi_np,
                                     c_carry, mask_kw)
     phase("profile", path="culled", device_busy_ms=f"{c_busy:.3f}",
           busy_share_of_median_frame=(
@@ -1032,7 +1086,10 @@ def main() -> int:
     if (len(k3_in), len(k4_in)) != (1, 2):
         raise AssertionError(f"shadowed frame: {len(k3_in)} K3 and "
                              f"{len(k4_in)} K4 launches; want 1 and 2")
-    k3 = hold_k3(k3_in[0])
+    # the frame's any-hit launch, and its rays closest-hit
+    args = k3_in[0]
+    k3 = {mode: hold_trace("K3", args[:4] + (any_hit,) + args[5:])
+          for mode, any_hit in (("any-hit", True), ("closest-hit", False))}
     k4 = {name: hold_k4(name, args) for name, args in zip(
         ("denoiser history, half res", "TAA history, full res"), k4_in)}
     del k3_in, k4_in
@@ -1042,7 +1099,7 @@ def main() -> int:
     #     K3 once and K4 twice, drops nothing, traces a lit side that is
     #     neither all lit nor all shadowed, and keeps a finite exposure
     def per_frame(aux, carry):
-        return dict(launches=[m.launches for m in kernel_modules()],
+        return dict(launches=launch_counts()[:4],
                     drops=drops_of(aux), exposure=float(carry['exposure']),
                     target_exposure=float(aux['target_exposure']))
     with recorded((bvh_cuda,)) as traced:
@@ -1106,7 +1163,7 @@ def main() -> int:
           min_share=0.995)
 
     # 15. where the shadowed frame's device time goes
-    s_busy, s_by_op = profile_frame(s_render, scene, c_pairs, pan_fi.pop(),
+    s_busy, s_by_op, _ = profile_frame(s_render, scene, c_pairs, pan_fi.pop(),
                                     s_carry, s_kw)
     phase("profile", path="shadowed", device_busy_ms=f"{s_busy:.3f}",
           busy_share_of_median_frame=(
@@ -1114,13 +1171,225 @@ def main() -> int:
               else "not measured"),
           by_op_ms_calls=json.dumps(s_by_op[:20]))
 
-    # 16. kernels -------------------------------------------------------------
+    # ===================== the all-on frame (slice 4) ========================
+    # the bench's north-star frame (bench.py:480-540): the shadowed frame
+    # with GTAO and DDGI (gi_update_phases 4, interval mode: the whole
+    # probe volume is traced on every 4th frame and held on the others);
+    # the probe rays trace their own tree -- the finest LOD under the
+    # TR_GI_TRIS budget (100k triangles) with the coverage-kept masked
+    # pairs, as an SAH tree -- built once on the host, refit on every
+    # update frame; their sun taps are any-hit rays on the same tree
+
+    # 16. the GI tree and the probe volume
+    t = time.time()
+    gi_rts, gpi_t, gpm_t, gi_lod = bvh_sah.build_rt_static_gi(
+        host, 'not_mask', mask_pair_inst=mk_i, mask_pair_meshlet=mk_m,
+        device=dev)
+    gi_build_s = time.time() - t
+    gi_tree = bvh_sah.refit_sah(gi_rts, inst_world)
+    vol = ddgi.volume_from_aabb(*host.world_aabb)
+    gi_mb = (gi_tree.node_rows.numel() + gi_tree.leaf_rows.numel()) * 4 / 1e6
+    phase("GI tree", host_build_s=f"{gi_build_s:.2f}", lod=gi_lod,
+          flavour="sah", pairs=len(gpi_t) + gi_rts.n_mask_pairs,
+          n_mask_pairs=gi_rts.n_mask_pairs,
+          triangles=int((gi_rts.payload >= 0).sum()),
+          instances=len(gi_rts.seg_lens), depth=gi_tree.depth,
+          stack_entries=bvh_cuda.stack_entries(gi_tree),
+          node_rows=gi_tree.node_rows.shape[0],
+          leaf_rows=gi_tree.leaf_rows.shape[0], tree_mb=f"{gi_mb:.2f}",
+          probes=vol.num_probes, probe_counts=json.dumps(vol.counts),
+          rays_per_probe=vol.rays_per_probe)
+    del gi_tree
+    a_set = dataclasses.replace(s_set, enable_ao=True, enable_gi=True,
+                                gi_update_phases=4)
+    a_render = make_render_fn(a_set, **c_kw)
+    a_kw = dict(s_kw, ddgi_volume=vol, rt_static_gi=gi_rts,
+                gi_pair_inst=gpi_t, gi_pair_meshlet=gpm_t)
+    pan = View.from_scene(host, WIDTH, HEIGHT)
+    a_fi = []
+    for _ in range(4 + 1 + ALLON_FRAMES + 3):
+        mats = pan.matrices()
+        a_fi.append(default_frame_inputs(host, mats))
+        pan.advance(mats)
+        pan.rotate_yaw_pitch(SHADOW_YAW, 0.0)
+    a_fi.reverse()
+
+    # 17. K3-SAH and K5 against their plain versions on the rays of the
+    #     first update frame (frame 3; frames 0-2 hold the probes): the
+    #     probe rays closest-hit and their sun rays any-hit, in the cone
+    #     layout (K3-SAH), then the same frame rendered again with
+    #     TR_GI_GDIR=1 (K5 on the gdir layout), whose image must match
+    a_carry = init_carry(scene, a_set, vol)
+    for _ in range(3):
+        _, a_carry, a_aux = a_render(scene, *c_pairs, a_fi.pop(), a_carry,
+                                     **a_kw)
+        if a_aux['ddgi_updated']:
+            raise AssertionError("all-on frames 0-2 updated the probes")
+    fi3, carry3 = a_fi.pop(), a_carry
+    (k3s_in,), (img3, a_carry, aux3) = launch_inputs(
+        a_render, scene, c_pairs, fi3, carry3, a_kw, (bvh_cuda,))
+    if not aux3['ddgi_updated'] or len(k3s_in) != 3:
+        raise AssertionError(f"all-on frame 3: updated "
+                             f"{aux3['ddgi_updated']}, {len(k3s_in)} "
+                             "traversal launches; want True and 3")
+    sah_in = [a for a in k3s_in if isinstance(a[0], bvh_sah.BvhSah)]
+    if ([a[4] for a in sah_in] != [False, True]
+            or any(a[6] is not None for a in k3s_in)):
+        raise AssertionError("all-on frame 3: want one closest-hit and "
+                             "one any-hit SAH launch, no grouped one")
+    k3s = {"probe rays, closest-hit": hold_trace("K3-SAH", sah_in[0]),
+           "probe-hit sun rays, any-hit": hold_trace("K3-SAH", sah_in[1])}
+    del k3s_in, sah_in
+    os.environ['TR_GI_GDIR'] = '1'
+    try:
+        reset_launch_counts()
+        (k5_in,), (img3g, carry3g, _) = launch_inputs(
+            a_render, scene, c_pairs, fi3, carry3, a_kw, (bvh_cuda,))
+        k5_launches = bvh_cuda.launches_by_kernel['K5']
+    finally:
+        del os.environ['TR_GI_GDIR']
+    k5_in = [a for a in k5_in if a[6] is not None]
+    if k5_launches != 2 or [a[4] for a in k5_in] != [False, True]:
+        raise AssertionError(f"gdir frame: {k5_launches} K5 launches; "
+                             "want a closest-hit and an any-hit one")
+    k5 = {"probe rays, closest-hit": hold_trace("K5", k5_in[0]),
+          "probe-hit sun rays, any-hit": hold_trace("K5", k5_in[1])}
+    del k5_in
+    gdiff = (img3.int() - img3g.int()).abs().amax(-1)
+    g_close = float((gdiff <= 1).float().mean())
+    if g_close < 0.999:
+        raise AssertionError(f"gdir frame vs cone frame: within 1 on "
+                             f"{g_close:.5f} of pixels")
+    phase("gdir frame vs cone frame", frame=3, within_1=f"{g_close:.6f}",
+          max_diff=int(gdiff.max()),
+          bit_equal=bool(torch.equal(img3, img3g)),
+          probes_bit_equal=bool(torch.equal(
+              a_carry['ddgi_irradiance'], carry3g['ddgi_irradiance'])),
+          min_share=0.999)
+    del img3, img3g, carry3, carry3g
+
+    # 18. the all-on frame at 1920x1080 through the entry points: 1 + 8
+    #     frames of the pan (frames 4-12: updates at 7 and 11); gates on
+    #     every timed frame
+    def a_per_frame(aux, carry):
+        irr = carry['ddgi_irradiance']
+        ao = aux['ao']
+        return dict(launches=launch_counts(),
+                    updated=aux['ddgi_updated'], drops=drops_of(aux),
+                    irr_finite=bool(torch.isfinite(irr).all()),
+                    irr_max=float(irr.max()),
+                    variability=float(aux['ddgi_variability']),
+                    active_probes=int(aux['ddgi_active_probes']),
+                    ao=(float(ao.min()), float(ao.mean()), float(ao.max())),
+                    exposure=float(carry['exposure']))
+    a_times, a_walls, a_img, a_aux, a_carry, a_rows = drive(
+        a_render, scene, c_pairs, a_fi.pop, a_carry, a_kw, ALLON_FRAMES,
+        a_per_frame)
+    prev = [0] * 6
+    for i, r in enumerate(a_rows):
+        per = [a - b for a, b in zip(r['launches'], prev)]
+        prev = r['launches']
+        want = [2, 1, 1, 2, 2 if r['updated'] else 0, 0]
+        if per != want or r['drops'] != (0, 0):
+            raise AssertionError(
+                f"all-on frame {i}: launches K1 K2 K3 K4 K3-SAH K5 {per} "
+                f"(want {want}), drops {r['drops']}")
+        lo, mean, hi = r['ao']
+        if not (r['irr_finite'] and r['irr_max'] > 0
+                and np.isfinite(r['variability'])
+                and 0.0 <= lo and hi <= 1.0 and 0.0 < mean < 1.0
+                and np.isfinite(r['exposure']) and r['exposure'] > 0):
+            raise AssertionError(f"all-on frame {i}: {r}")
+    a_launches = prev
+    n_upd = sum(r['updated'] for r in a_rows)
+    if n_upd < 2:
+        raise AssertionError(f"all-on: {n_upd} update frames of "
+                             f"{ALLON_FRAMES}")
+    a_coverage = check_frame(a_img, a_aux, a_launches[0], a_launches[1],
+                             2 * ALLON_FRAMES, ALLON_FRAMES, "all-on frame")
+    np.save(BUILD_DIR / f"chip_smoke_allon_{WIDTH}x{HEIGHT}.npy",
+            a_img.cpu().numpy())
+    upd_ms = [x for x, r in zip(a_times, a_rows) if r['updated']]
+    hold_ms = [x for x, r in zip(a_times, a_rows) if not r['updated']]
+    phase("frame", path="all-on", size=f"{WIDTH}x{HEIGHT}",
+          frames=ALLON_FRAMES, update_frames=n_upd,
+          update_median_ms=f"{statistics.median(upd_ms):.3f}",
+          hold_median_ms=f"{statistics.median(hold_ms):.3f}",
+          all_ms=json.dumps([round(x, 3) for x in a_times]),
+          updated=json.dumps([r['updated'] for r in a_rows]),
+          host_wall_ms=json.dumps([round(x, 3) for x in a_walls]),
+          launches_k1_k2_k3_k4_k3sah_k5=json.dumps(a_launches),
+          coverage=f"{a_coverage:.4f}", raster_dropped=drops_of(a_aux)[0],
+          raster_mask_dropped=drops_of(a_aux)[1],
+          probe_irradiance_max=json.dumps(
+              [round(r['irr_max'], 4) for r in a_rows]),
+          variability=json.dumps([round(r['variability'], 5)
+                                  for r in a_rows]),
+          active_probes=json.dumps([r['active_probes'] for r in a_rows]),
+          ao_min_mean_max=json.dumps([round(x, 4) for x in a_rows[-1]['ao']]),
+          exposure=json.dumps([round(r['exposure'], 5) for r in a_rows]))
+
+    # 19. where an update frame's and a hold frame's device time goes
+    #     (frame 13 holds, 14 holds, 15 updates)
+    h_busy, h_by_op, (_, a_carry, h_aux) = profile_frame(
+        a_render, scene, c_pairs, a_fi.pop(), a_carry, a_kw)
+    _, a_carry, _ = a_render(scene, *c_pairs, a_fi.pop(), a_carry, **a_kw)
+    u_busy, u_by_op, (_, a_carry, u_aux) = profile_frame(
+        a_render, scene, c_pairs, a_fi.pop(), a_carry, a_kw)
+    if h_aux['ddgi_updated'] or not u_aux['ddgi_updated']:
+        raise AssertionError("all-on profiles: frame 13 must hold and "
+                             "frame 15 update")
+    for kind, busy, by_op, med in (
+            ("update", u_busy, u_by_op, statistics.median(upd_ms)),
+            ("hold", h_busy, h_by_op, statistics.median(hold_ms))):
+        phase("profile", path=f"all-on {kind} frame",
+              device_busy_ms=f"{busy:.3f}",
+              busy_share_of_median_frame=(f"{busy / med:.3f}" if busy
+                                          else "not measured"),
+              by_op_ms_calls=json.dumps(by_op[:20]))
+
+    # 20. small all-on frames on the card against the CPU: 4 frames of a
+    #     pan (the 4th updates the probes), the whole RT and GI trees, a
+    #     smaller probe volume (8 probes on the longest side, 64 rays each)
+    small_a = dataclasses.replace(small_s, enable_ao=True, enable_gi=True,
+                                  gi_update_phases=4)
+    small_vol = ddgi.volume_from_aabb(*host.world_aabb, max_probes_axis=8,
+                                      rays_per_probe=64)
+    gi_cpu = rt_static_on(gi_rts, torch.device("cpu"))
+
+    def small_kw(d):
+        on_card = d.type == "cuda"
+        return dict(rt_static=rts if on_card else rts_cpu,
+                    ddgi_volume=small_vol,
+                    rt_static_gi=gi_rts if on_card else gi_cpu,
+                    gi_pair_inst=gpi_t.to(d), gi_pair_meshlet=gpm_t.to(d))
+    close, max_diff = card_vs_cpu(
+        host, scene, small_a, [cpi, cpm, mk_i, mk_m], 4, dict(
+            raster_cfg=sized_raster_config(
+                small_a, {"opaque": s_counts["opaque"]}),
+            mask_raster_cfg=sized_raster_config(
+                small_a, {"masked": s_counts["masked"]})),
+        yaw=SHADOW_YAW * WIDTH / SMALL[0], min_share=0.995, kw_on=small_kw,
+        volume=small_vol)
+    phase("small all-on frames card vs cpu", size=f"{SMALL[0]}x{SMALL[1]}",
+          frames=4, probes=small_vol.num_probes,
+          rays_per_probe=small_vol.rays_per_probe, within_1=f"{close:.6f}",
+          max_diff=max_diff, min_share=0.995)
+
+
+    # 21. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
     #     fill_peel: the input the culled frame launches it with;
     #     traverse: the shadowed frame's any-hit launch (closest-hit on
     #     the same rays listed beside it); warp: the mean over the
-    #     shadowed frame's two launches, each listed
+    #     shadowed frame's two launches, each listed; traverse_sah: the
+    #     mean over an update frame's two launches (the probe rays
+    #     closest-hit, their sun rays any-hit), each listed;
+    #     traverse_gdir: the same probe rays in the gdir layout, from the
+    #     update frame rendered again with TR_GI_GDIR=1 (an opt-in route,
+    #     so its inputs are not the default all-on path's; its launches
+    #     are that frame's)
     def row(name, st, main):
         return dict(input=name, main_path=main, ms=st['ms'],
                     plain_ms=st['plain_ms'], bound_ms=st['bound'][0],
@@ -1130,7 +1399,8 @@ def main() -> int:
         dict(name="fill_resolve", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_resolve.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:294",
-             launches=k1_default + k1_culled + s_launches[0],
+             launches=k1_default + k1_culled + s_launches[0]
+             + a_launches[0],
              max_abs_err=max(s['err'] for s in [*main_in, *split.values()]),
              ms=statistics.mean(s['ms'] for s in main_in),
              plain_ms=statistics.mean(s['plain_ms'] for s in main_in),
@@ -1142,7 +1412,8 @@ def main() -> int:
         dict(name="fill_peel", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_peel.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:778",
-             launches=k2_default + k2_culled + s_launches[1],
+             launches=k2_default + k2_culled + s_launches[1]
+             + a_launches[1],
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
@@ -1152,7 +1423,7 @@ def main() -> int:
         dict(name="traverse", route="cuda",
              source="toyrenderer_tpu_torch/csrc/traverse.cu",
              replaces="toyrenderer_tpu/ops/bvh_pallas.py:250",
-             launches=s_launches[2],
+             launches=s_launches[2] + a_launches[2],
              max_abs_err=max(v['err'] for v in k3.values()),
              ms=k3['any-hit']['ms'], plain_ms=k3['any-hit']['plain_ms'],
              bound_ms=k3['any-hit']['bound'][0],
@@ -1162,7 +1433,7 @@ def main() -> int:
         dict(name="warp", route="cuda",
              source="toyrenderer_tpu_torch/csrc/warp.cu",
              replaces="toyrenderer_tpu/ops/warp_pallas.py:41",
-             launches=s_launches[3],
+             launches=s_launches[3] + a_launches[3],
              max_abs_err=max(v['err'] for v in k4.values()),
              ms=statistics.mean(v['ms'] for v in k4.values()),
              plain_ms=statistics.mean(v['plain_ms'] for v in k4.values()),
@@ -1171,11 +1442,33 @@ def main() -> int:
              library_ms=statistics.mean(v['library_ms'] for v in k4.values()),
              inputs=[dict(row(k, v, True), library_ms=v['library_ms'])
                      for k, v in k4.items()])]
+    for name, line, st, n, path in (
+            ("traverse_sah", 250, k3s, a_launches[4], "all-on"),
+            ("traverse_gdir", 595, k5, k5_launches,
+             "all-on, TR_GI_GDIR=1")):
+        main = path == "all-on"
+        kernels.append(dict(
+            name=name, route="cuda", path=path,
+            source="toyrenderer_tpu_torch/csrc/traverse.cu",
+            replaces=f"toyrenderer_tpu/ops/bvh_pallas.py:{line}",
+            launches=n, max_abs_err=max(v['err'] for v in st.values()),
+            ms=statistics.mean(v['ms'] for v in st.values()),
+            plain_ms=statistics.mean(v['plain_ms'] for v in st.values()),
+            bound_ms=statistics.mean(v['bound'][0] for v in st.values()),
+            bound_by=max(st.values(), key=lambda v: v['bound'][0])[
+                'bound'][1],
+            library_ms=None,
+            inputs=[dict(row(k, v, main), path=path,
+                         mrays_per_s=v['mrays_s'],
+                         ray_slots=v['ray_slots'], live_rays=v['live_rays'],
+                         visits_mean=v['visits_mean'],
+                         visits_max=v['visits_max'])
+                    for k, v in st.items()]))
     print(json.dumps({"kernels": kernels,
                       "wall_s": round(time.time() - t_start, 1)}),
           flush=True)
 
-    # 17. result --------------------------------------------------------------
+    # 22. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

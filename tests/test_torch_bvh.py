@@ -236,7 +236,8 @@ def test_traverse_plain_matches_reference(trees, name, any_hit):
 
 def test_traverse_auto_routes():
     """CPU tensors run the plain version (no launch counted); the
-    reference's other routes raise, naming their ROADMAP item."""
+    reference's routes that are not ported raise, naming their ROADMAP
+    item."""
     rng = np.random.default_rng(1)
     v0 = rng.uniform(-3, 3, (200, 3)).astype(np.float32)
     tris = np.stack([v0, v0 + rng.uniform(-.5, .5, (200, 3)),
@@ -250,14 +251,18 @@ def test_traverse_auto_routes():
                              num_levels=jb.num_levels), 'cpu')
     o = torch.from_numpy(rng.uniform(-4, 4, (300, 3)).astype(np.float32))
     d = torch.nn.functional.normalize(torch.randn(300, 3), dim=1)
-    before = TBC.launches
+    before = dict(TBC.launches_by_kernel)
     res = TBC.traverse_auto(tb, o, d, 50.0, max_steps=1)
-    assert TBC.launches == before
+    assert TBC.launches_by_kernel == before
     want = TBC.traverse_plain(tb, o, d, 50.0)
     for k in ('hit', 't', 'tri', 'steps'):
         assert torch.equal(res[k], want[k]), k
     assert int(res['steps'].max()) > 1          # max_steps bounds nothing
-    for kw in (dict(group_dirs=d[:2]), dict(chunked=True), dict(pairs=True),
+    # group_dirs on a ray count that is not whole groups of 128: the
+    # per-ray directions are traced, as in the reference
+    res = TBC.traverse_auto(tb, o, d, 50.0, group_dirs=d[:2])
+    assert torch.equal(res['t'], want['t'])
+    for kw in (dict(chunked=True), dict(pairs=True),
                dict(sp_mesh=object())):
         with pytest.raises(NotImplementedError):
             TBC.traverse_auto(tb, o, d, 50.0, **kw)

@@ -136,14 +136,21 @@ def test_courtyard_frame_matches_reference():
 
 @pytest.mark.parametrize("field,value", [
     ('shadow_technique', 'map'), ('enable_gi', True),
-    ('enable_ao', True), ('enable_restir', True),
+    ('show_gi_probes', True), ('enable_restir', True),
     ('enable_transparency', True),
     ('pack_gbuffer', True), ('debug_mode', 2)])
 def test_unported_settings_raise(field, value):
     """Each setting whose pass is not ported yet raises, naming its
-    ROADMAP item (the sun shadow map with shadows on)."""
-    settings = RenderSettings(enable_shadows=True, **{field: value}) \
-        if field == 'shadow_technique' else RenderSettings(**{field: value})
+    ROADMAP item: the sun shadow map with shadows on; GI without RT
+    shadows (its probe hits' sun taps read the sun map); the probe
+    overlay with GI and RT shadows on."""
+    if field == 'shadow_technique':
+        settings = RenderSettings(enable_shadows=True, **{field: value})
+    elif field == 'show_gi_probes':
+        settings = RenderSettings(enable_shadows=True, enable_gi=True,
+                                  **{field: value})
+    else:
+        settings = RenderSettings(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_render_fn(settings, device="cpu")
 

@@ -1,6 +1,7 @@
 """The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2; BVH
-traversal, K3; reprojection warp, K4) against their plain PyTorch
-versions.
+traversal, K3 on the complete tree and K3-SAH on the SAH tree, with
+grouped directions K5; reprojection warp, K4) against their plain
+PyTorch versions.
 
 These tests need the card (the kernel has no CPU mode) and skip
 elsewhere.  They import nothing of JAX, so they also run where only the
@@ -11,9 +12,9 @@ port is installed:
 Tolerances: ids and depth bit-equal -- the kernels are built with
 -fmad=false and evaluate edges and depth in the plain version's order,
 and PyTorch's elementwise kernels round each operation once; planes to
-1e-5, for the same sums with sqrt / divide rounding.  K3's hit, t and
-tri and K4's output bit-equal, for the same reason (each ray walks the
-tree in the plain version's order).
+1e-5, for the same sums with sqrt / divide rounding.  K3's, K3-SAH's
+and K5's hit, t, tri and visit counts and K4's output bit-equal, for
+the same reason (each ray walks the tree in the plain version's order).
 """
 
 from pathlib import Path
@@ -25,6 +26,7 @@ import torch
 from toyrenderer_tpu_torch.engine import View, default_frame_inputs
 from toyrenderer_tpu_torch.ops import bvh as B
 from toyrenderer_tpu_torch.ops import bvh_cuda as BC
+from toyrenderer_tpu_torch.ops import bvh_sah as BS
 from toyrenderer_tpu_torch.ops import geometry as G
 from toyrenderer_tpu_torch.ops import peel_cuda as PC
 from toyrenderer_tpu_torch.ops import raster as R
@@ -192,10 +194,10 @@ def _tree_and_rays(dev, n=20000, seed=0):
 @pytest.mark.parametrize("any_hit", [True, False])
 def test_traverse_kernel_matches_plain_version(cuda_device, any_hit):
     bvh, o, d, live = _tree_and_rays(cuda_device)
-    before = BC.launches
+    before = BC.launches_by_kernel['K3']
     got = BC.launch(bvh, o, d, 1e4, any_hit, live)
     torch.cuda.synchronize()
-    assert BC.launches == before + 1
+    assert BC.launches_by_kernel['K3'] == before + 1
     want = BC.traverse_plain(bvh, o, d, 1e4, any_hit, live)
     for k in ('hit', 't', 'tri'):
         assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k]).sum()))
@@ -208,15 +210,103 @@ def test_traverse_kernel_matches_plain_version(cuda_device, any_hit):
 @pytest.mark.cuda
 def test_traverse_wrapper_launches_for_cuda_tensors(cuda_device):
     bvh, o, d, live = _tree_and_rays(cuda_device, n=512)
-    before = BC.launches
+    before = BC.launches_by_kernel['K3']
     res = BC.traverse_auto(bvh, o, d, 1e4, any_hit=True, live=live)
-    assert BC.launches == before + 1 and res['t'].is_cuda
+    assert BC.launches_by_kernel['K3'] == before + 1 and res['t'].is_cuda
     with pytest.raises(ValueError):            # wrong dtype is refused
         BC.launch(bvh, o.double(), d, 1e4)
     with pytest.raises(ValueError):            # wrong shape is refused
         BC.launch(bvh, o[:, :2].contiguous(), d, 1e4)
     with pytest.raises(ValueError):            # rays on another device
         BC.launch(bvh, o.cpu(), d.cpu(), 1e4)
+
+
+def _gi_tree_and_rays(dev, n=128 * 160, seed=1):
+    """The courtyard's GI tree (the SAH tree over the LOD under the 100k
+    triangle budget, the masked pairs appended) under the rest pose, and
+    probe-like rays: origins scattered over the scene's box, one random
+    direction per 128 rays, ~10% dead."""
+    host = load_scene(ROOT / "resources" / "courtyard.glb", use_cache=False)
+    scene = host.to_device(dev)
+    mk_i, mk_m = G.static_meshlet_pairs(host, 'mask')
+    rts, _, _, _ = BS.build_rt_static_gi(host, 'not_mask', mask_pair_inst=mk_i,
+                                         mask_pair_meshlet=mk_m, device=dev)
+    fi = frame_inputs_from_numpy(default_frame_inputs(
+        host, View.from_scene(host, 64, 64).matrices()), dev)
+    world = G.node_world_matrices(scene, fi['node_translation'],
+                                  fi['node_rotation'], fi['node_scale'])
+    tree = BS.refit_sah(rts, G.instance_transforms(scene, world)[0])
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    lo, hi = (torch.tensor(np.asarray(b, np.float32)) for b in host.world_aabb)
+    o = (lo + (hi - lo) * torch.rand(n, 3, generator=g)).to(dev)
+    gd = torch.randn(n // BC.GROUP, 3, generator=g)
+    gd = (gd / torch.linalg.vector_norm(gd, dim=1, keepdim=True)).to(dev)
+    live = (torch.rand(n, generator=g) > 0.1).to(torch.float32).to(dev)
+    return tree, o.contiguous(), gd.contiguous(), live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [True, False])
+def test_sah_and_grouped_kernels_match_plain_version(cuda_device, any_hit):
+    """K3-SAH on per-ray directions and K5 on grouped ones, on the SAH
+    GI tree; K5 also on the complete tree.  K5 equals K3 / K3-SAH on the
+    expanded directions."""
+    tree, o, gd, live = _gi_tree_and_rays(cuda_device)
+    d = gd.repeat_interleave(BC.GROUP, 0).contiguous()
+    before = dict(BC.launches_by_kernel)
+    sah = BC.launch(tree, o, d, 1e4, any_hit, live)
+    grouped = BC.launch(tree, o, None, 1e4, any_hit, live, group_dirs=gd)
+    torch.cuda.synchronize()
+    assert BC.launches_by_kernel == dict(before, **{
+        'K3-SAH': before['K3-SAH'] + 1, 'K5': before['K5'] + 1})
+    want = BC.traverse_plain(tree, o, d, 1e4, any_hit, live)
+    for k in ('hit', 't', 'tri', 'steps'):
+        assert torch.equal(sah[k], want[k]), (
+            k, int((sah[k] != want[k]).sum()))
+        assert torch.equal(grouped[k], sah[k]), k
+    hit = float(sah['hit'][live > 0].float().mean())
+    assert 0.05 < hit < 0.95
+    assert not bool(sah['hit'][live == 0].any())
+
+    bvh, o2, _, live2 = _tree_and_rays(cuda_device, n=128 * 40)
+    gd2 = gd[:40].contiguous()
+    got = BC.launch(bvh, o2, None, 1e4, any_hit, live2, group_dirs=gd2)
+    want = BC.traverse_plain(bvh, o2, None, 1e4, any_hit, live2,
+                             group_dirs=gd2)
+    for k in ('hit', 't', 'tri', 'steps'):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_sah_stack_guard_refuses_deep_trees(cuda_device):
+    """The SAH kernels' stack holds 160 entries (depth <= 22): a deeper
+    tree is refused before the launch, by the wrapper and by the C
+    entry point."""
+    tree, o, gd, live = _gi_tree_and_rays(cuda_device, n=256)
+    d = gd.repeat_interleave(BC.GROUP, 0).contiguous()
+    deep = BS.BvhSah(tree.node_rows, tree.leaf_rows, depth=23)
+    before = dict(BC.launches_by_kernel)
+    with pytest.raises(ValueError, match="stack"):
+        BC.launch(deep, o, d, 1e4, False, live)
+    assert BC.launches_by_kernel == before
+    lib = BC.kernel_library()
+    outs = [torch.empty(256, dtype=dt, device=cuda_device)
+            for dt in (torch.float32, torch.int32, torch.int32)]
+    t_max = torch.full((256,), 1e4, device=cuda_device)
+    import ctypes
+    err = lib.traverse_launch(
+        tree.node_rows.data_ptr(), tree.node_rows.shape[0],
+        tree.leaf_rows.data_ptr(), tree.leaf_rows.shape[0], 1,
+        (ctypes.c_int * 1)(0), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+        live.data_ptr(), *(x.data_ptr() for x in outs), 256, 0, 23, 0,
+        torch.cuda.current_stream(cuda_device).cuda_stream)
+    assert err != 0
+    # the deepest tree the guard admits runs
+    ok = BS.BvhSah(tree.node_rows, tree.leaf_rows, depth=22)
+    res = BC.launch(ok, o, d, 1e4, False, live)
+    torch.cuda.synchronize()
+    assert torch.equal(res['t'], BC.launch(tree, o, d, 1e4, False,
+                                           live)['t'])
 
 
 @pytest.mark.cuda

@@ -1,26 +1,44 @@
-// 8-ary BVH ray traversal, any-hit or closest-hit, for Hopper (sm_90a).
+// 8-ary BVH ray traversal, any-hit or closest-hit, for Hopper (sm_90a),
+// on either tree flavour and with per-ray or grouped directions.
 //
-// Replaces the TPU kernel _traverse_kernel
-// (toyrenderer_tpu/ops/bvh_pallas.py:250) on the complete tree of
-// ops/bvh.py: child rows (R, 48) f32, component-major
-// [lo.x x8 | lo.y x8 | lo.z x8 | hi.x x8 | hi.y x8 | hi.z x8], stored per
-// level as its reachable prefix from level_offset[level]; leaf rows
-// (G, 120) f32, [v0.x x12 | v0.y | v0.z | e1.x .. e2.z | payload x12].
+// Replaces the TPU kernels _traverse_kernel
+// (toyrenderer_tpu/ops/bvh_pallas.py:250), on the complete tree (K3)
+// and on the SAH tree (its explicit_refs mode, K3-SAH), and
+// _traverse_kernel_gdir (bvh_pallas.py:595, K5), which is K3 with ray
+// i's direction group_dirs[i / 128].
+//
+// Trees.  The complete tree of ops/bvh.py: child rows (R, 48) f32,
+// component-major [lo.x x8 | lo.y x8 | lo.z x8 | hi.x x8 | hi.y x8 |
+// hi.z x8], stored per level as its reachable prefix from
+// level_offset[level]; child k of node i is node 8i+k one level down.
+// The SAH tree of ops/bvh_sah.py: node rows (PR, 64) f32, the same 48
+// box floats, then 8 child refs as floats (>= 0 node row, < -0.5 leaf
+// row -(ref+1), <= -1e8 empty slot), the split axis (the children are
+// sorted along it) and padding.  Leaf rows (G, 120) f32 of both:
+// [v0.x x12 | v0.y | v0.z | e1.x .. e2.z | payload x12].
 //
 // The TPU kernel walks packets of 4096 rays with one shared scalar DFS
 // stack, because a TPU core has no per-lane control flow; every visit
 // evaluates the whole packet.  Here each thread walks its own ray with
-// its own DFS stack (at most (levels-1)*7+1 entries, in local memory):
-// pop a node; at an internal node slab-test its 8 children from one
-// 192-byte row (12 16-byte loads) and push the ones the ray enters,
-// far-to-near by the ray's own direction signs (child k ^ flip pops
-// nearest first); at a leaf, Moller-Trumbore against its 12 triangles,
-// read four at a time as 16-byte loads of each component (a 480-byte
-// row), folding the nearest hit in triangle order with a strict
-// t < best_t.  Any-hit rays leave at the first leaf that gives a hit;
-// closest-hit rays run until their stack is empty.  Dead rays (live <= 0
-// or t_max <= 0) report a miss at once.  The tree stays resident in the
-// 50 MB L2 (the courtyard's is ~18 MB).
+// its own DFS stack in local memory: pop a node; at an internal node
+// slab-test its 8 children from one row (12 16-byte loads) and push the
+// ones the ray enters so that the nearest pops first -- on the complete
+// tree child k ^ flip by the ray's direction signs, on the SAH tree the
+// children in split-axis order, reversed when the ray's own direction
+// is negative on that axis (the TPU uses the packet's summed sign); at
+// a leaf, Moller-Trumbore against its 12 triangles, read four at a time
+// as 16-byte loads of each component, folding the nearest hit in
+// triangle order with a strict t < best_t.  Any-hit rays leave at the
+// first leaf that gives a hit; closest-hit rays run until their stack is
+// empty.  Dead rays (live <= 0 or t_max <= 0) report a miss at once.
+// The stack holds (levels-1)*7+1 entries on the complete tree (at most
+// 9 levels) and depth*7+1 on the SAH tree, whose depth varies: the SAH
+// kernels are built for 160 entries (depth <= 22, the reference's
+// STACK_CAP) and a deeper tree is refused.  A thread touches only the
+// entries its walk uses.  With grouped
+// directions each thread reads its group's direction (one 12-byte row
+// per 128 rays) instead of its own; everything else is the same, so K5
+// gives exactly what K3 gives on the expanded directions.
 //
 // Arithmetic is the TPU kernel's, operation for operation: the
 // direction guard |d| < 1e-12 -> +-1e-12, the slab t = lo * inv - o * inv
@@ -29,8 +47,9 @@
 // -fmad=false, so hit, t and tri are bit-equal to traverse_plain, which
 // walks each ray in this same order.
 //
-// Bound: operations for coherent shadow rays (slab tests and triangle
-// tests of the nodes each ray visits), the tree's bytes read once.
+// Bound: operations for coherent rays (slab tests and triangle tests of
+// the nodes each ray visits), the tree's bytes read once; the tree
+// stays resident in the 50 MB L2.
 
 #include <cuda_runtime.h>
 
@@ -42,17 +61,20 @@ constexpr int kLeafTris = 12;
 constexpr int kMaxLevels = 9;                  // node << 4 stays in an int
 constexpr int kStack = (kMaxLevels - 1) * 7 + 1;
 constexpr int kLevelBits = 4;
+constexpr int kGroup = 128;                    // rays per grouped direction
+constexpr int kSahStack = 160;                 // SAH tree: depth <= 22
+constexpr float kAbsentCut = -1.0e8f;          // SAH refs above it are real
 
 struct Tree {
-  const float4* boxes;                         // (R, 12) float4
-  const float4* leaves;                        // (G, 30) float4
+  const float4* boxes;      // complete: (R, 12) float4; SAH: (PR, 16)
+  const float4* leaves;     // (G, 30) float4
   int n_box_rows, n_leaf_rows, n_levels;
   int level_offset[kMaxLevels];
 };
 
 struct Rays {
   const float* origins;                        // (N, 3)
-  const float* dirs;                           // (N, 3)
+  const float* dirs;                           // (N, 3), or (N / 128, 3)
   const float* t_max;                          // (N,)
   const float* live;                           // (N,)
   float* t_out;                                // (N,)
@@ -137,7 +159,10 @@ __device__ __forceinline__ float guard(float d) {
   return fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
 }
 
-template <bool kAnyHit>
+// kSah: the SAH tree (stack entry (row << 1) | is_leaf) or the complete
+// tree (entry (node << 4) | level); kGroupDirs: ray i's direction is
+// dirs[i / 128]; kStackN: the stack's entries
+template <bool kAnyHit, bool kSah, bool kGroupDirs, int kStackN>
 __global__ void __launch_bounds__(kThreads)
 traverse_kernel(Tree tree, Rays rays) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -149,38 +174,71 @@ traverse_kernel(Tree tree, Rays rays) {
   if (rays.live[i] > 0.0f && t_cap > 0.0f) {
     const float ox = rays.origins[3 * i], oy = rays.origins[3 * i + 1];
     const float oz = rays.origins[3 * i + 2];
-    const float dx = rays.dirs[3 * i], dy = rays.dirs[3 * i + 1];
-    const float dz = rays.dirs[3 * i + 2];
+    const int di = kGroupDirs ? i / kGroup : i;
+    const float dx = rays.dirs[3 * di], dy = rays.dirs[3 * di + 1];
+    const float dz = rays.dirs[3 * di + 2];
     const float ix = 1.0f / guard(dx), iy = 1.0f / guard(dy);
     const float iz = 1.0f / guard(dz);
     const float oxi = ox * ix, oyi = oy * iy, ozi = oz * iz;
     const int flip = ((dx < 0.0f) << 2) | ((dy < 0.0f) << 1) | (dz < 0.0f);
     const int leaf_level = tree.n_levels - 1;
-    int stack[kStack];
+    int stack[kStackN];
     int sp = 1;
-    stack[0] = 0;                              // the root: node 0, level 0
+    stack[0] = 0;                              // the root: row / node 0
     while (sp > 0) {
       const int e = stack[--sp];
-      const int level = e & ((1 << kLevelBits) - 1);
-      const int node = e >> kLevelBits;
       ++visits;
-      if (level == leaf_level) {
-        if (node < tree.n_leaf_rows) {
-          leaf_test(tree.leaves + static_cast<long long>(node) * 30, ox, oy,
-                    oz, dx, dy, dz, best_t, best_tri);
-          if (kAnyHit && best_tri >= 0.0f) break;
+      if (kSah) {
+        const int idx = e >> 1;
+        if (e & 1) {
+          if (idx < tree.n_leaf_rows) {
+            leaf_test(tree.leaves + static_cast<long long>(idx) * 30, ox,
+                      oy, oz, dx, dy, dz, best_t, best_tri);
+            if (kAnyHit && best_tri >= 0.0f) break;
+          }
+          continue;
         }
-        continue;
-      }
-      const int row = tree.level_offset[level] + node;
-      if (row >= tree.n_box_rows) continue;    // not on a well-formed tree
-      const int want = child_mask(tree.boxes + static_cast<long long>(row) * 12,
-                                  ix, iy, iz, oxi, oyi, ozi, best_t);
+        if (idx >= tree.n_box_rows) continue;  // not on a well-formed tree
+        const float4* row = tree.boxes + static_cast<long long>(idx) * 16;
+        const int want = child_mask(row, ix, iy, iz, oxi, oyi, ozi, best_t);
+        const float4 r0 = __ldg(row + 12), r1 = __ldg(row + 13);
+        const float axis = __ldg(row + 14).x;
+        const float refs[kArity] = {r0.x, r0.y, r0.z, r0.w,
+                                    r1.x, r1.y, r1.z, r1.w};
+        const bool rev = (axis == 0.0f ? dx : axis == 1.0f ? dy : dz) < 0.0f;
 #pragma unroll
-      for (int jj = kArity - 1; jj >= 0; --jj) {
-        const int k = jj ^ flip;
-        if ((want >> k) & 1)
-          stack[sp++] = ((node * kArity + k) << kLevelBits) | (level + 1);
+        for (int jj = kArity - 1; jj >= 0; --jj) {
+          const int kk = rev ? kArity - 1 - jj : jj;
+          const float ref = rev ? refs[kArity - 1 - jj] : refs[jj];
+          if (((want >> kk) & 1) && ref > kAbsentCut) {
+            const bool lf = ref < -0.5f;
+            const int c = lf ? static_cast<int>(-(ref + 1.0f))
+                             : static_cast<int>(ref);
+            stack[sp++] = (c << 1) | static_cast<int>(lf);
+          }
+        }
+      } else {
+        const int level = e & ((1 << kLevelBits) - 1);
+        const int node = e >> kLevelBits;
+        if (level == leaf_level) {
+          if (node < tree.n_leaf_rows) {
+            leaf_test(tree.leaves + static_cast<long long>(node) * 30, ox,
+                      oy, oz, dx, dy, dz, best_t, best_tri);
+            if (kAnyHit && best_tri >= 0.0f) break;
+          }
+          continue;
+        }
+        const int row = tree.level_offset[level] + node;
+        if (row >= tree.n_box_rows) continue;  // not on a well-formed tree
+        const int want = child_mask(
+            tree.boxes + static_cast<long long>(row) * 12, ix, iy, iz, oxi,
+            oyi, ozi, best_t);
+#pragma unroll
+        for (int jj = kArity - 1; jj >= 0; --jj) {
+          const int k = jj ^ flip;
+          if ((want >> k) & 1)
+            stack[sp++] = ((node * kArity + k) << kLevelBits) | (level + 1);
+        }
       }
     }
   }
@@ -189,20 +247,47 @@ traverse_kernel(Tree tree, Rays rays) {
   rays.steps_out[i] = visits;
 }
 
+template <bool kSah, int kStackN>
+void launch_flavour(const Tree& tree, const Rays& rays, bool any_hit,
+                    bool group_dirs, int blocks, cudaStream_t s) {
+  if (any_hit && group_dirs)
+    traverse_kernel<true, kSah, true, kStackN>
+        <<<blocks, kThreads, 0, s>>>(tree, rays);
+  else if (any_hit)
+    traverse_kernel<true, kSah, false, kStackN>
+        <<<blocks, kThreads, 0, s>>>(tree, rays);
+  else if (group_dirs)
+    traverse_kernel<false, kSah, true, kStackN>
+        <<<blocks, kThreads, 0, s>>>(tree, rays);
+  else
+    traverse_kernel<false, kSah, false, kStackN>
+        <<<blocks, kThreads, 0, s>>>(tree, rays);
+}
+
 }  // namespace
 
 // Tree rows and rays as described above, contiguous on the device (tree
-// rows 16-byte aligned); level_offset is a host array of n_levels - 1
-// ints.  Launches on `stream`; returns the launch's cudaError_t (0 =
-// queued), or cudaErrorInvalidValue for a tree deeper than the stack.
+// rows 16-byte aligned).  sah_depth = 0: the complete tree, with
+// n_levels levels and level_offset a host array of n_levels - 1 ints;
+// sah_depth > 0: the SAH tree of that many node levels (boxes = its node
+// rows; n_levels and level_offset are not read).  group_dirs != 0: dirs
+// holds one direction per 128 rays (n a multiple of 128).  Launches on
+// `stream`; returns the launch's cudaError_t (0 = queued), or
+// cudaErrorInvalidValue for a tree deeper than the stack or a ray count
+// that is not whole groups.
 extern "C" int traverse_launch(const void* boxes, int n_box_rows,
                                const void* leaves, int n_leaf_rows,
                                int n_levels, const int* level_offset,
                                const void* origins, const void* dirs,
                                const void* t_max, const void* live,
                                void* t_out, void* tri_out, void* steps_out,
-                               int n, int any_hit, void* stream) {
-  if (n_levels < 1 || n_levels > kMaxLevels)
+                               int n, int any_hit, int sah_depth,
+                               int group_dirs, void* stream) {
+  if (sah_depth <= 0 && (n_levels < 1 || n_levels > kMaxLevels))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sah_depth > 0 && sah_depth * 7 + 1 > kSahStack)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (group_dirs && n % kGroup != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   Tree tree;
@@ -210,9 +295,10 @@ extern "C" int traverse_launch(const void* boxes, int n_box_rows,
   tree.leaves = static_cast<const float4*>(leaves);
   tree.n_box_rows = n_box_rows;
   tree.n_leaf_rows = n_leaf_rows;
-  tree.n_levels = n_levels;
+  tree.n_levels = sah_depth > 0 ? 1 : n_levels;
   for (int l = 0; l < kMaxLevels; ++l)
-    tree.level_offset[l] = l < n_levels - 1 ? level_offset[l] : 0;
+    tree.level_offset[l] =
+        (sah_depth <= 0 && l < n_levels - 1) ? level_offset[l] : 0;
   Rays rays;
   rays.origins = static_cast<const float*>(origins);
   rays.dirs = static_cast<const float*>(dirs);
@@ -224,9 +310,10 @@ extern "C" int traverse_launch(const void* boxes, int n_box_rows,
   rays.n = n;
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    traverse_kernel<true><<<blocks, kThreads, 0, s>>>(tree, rays);
+  if (sah_depth <= 0)
+    launch_flavour<false, kStack>(tree, rays, any_hit, group_dirs, blocks, s);
   else
-    traverse_kernel<false><<<blocks, kThreads, 0, s>>>(tree, rays);
+    launch_flavour<true, kSahStack>(tree, rays, any_hit, group_dirs, blocks,
+                                    s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,15 @@ GPU-driven 2-phase frame: instance and meshlet culling, screen-error LOD
 and HZB occlusion) -> the alpha-masked set, peeled `alpha_layers` times
 (per layer, or in one peel fill and a compact merge with
 `peel_merge_frac` > 0) -> ray-traced sun shadows (tree refit, rays
-through the traversal kernel, temporal + spatial denoise) -> deferred
-lighting + sky -> bloom, auto-exposure, TAA -> tonemap.
-Cross-frame state (transforms, HZB, exposure, TAA and shadow histories)
-lives in an explicit `carry` dict, as in the reference package.
+through the traversal kernel, temporal + spatial denoise) -> DDGI (on
+update frames: the GI tree's refit, the probe rays and the probe update;
+every frame: the probe field sampled at half resolution) -> GTAO (half-
+resolution horizons, a depth-aware blur) -> deferred lighting + sky ->
+bloom, auto-exposure, TAA -> tonemap.
+Cross-frame state (transforms, HZB, exposure, TAA and shadow histories,
+the DDGI probes) lives in an explicit `carry` dict, as in the reference
+package.  One branch needs the host: whether this frame updates the
+probes (`_gi_pass`), read once per frame with GI on.
 Settings whose passes are not ported yet raise NotImplementedError
 naming their ROADMAP queue item; the frame never silently skips a pass.
 """
@@ -26,17 +31,20 @@ from toyrenderer_tpu_torch.device import resolve_device
 from toyrenderer_tpu_torch.mathlib.transforms import normalize
 from toyrenderer_tpu_torch.ops import bloom as bloom_mod
 from toyrenderer_tpu_torch.ops import culling as cull_mod
+from toyrenderer_tpu_torch.ops import ddgi as ddgi_mod
 from toyrenderer_tpu_torch.ops import exposure as exposure_mod
 from toyrenderer_tpu_torch.ops import geometry as geo_mod
 from toyrenderer_tpu_torch.ops import hzb as hzb_mod
 from toyrenderer_tpu_torch.ops import raster as raster_mod
 from toyrenderer_tpu_torch.ops import shadows as shadows_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
-from toyrenderer_tpu_torch.ops.bvh import refit_bvh
-from toyrenderer_tpu_torch.ops.denoise import denoise_shadow
+from toyrenderer_tpu_torch.ops.bvh import refit_bvh, world_triangles
+from toyrenderer_tpu_torch.ops.bvh_sah import RtStaticSah, refit_sah
+from toyrenderer_tpu_torch.ops.denoise import depth_aware_blur, denoise_shadow
 from toyrenderer_tpu_torch.ops.gbuffer import (
     finish_gbuffer, masked_peel_merge_compact, pack_resolve_records,
     unpack_gbuffer)
+from toyrenderer_tpu_torch.ops.gtao import gtao
 from toyrenderer_tpu_torch.ops.lighting import (
     deferred_lighting, world_pos_from_depth)
 from toyrenderer_tpu_torch.ops.peel_cuda import fill_peel_stream
@@ -45,7 +53,7 @@ from toyrenderer_tpu_torch.ops.raster import RasterConfig
 from toyrenderer_tpu_torch.ops.raster_cuda import (
     crop_image, fill_resolve_stream, stream_layout)
 from toyrenderer_tpu_torch.ops.taa import taa_resolve
-from toyrenderer_tpu_torch.ops.texture import _quad_expand
+from toyrenderer_tpu_torch.ops.texture import _maxpool2, _quad_expand
 
 
 @dataclass(frozen=True)
@@ -141,8 +149,13 @@ _NOT_PORTED = (
     ('shadow_technique', lambda s: (s.enable_shadows
                                     and s.shadow_technique == 'map'),
      'queue 1 item 6 (sun map)'),
-    ('enable_gi', lambda s: s.enable_gi, 'queue 1 item 8 (GI)'),
-    ('enable_ao', lambda s: s.enable_ao, 'queue 1 item 7 (AO)'),
+    ('gi_sun_technique', lambda s: s.enable_gi and (
+        s.gi_sun_technique == 'map' or (
+            s.gi_sun_technique == 'auto'
+            and not (s.enable_shadows and s.shadow_technique == 'rt'))),
+     'queue 1 item 6 (sun map: the probe hits\' sun taps)'),
+    ('show_gi_probes', lambda s: s.enable_gi and s.show_gi_probes,
+     'queue 1 item 3 (debug views: ddgi.visualize_probes)'),
     ('enable_restir', lambda s: s.enable_restir,
      'queue 1 item 9 (opt-in paths)'),
     ('enable_transparency', lambda s: s.enable_transparency,
@@ -166,8 +179,9 @@ def check_settings(settings: RenderSettings):
         raise ValueError(f"unknown sky_model {settings.sky_model!r}")
 
 
-def init_carry(scene, settings: RenderSettings) -> dict:
-    """Initial cross-frame state, on the scene's device."""
+def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
+    """Initial cross-frame state, on the scene's device; with GI on, the
+    probes of `ddgi_volume` (ddgi.init_probes)."""
     dev = scene.device
     n_inst = scene.inst_node.shape[0]
     carry = dict(
@@ -188,6 +202,11 @@ def init_carry(scene, settings: RenderSettings) -> dict:
     if settings.enable_shadows:
         carry['shadow_history'] = torch.ones(hw, device=dev)
         carry['shadow_valid'] = torch.zeros((), device=dev)
+    if settings.enable_gi:
+        if ddgi_volume is None:
+            raise ValueError("enable_gi needs a ddgi_volume "
+                             "(ddgi.volume_from_aabb)")
+        carry.update(ddgi_mod.init_probes(ddgi_volume, dev))
     return carry
 
 
@@ -345,12 +364,147 @@ def _shadow_raw(bvh, normal, depth, frame_inputs, carry, settings):
     return raw[..., 0]
 
 
+def _ambient_occlusion(depth, normal, frame_inputs, frame_index,
+                       radius: float, half_res: bool):
+    """The AmbientOcclusion pass (reference package, frame.py:1125-1157):
+    GTAO, at half resolution when `half_res` and the frame's sides are
+    even (each quad's nearest depth, its mean normal; the result
+    expanded 2x), then the depth-aware blur at full resolution."""
+    h, w = depth.shape
+    args = (frame_inputs['cam_pos'], frame_inputs['inv_view_proj'],
+            frame_index)
+    if half_res and h % 2 == 0 and w % 2 == 0:
+        n_h = normalize(normal.reshape(h // 2, 2, w // 2, 2, 3).sum(
+            dim=(1, 3)) * 0.25)
+        ao_h = gtao(_maxpool2(depth), n_h, *args, radius=radius)
+        ao = _quad_expand(ao_h[..., None])[..., 0]
+    else:
+        ao = gtao(depth, normal, *args, radius=radius)
+    return depth_aware_blur(ao, depth, radius=2)
+
+
+_GI_KEYS = ('ddgi_irradiance', 'ddgi_distance', 'ddgi_offset', 'ddgi_state',
+            'ddgi_variability', 'ddgi_var_ring', 'ddgi_var_accum')
+
+
+def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
+             settings, sky_fn):
+    """The GI pass (reference package, frame.py:898-1105): the
+    convergence test, the probe update on update frames, and the probe
+    field sampled per pixel.  `trace_inputs()` gives (tree, shade
+    records) on update frames.
+
+    The reference holds the probes through a device-side branch (hold
+    frames: 3 of every 4 with gi_update_phases=4 in interval mode, and
+    every frame once the probes converge).  Here the branch is read on
+    the host, once per frame: the frame's one host sync, so hold frames
+    pay nothing for the update.  Returns (irradiance (H, W, 3), the
+    probe carry, aux)."""
+    fi = frame_inputs
+    dev = depth.device
+    frame_index = carry['frame_index']
+    sun_sig = torch.cat([fi['sun_direction'].reshape(-1)[:3],
+                         fi['sun_color'].reshape(-1)[:3],
+                         fi['sun_intensity'].reshape(-1)[:1]])
+    # the reference's convergence test (GIRenderer.cpp:162-179): the
+    # std-dev of the last 16 variability samples under the threshold;
+    # a sun change restarts the count
+    sun_changed = torch.any(torch.abs(sun_sig - carry['ddgi_sun_sig'])
+                            > 1e-6)
+    var_samples = torch.where(sun_changed, 0.0, carry['ddgi_var_samples'])
+    ring = carry['ddgi_var_ring']
+    n_valid = torch.clamp(var_samples, max=float(ddgi_mod.VAR_WINDOW))
+    vmask = torch.arange(ddgi_mod.VAR_WINDOW, device=dev) < n_valid
+    nn = torch.clamp(n_valid, min=1.0)
+    ring_mean = torch.sum(torch.where(vmask, ring, 0.0)) / nn
+    ring_std = torch.sqrt(torch.clamp(torch.sum(torch.where(
+        vmask, (ring - ring_mean) ** 2, 0.0)) / nn, min=0.0))
+    converged = ((var_samples > float(settings.gi_min_var_samples))
+                 & (ring_std < settings.gi_variability_threshold))
+    if not settings.gi_convergence_skip:
+        converged = torch.zeros((), dtype=torch.bool, device=dev)
+    phases = max(settings.gi_update_phases, 1)
+    cycle_end = torch.remainder(frame_index, phases) == phases - 1
+    # interval mode: the whole volume on the cycle's last frame, the
+    # carry held on the others
+    interval = settings.gi_update_mode == 'interval' and phases > 1
+    skip = converged | ~cycle_end if interval else converged
+
+    gi_carry = {k: carry[k] for k in _GI_KEYS}
+    updated = not bool(skip)
+    if updated:
+        gi_bvh, shade_rec = trace_inputs()
+        trace_phases = 1 if interval else settings.gi_update_phases
+        radiance, ray_dist, ray_dirs, blk, lifecycle = \
+            ddgi_mod.trace_probe_block(
+                volume, gi_bvh, shade_rec, carry['ddgi_irradiance'],
+                -fi['sun_direction'], fi['sun_color'], fi['sun_intensity'],
+                frame_index, sky_fn, trace_phases,
+                max_steps=settings.gi_max_steps,
+                probe_offset=carry['ddgi_offset'],
+                probe_state=carry['ddgi_state'])
+        gic = ddgi_mod.update_probe_block(
+            volume, dict(carry, ddgi_var_samples=var_samples), radiance,
+            ray_dist, ray_dirs, blk,
+            first_frame=frame_index < settings.gi_update_phases,
+            lifecycle=lifecycle,
+            cycle_end=(torch.ones((), dtype=torch.bool, device=dev)
+                       if interval else cycle_end),
+            num_phases=trace_phases)
+        gi_carry = {k: gic[k] for k in _GI_KEYS}
+    gi_carry['ddgi_var_samples'] = torch.where(
+        converged, var_samples, var_samples + cycle_end.to(torch.float32))
+    gi_carry['ddgi_sun_sig'] = sun_sig
+
+    # the probe field sampled at 1/gi_sample_scale resolution (it is low
+    # frequency), expanded, then smoothed by two separable [1 2 1] / 4
+    # taps (the raw blocks beat against the probe grid otherwise)
+    h, w = depth.shape
+    sc = max(settings.gi_sample_scale, 1) if settings.gi_half_res else 1
+    sample = dict(probe_offset=gi_carry['ddgi_offset'],
+                  vis_pool=max(settings.gi_vis_scale, 1))
+    irr, dist = gi_carry['ddgi_irradiance'], gi_carry['ddgi_distance']
+    if sc > 1 and h % sc == 0 and w % sc == 0:
+        gi_h = ddgi_mod.sample_irradiance_visibility(
+            volume, irr, dist, ddgi_mod.mean_pool(wp, sc),
+            normalize(ddgi_mod.mean_pool(normal, sc)), **sample)
+        gi = gi_h.repeat_interleave(sc, 0).repeat_interleave(sc, 1)
+        for ax in (0, 1):
+            n_ax = gi.shape[ax]
+            lo = torch.cat([gi.narrow(ax, 0, 1), gi.narrow(ax, 0, n_ax - 1)],
+                           dim=ax)
+            hi = torch.cat([gi.narrow(ax, 1, n_ax - 1),
+                            gi.narrow(ax, n_ax - 1, 1)], dim=ax)
+            gi = 0.25 * lo + 0.5 * gi + 0.25 * hi
+    else:
+        gi = ddgi_mod.sample_irradiance_visibility(volume, irr, dist, wp,
+                                                   normal, **sample)
+    gi = torch.where((depth > 0)[..., None], gi, 0.0)
+    aux = dict(ddgi_variability=gi_carry['ddgi_variability'],
+               ddgi_active_probes=torch.sum(gi_carry['ddgi_state']),
+               ddgi_converged=converged, ddgi_updated=updated)
+    return gi, gi_carry, aux
+
+
+def _rt_streams(base_pi, base_pm, rts, mask_pair_inst, mask_pair_meshlet):
+    """A tree's pair stream: its pair list, with the masked pairs it was
+    built over appended (its payloads index this stream)."""
+    nm = getattr(rts, 'n_mask_pairs', 0)
+    if nm > 0 and mask_pair_inst is not None:
+        return (torch.cat([base_pi, mask_pair_inst[:nm]]),
+                torch.cat([base_pm, mask_pair_meshlet[:nm]]))
+    return base_pi, base_pm
+
+
+
 def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                  carry: dict, settings: RenderSettings,
                  mask_pair_inst=None, mask_pair_meshlet=None,
                  raster_cfg: RasterConfig | None = None,
                  mask_raster_cfg: RasterConfig | None = None,
-                 rt_static=None, rt_pair_inst=None, rt_pair_meshlet=None):
+                 rt_static=None, rt_pair_inst=None, rt_pair_meshlet=None,
+                 ddgi_volume=None, rt_static_gi=None, gi_pair_inst=None,
+                 gi_pair_meshlet=None):
     """One frame.
 
     frame_inputs (tensors on the scene's device, see
@@ -365,24 +519,37 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     mask_raster_cfg: the masked set's, sized for that set (default:
     raster_cfg).
     rt_static: the static RT topology (ops/bvh.build_rt_static over the
-    RT pair list, the masked set appended), which RT shadows need; the
-    frame refits it every frame.  rt_pair_inst / rt_pair_meshlet: that
-    RT pair list (its payloads index it), accepted as the reference's
-    frame takes it; this frame's passes read only the tree.
+    RT pair list, the masked set appended), which RT shadows need, and
+    GI too when it has no tree of its own; the frame refits it every
+    frame.  rt_pair_inst / rt_pair_meshlet: that RT pair list (its
+    payloads index it; default pair_inst / pair_meshlet).
+    ddgi_volume: the probe grid GI needs (ddgi.volume_from_aabb);
+    rt_static_gi: GI's own frozen topology (ops/bvh_sah.
+    build_rt_static_gi: the SAH tree, or the complete one) over
+    gi_pair_inst / gi_pair_meshlet (default: the RT pair list), the
+    masked set appended; refit on every GI update frame.
     Returns (image_u8 (H, W, 3), new_carry, aux dict).  aux holds the
     opaque set's raster counters as `raster_*` (`raster_dropped` sums its
     drop counters, as the reference's does) or, culled, the reference's
     `early_*` / `late_*` counters; when the masked set is drawn, the same
     raster counters of that set as `raster_mask_*`; and, with their
-    passes on, `shadow` (the denoised mask), `bloom`, and exposure's
-    `avg_luminance` / `target_exposure`.
+    passes on, `shadow` (the denoised mask), `ao`, the probes'
+    `ddgi_variability` / `ddgi_active_probes` / `ddgi_converged` and
+    `ddgi_updated` (a Python bool: this frame updated the probes),
+    `bloom`, and exposure's `avg_luminance` / `target_exposure`.
     """
     check_settings(settings)
-    if settings.enable_shadows and rt_static is None:
+    gi_own_tree = settings.enable_gi and rt_static_gi is not None
+    needs_rt = settings.enable_shadows or (settings.enable_gi
+                                           and not gi_own_tree)
+    if needs_rt and rt_static is None:
         raise ValueError(
-            "RT shadows need rt_static (ops/bvh.build_rt_static); the "
-            "per-frame tree build without one is not ported (ROADMAP "
-            "queue 1 item 5)")
+            "RT shadows (and GI without rt_static_gi) need rt_static "
+            "(ops/bvh.build_rt_static); the per-frame tree build without "
+            "one is not ported (ROADMAP queue 1 item 5)")
+    if settings.enable_gi and ddgi_volume is None:
+        raise ValueError("enable_gi needs a ddgi_volume "
+                         "(ddgi.volume_from_aabb)")
     cfg = settings.raster_config() if raster_cfg is None else raster_cfg
     cfg_m = cfg if mask_raster_cfg is None else mask_raster_cfg
     for name, c in (('raster_cfg', cfg), ('mask_raster_cfg', cfg_m)):
@@ -487,21 +654,23 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 peel = depth_m
         gb['depth'] = depth
 
-    # -- ShadowMask: the RT tree refit (every frame), rays through the
-    #    traversal kernel, then the temporal + spatial denoise ---------------
+    # -- the RT tree: refit every frame (the reference's per-frame refit
+    #    without its cache) ---------------------------------------------------
     shadow_mask = None
     new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
                      frame_index=carry['frame_index'] + 1)
+    normal = unpack_gbuffer(gb)['normal']
+    bvh = refit_bvh(rt_static, inst_world) if needs_rt else None
+
+    # -- ShadowMask: rays through the traversal kernel, then the temporal
+    #    + spatial denoise ----------------------------------------------------
     if settings.enable_shadows:
-        bvh = refit_bvh(rt_static, inst_world)
-        raw = _shadow_raw(bvh, unpack_gbuffer(gb)['normal'], depth,
-                          frame_inputs, carry, settings)
+        raw = _shadow_raw(bvh, normal, depth, frame_inputs, carry, settings)
         shadow_mask, new_carry['shadow_history'] = denoise_shadow(
             raw, gb['motion'], carry['shadow_history'],
             carry['shadow_valid'], depth, carry['prev_depth'])
         new_carry['shadow_valid'] = torch.ones_like(carry['shadow_valid'])
 
-    # -- Deferred lighting + sky --------------------------------------------
     to_light_sky = -frame_inputs['sun_direction']
     if settings.sky_model == 'hosek':
         def sky_fn(d):
@@ -513,11 +682,54 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
             return sky_mod.sky_radiance(
                 d, to_light_sky, turbidity=settings.sky_turbidity,
                 sun_intensity=frame_inputs['sun_intensity'])
+
+    # -- GI: the probe update on update frames, the probe field sampled
+    #    every frame ----------------------------------------------------------
+    gi_irradiance = None
+    gi_aux = {}
+    if settings.enable_gi:
+        base_pi = pair_inst if rt_pair_inst is None else rt_pair_inst
+        base_pm = pair_meshlet if rt_pair_meshlet is None else rt_pair_meshlet
+
+        def trace_inputs():
+            """The GI tree and its shade records (payloads index the
+            tree's pair stream)."""
+            if gi_own_tree:
+                tree = (refit_sah(rt_static_gi, inst_world)
+                        if isinstance(rt_static_gi, RtStaticSah)
+                        else refit_bvh(rt_static_gi, inst_world))
+                streams = _rt_streams(
+                    base_pi if gi_pair_inst is None else gi_pair_inst,
+                    base_pm if gi_pair_meshlet is None else gi_pair_meshlet,
+                    rt_static_gi, mask_pair_inst, mask_pair_meshlet)
+            else:
+                tree = bvh
+                streams = _rt_streams(base_pi, base_pm, rt_static,
+                                      mask_pair_inst, mask_pair_meshlet)
+            v0, v1, v2, _ = world_triangles(scene, inst_world, *streams)
+            return tree, ddgi_mod.build_shade_records(scene, *streams, v0,
+                                                      v1, v2)
+        wp = world_pos_from_depth(depth, frame_inputs['inv_view_proj'],
+                                  settings.width, settings.height)
+        gi_irradiance, gi_carry, gi_aux = _gi_pass(
+            ddgi_volume, trace_inputs, depth, wp, normal, frame_inputs,
+            carry, settings, sky_fn)
+        new_carry.update(gi_carry)
+
+    # -- AmbientOcclusion (GTAO) ----------------------------------------------
+    ao = None
+    if settings.enable_ao:
+        ao = _ambient_occlusion(depth, normal, frame_inputs,
+                                carry['frame_index'], settings.ao_radius,
+                                settings.ao_half_res)
+
+    # -- Deferred lighting + sky --------------------------------------------
     hdr = deferred_lighting(
         gb, frame_inputs['cam_pos'], frame_inputs['inv_view_proj'],
         frame_inputs['sun_direction'], frame_inputs['sun_color'],
         frame_inputs['sun_intensity'], sky_fn,
-        ambient_factor=settings.ambient_factor, shadow_mask=shadow_mask)
+        ambient_factor=settings.ambient_factor, shadow_mask=shadow_mask,
+        ao=ao, gi_irradiance=gi_irradiance)
 
     if new_hzb is not None:
         new_carry['hzb'] = new_hzb
@@ -527,6 +739,9 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                **{f'raster_mask_{k}': v for k, v in mstats.items()})
     if shadow_mask is not None:
         aux['shadow'] = shadow_mask
+    if ao is not None:
+        aux['ao'] = ao
+    aux.update(gi_aux)
 
     # -- HDR post, in the reference's pass order: bloom from the lighting
     #    output, exposure adapted on the device (frame 0 snaps to the
@@ -586,8 +801,9 @@ def make_render_fn(settings: RenderSettings, device=None,
     device; raises when there is none), with the content-sized
     `raster_cfg` / `mask_raster_cfg` when given (see render_frame).
     Accepts frame_inputs as host numpy arrays or tensors, and passes its
-    keyword arguments (mask_pair_*, rt_static, rt_pair_*) to
-    render_frame; returns render_frame's result."""
+    keyword arguments (mask_pair_*, rt_static, rt_pair_*, ddgi_volume,
+    rt_static_gi, gi_pair_*) to render_frame; returns render_frame's
+    result."""
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
     check_settings(settings)
     dev = resolve_device(device)

@@ -1,10 +1,12 @@
 """Native (C++) host-side builders, compiled with g++ at first use.
 
-The three sources are the JAX package's own host builders, copied so the
+The four sources are the JAX package's own host builders, copied so the
 port imports nothing of it: the EXT_meshopt_compression decoders, the
-greedy meshlet builder and the quadric simplifier.  There is no Python
+greedy meshlet builder, the quadric simplifier and the binned-SAH 8-wide
+tree builder of the GI tree.  There is no Python
 fallback: a fallback would produce other meshlets and LODs than the
-reference scene, so a failed build raises.
+reference scene (and the SAH tree the reference's native builder
+gives), so a failed build raises.
 """
 
 from __future__ import annotations
@@ -74,5 +76,21 @@ def meshlet_lib() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,  # out_center, out_radius
         ctypes.c_void_p, ctypes.c_void_p,  # out_axis, out_cutoff
         ctypes.c_int64,                    # max_meshlets
+    ]
+    return lib
+
+
+@functools.lru_cache(maxsize=1)
+def sah_lib() -> ctypes.CDLL:
+    """ctypes handle to the binned-SAH 8-wide BVH builder."""
+    lib = _load("sah.cpp")
+    lib.build_sah8.restype = ctypes.c_int64
+    lib.build_sah8.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,      # tlo, thi
+        ctypes.c_int64,                        # n
+        ctypes.c_int32, ctypes.c_int32,        # leaf_tris, nbins
+        ctypes.c_int64, ctypes.c_int64,        # max_nodes, max_leaves
+        ctypes.c_void_p, ctypes.c_void_p,      # out_child, out_axis
+        ctypes.c_void_p, ctypes.c_void_p,      # out_leaf, out_counts
     ]
     return lib

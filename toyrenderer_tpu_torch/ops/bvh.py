@@ -292,6 +292,23 @@ def build_rt_static(scene_host, pair_inst, pair_meshlet,
 
 # -- device: the per-frame refit ------------------------------------------------
 
+def world_triangles(scene, inst_world, pair_inst, pair_meshlet):
+    """The pair list expanded to world-space triangles in pair order
+    (T = Tp * 96): (v0, v1, v2 (T, 3), valid (T,) bool).  The payloads of
+    a tree over these pairs index this stream."""
+    pm = pair_meshlet.long()
+    tris = scene.meshlet_tris[pm].long()                      # (Tp, 96, 3)
+    tp, mt, _ = tris.shape
+    valid = (torch.arange(mt, device=pm.device)[None, :]
+             < scene.meshlet_tri_count[pm][:, None])
+    world = inst_world[pair_inst.long()]                      # (Tp, 4, 4)
+    obj = scene.positions[tris]                               # (Tp, 96, 3, 3)
+    obj_h = torch.cat([obj, torch.ones_like(obj[..., :1])], -1)
+    w = torch.einsum('tik,tmvk->tmvi', world, obj_h)[..., :3]
+    w = w.reshape(tp * mt, 3, 3)
+    return w[:, 0], w[:, 1], w[:, 2], valid.reshape(-1)
+
+
 def transform_leaf_tris(tri_inst, obj_v0, obj_e1, obj_e2, inst_world):
     """Object -> world transform of the static leaf triangles by the
     current instance matrices (a row gather of each triangle's matrix)."""

@@ -1,10 +1,15 @@
-"""Ray traversal of the 8-ary tree (ops/bvh.py): the CUDA kernel's
-wrapper, its plain PyTorch version, and the dispatch the frame calls.
+"""Ray traversal of the two trees -- the complete 8-ary tree (ops/bvh.py)
+and the SAH tree (ops/bvh_sah.py) -- with per-ray or grouped directions:
+the CUDA kernel's wrapper, its plain PyTorch version, and the dispatch
+the frame calls.
 
-Counterpart of toyrenderer_tpu/ops/bvh_pallas.py's `traverse_auto` /
-`traverse_pallas` on the complete tree.  The TPU kernel it replaces,
-`_traverse_kernel` (bvh_pallas.py:250), becomes csrc/traverse.cu, built
-by nvcc into the build directory at first use and called through ctypes.
+Counterpart of toyrenderer_tpu/ops/bvh_pallas.py's `traverse_auto`,
+`traverse_pallas` and `traverse_pallas_gdir`.  The TPU kernels it
+replaces, `_traverse_kernel` (bvh_pallas.py:250) on the complete tree
+(K3) and in its explicit-refs mode on the SAH tree (K3-SAH), and
+`_traverse_kernel_gdir` (bvh_pallas.py:595, K5: ray i's direction is
+`group_dirs[i // 128]`), become one source, csrc/traverse.cu, built by
+nvcc into the build directory at first use and called through ctypes.
 
 The contract is the reference kernel's: `traverse(bvh, origins (N, 3),
 directions (N, 3), t_max (N,) or scalar, any_hit, live)` returns
@@ -14,13 +19,15 @@ i32 -- nodes the ray visited).  Every node a ray needs is visited: there
 is no step budget.  Any-hit rays stop at the first leaf that gives a hit,
 so their `t` / `tri` are that leaf's nearest, not the scene's.
 
-The kernel walks each ray depth-first with its own stack, children
-pushed far-to-near by the ray's direction signs; `traverse_plain` walks
+The kernel walks each ray depth-first with its own stack, the nearest
+child popping first (the complete tree: children pushed far-to-near by
+the ray's direction signs; the SAH tree: in split-axis order, reversed
+when the ray runs negative on the node's axis); `traverse_plain` walks
 every ray in exactly that order, lockstep over the rays (one node per
 ray per step, until every stack is empty), with the kernel's arithmetic
-operation for operation, so hit, t and tri are bit-equal between them.
-It is the port of the reference package's lockstep `bvh.traverse`, with
-the kernel's semantics, and the oracle the kernel is held against.
+operation for operation, so hit, t, tri and steps are bit-equal between
+them.  It is the port of the reference package's lockstep `bvh.traverse`,
+with the kernel's semantics, and the oracle the kernel is held against.
 """
 
 from __future__ import annotations
@@ -32,17 +39,54 @@ from pathlib import Path
 import torch
 
 from toyrenderer_tpu_torch._build import shared_library
-from toyrenderer_tpu_torch.ops.bvh import ARITY, LEAF_TRIS, Bvh
+from toyrenderer_tpu_torch.ops.bvh import ARITY, LEAF_TRIS
+from toyrenderer_tpu_torch.ops.bvh_sah import BvhSah
 from toyrenderer_tpu_torch.ops.raster_cuda import NVCC_FLAGS, _check, nvcc_path
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse.cu"
-MAX_LEVELS = 9          # the kernel's stack bound; node << 4 fits an int
-_LEVEL_BITS = 4         # stack entry = (node << 4) | level
+MAX_LEVELS = 9          # the complete tree's stack bound; node << 4 fits
+SAH_STACK = 160         # the SAH kernels' stack: depth <= 22
+GROUP = 128             # rays per grouped direction (K5)
+ABSENT_CUT = -1.0e8     # SAH child refs above it are real
+_LEVEL_BITS = 4         # complete-tree stack entry = (node << 4) | level
 _EPS_DIR = 1e-12
 
-# launches of the CUDA kernel since the last reset; the plain version
-# never counts
-launches = 0
+# launches of the CUDA kernel since the last reset, by the TPU kernel
+# each flavour replaces (K3: the complete tree, K3-SAH: the SAH tree, K5:
+# grouped directions on either tree); the plain version never counts
+launches_by_kernel = {'K3': 0, 'K3-SAH': 0, 'K5': 0}
+
+
+def reset_launches():
+    for k in launches_by_kernel:
+        launches_by_kernel[k] = 0
+
+
+def stack_entries(bvh) -> int:
+    """The DFS stack a walk of `bvh` needs: 7 per internal level + 1."""
+    if isinstance(bvh, BvhSah):
+        return bvh.depth * (ARITY - 1) + 1
+    return (bvh.num_levels - 1) * (ARITY - 1) + 1
+
+
+def _check_depth(bvh):
+    if isinstance(bvh, BvhSah):
+        if stack_entries(bvh) > SAH_STACK:
+            raise ValueError(f"SAH tree of depth {bvh.depth}: the kernel's "
+                             f"stack holds {SAH_STACK} entries, the walk "
+                             f"needs {stack_entries(bvh)}")
+    elif bvh.num_levels > MAX_LEVELS:
+        raise ValueError(f"tree of {bvh.num_levels} levels: at most "
+                         f"{MAX_LEVELS}")
+
+
+def expand_group_dirs(group_dirs, n: int):
+    """(N / 128, 3) grouped directions -> (N, 3): ray i's direction is
+    group_dirs[i // 128]."""
+    if group_dirs.shape[0] * GROUP != n:
+        raise ValueError(f"{group_dirs.shape[0]} grouped directions for "
+                         f"{n} rays: want one per {GROUP}")
+    return group_dirs.repeat_interleave(GROUP, dim=0)
 
 
 def _rays(origins, t_max, live):
@@ -103,20 +147,22 @@ def _leaf_fold(rows, o, d, best_t, best_tri):
     return best_t, best_tri
 
 
-def traverse_plain(bvh: Bvh, origins, directions, t_max, any_hit=False,
-                   live=None, census: bool = False) -> dict:
-    """The kernel's function in plain PyTorch, on any device: each ray's
-    depth-first walk, in the kernel's order, lockstep over the rays.
-    Returns the contract's dict (see the module docstring); with
-    `census`, also what the walk read, for a bound on the work:
-    `leaf_steps` (N,) i32 (the leaf visits among `steps`) and
-    `box_rows_read` (R,) / `leaf_rows_read` (G,) bool (the rows some ray
-    read)."""
-    if bvh.num_levels > MAX_LEVELS:
-        raise ValueError(f"tree of {bvh.num_levels} levels: at most "
-                         f"{MAX_LEVELS}")
+def traverse_plain(bvh, origins, directions, t_max, any_hit=False,
+                   live=None, census: bool = False,
+                   group_dirs=None) -> dict:
+    """The kernel's function in plain PyTorch, on any device and either
+    tree: each ray's depth-first walk, in the kernel's order, lockstep
+    over the rays.  With `group_dirs` (N / 128, 3), ray i's direction is
+    group_dirs[i // 128] and `directions` is not read.  Returns the
+    contract's dict (see the module docstring); with `census`, also what
+    the walk read, for a bound on the work: `leaf_steps` (N,) i32 (the
+    leaf visits among `steps`) and `box_rows_read` (R,) / `leaf_rows_read`
+    (G,) bool (the node and leaf rows some ray read)."""
+    _check_depth(bvh)
     dev = origins.device
     n = origins.shape[0]
+    if group_dirs is not None:
+        directions = expand_group_dirs(group_dirs, n)
     t_max, live = _rays(origins, t_max, live)
     o, d = origins, directions
     sd = torch.where(torch.abs(d) < _EPS_DIR,
@@ -126,17 +172,21 @@ def traverse_plain(bvh: Bvh, origins, directions, t_max, any_hit=False,
     neg = (d < 0.0).to(torch.int64)
     flip = (neg[:, 0] << 2) | (neg[:, 1] << 1) | neg[:, 2]
 
+    sah = isinstance(bvh, BvhSah)
+    nodes = bvh.node_rows if sah else bvh.child_boxes
     best_t = t_max.clone()
     best_tri = torch.full((n,), -1.0, device=dev)
     steps = torch.zeros(n, dtype=torch.int32, device=dev)
     alive = (live > 0.0) & (t_max > 0.0)
-    n_stack = (bvh.num_levels - 1) * (ARITY - 1) + 2
-    stack = torch.zeros((n, n_stack), dtype=torch.int64, device=dev)
+    # one spare entry: the push loop writes its candidate at the top
+    stack = torch.zeros((n, stack_entries(bvh) + 1), dtype=torch.int64,
+                        device=dev)
     sp = alive.to(torch.int64)              # the root, entry 0, pushed
-    offsets = torch.tensor(list(bvh.level_offset) or [0], dtype=torch.int64,
-                           device=dev)
-    n_box, n_leaf = bvh.child_boxes.shape[0], bvh.leaf_rows.shape[0]
-    leaf_level = bvh.num_levels - 1
+    if not sah:
+        offsets = torch.tensor(list(bvh.level_offset) or [0],
+                               dtype=torch.int64, device=dev)
+        leaf_level = bvh.num_levels - 1
+    n_box, n_leaf = nodes.shape[0], bvh.leaf_rows.shape[0]
     if census:
         leaf_steps = torch.zeros(n, dtype=torch.int32, device=dev)
         box_read = torch.zeros(n_box, dtype=torch.bool, device=dev)
@@ -147,9 +197,13 @@ def traverse_plain(bvh: Bvh, origins, directions, t_max, any_hit=False,
         entry = stack[run, top]
         sp[run] = top
         steps[run] += 1
-        level = entry & ((1 << _LEVEL_BITS) - 1)
-        node = entry >> _LEVEL_BITS
-        is_leaf = level == leaf_level
+        if sah:
+            is_leaf = (entry & 1) == 1
+            node = entry >> 1
+        else:
+            level = entry & ((1 << _LEVEL_BITS) - 1)
+            node = entry >> _LEVEL_BITS
+            is_leaf = level == leaf_level
 
         sel = is_leaf & (node < n_leaf)
         rl = run[sel]
@@ -162,24 +216,43 @@ def traverse_plain(bvh: Bvh, origins, directions, t_max, any_hit=False,
                 best_tri[rl])
 
         inner = ~is_leaf
-        ri, ni, li = run[inner], node[inner], level[inner]
-        row = offsets[torch.clamp(li, max=offsets.numel() - 1)] + ni
+        ri, ni = run[inner], node[inner]
+        if sah:
+            row = ni
+        else:
+            li = level[inner]
+            row = offsets[torch.clamp(li, max=offsets.numel() - 1)] + ni
         there = row < n_box                 # not on a well-formed tree
-        ri, ni, li, row = ri[there], ni[there], li[there], row[there]
+        ri, ni, row = ri[there], ni[there], row[there]
         if census:
             box_read[row] = True
         if ri.numel() > 0:
-            want = _slab_mask(bvh.child_boxes[row], inv[ri], oinv[ri],
+            rows = nodes[row]
+            want = _slab_mask(rows[:, :6 * ARITY], inv[ri], oinv[ri],
                               best_t[ri])
-            fl = flip[ri]
             spi = sp[ri]
-            for jj in range(ARITY - 1, -1, -1):
-                k = jj ^ fl
-                bit = torch.gather(want, 1, k[:, None])[:, 0]
-                # written at the top either way; kept only when pushed
-                stack[ri, spi] = (((ni * ARITY + k) << _LEVEL_BITS)
-                                  | (li + 1))
-                spi = spi + bit.to(torch.int64)
+            if sah:
+                refs = rows[:, 6 * ARITY:7 * ARITY]
+                axis = rows[:, 7 * ARITY].long()
+                rev = torch.gather(d[ri], 1, axis[:, None])[:, 0] < 0.0
+                for jj in range(ARITY - 1, -1, -1):
+                    kk = torch.where(rev, ARITY - 1 - jj, jj)[:, None]
+                    ref = torch.gather(refs, 1, kk)[:, 0]
+                    bit = torch.gather(want, 1, kk)[:, 0] & (ref > ABSENT_CUT)
+                    lf = ref < -0.5
+                    idx = torch.where(lf, -(ref + 1.0), ref).long()
+                    stack[ri, spi] = (idx << 1) | lf.to(torch.int64)
+                    spi = spi + bit.to(torch.int64)
+            else:
+                li = li[there]
+                fl = flip[ri]
+                for jj in range(ARITY - 1, -1, -1):
+                    k = jj ^ fl
+                    bit = torch.gather(want, 1, k[:, None])[:, 0]
+                    # written at the top either way; kept only when pushed
+                    stack[ri, spi] = (((ni * ARITY + k) << _LEVEL_BITS)
+                                      | (li + 1))
+                    spi = spi + bit.to(torch.int64)
             sp[ri] = spi
 
         go = sp[run] > 0
@@ -203,32 +276,41 @@ def kernel_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     return lib
 
 
-def launch(bvh: Bvh, origins, directions, t_max, any_hit=False,
-           live=None) -> dict:
-    """One launch of the CUDA kernel on the current stream; returns the
+def launch(bvh, origins, directions, t_max, any_hit=False, live=None,
+           group_dirs=None) -> dict:
+    """One launch of the CUDA kernel on the current stream, on either
+    tree; with `group_dirs` (N / 128, 3) the grouped-direction kernel
+    (K5), which reads them in place of `directions`.  Returns the
     contract's dict."""
-    global launches
-    if bvh.num_levels > MAX_LEVELS:
-        raise ValueError(f"tree of {bvh.num_levels} levels: at most "
-                         f"{MAX_LEVELS}")
+    _check_depth(bvh)
     dev = origins.device
     n = origins.shape[0]
     f32 = torch.float32
     t_max, live = _rays(origins, t_max, live)
-    boxes, leaves = bvh.child_boxes, bvh.leaf_rows
-    _check(boxes, 'child_boxes', f32, (boxes.shape[0], 6 * ARITY), dev)
+    sah = isinstance(bvh, BvhSah)
+    nodes, leaves = (bvh.node_rows if sah else bvh.child_boxes), bvh.leaf_rows
+    _check(nodes, 'node rows', f32,
+           (nodes.shape[0], (8 if sah else 6) * ARITY), dev)
     _check(leaves, 'leaf_rows', f32, (leaves.shape[0], 10 * LEAF_TRIS), dev)
     _check(origins, 'origins', f32, (n, 3), dev)
-    _check(directions, 'directions', f32, (n, 3), dev)
-    if boxes.data_ptr() % 16 or leaves.data_ptr() % 16:
+    if group_dirs is None:
+        dirs = directions
+        _check(dirs, 'directions', f32, (n, 3), dev)
+    else:
+        dirs = group_dirs
+        if n % GROUP:
+            raise ValueError(f"grouped directions need whole groups of "
+                             f"{GROUP} rays, got {n}")
+        _check(dirs, 'group_dirs', f32, (n // GROUP, 3), dev)
+    if nodes.data_ptr() % 16 or leaves.data_ptr() % 16:
         raise ValueError("tree rows must be 16-byte aligned")
-    offs = list(bvh.level_offset)
-    if len(offs) != bvh.num_levels - 1:
+    offs = [] if sah else list(bvh.level_offset)
+    if not sah and len(offs) != bvh.num_levels - 1:
         raise ValueError(f"level_offset has {len(offs)} entries for "
                          f"{bvh.num_levels} levels")
     t = torch.empty(n, dtype=f32, device=dev)
@@ -236,46 +318,53 @@ def launch(bvh: Bvh, origins, directions, t_max, any_hit=False,
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
     err = kernel_library().traverse_launch(
-        boxes.data_ptr(), boxes.shape[0], leaves.data_ptr(), leaves.shape[0],
-        bvh.num_levels, offs_c, origins.data_ptr(), directions.data_ptr(),
-        t_max.data_ptr(), live.data_ptr(), t.data_ptr(), tri.data_ptr(),
-        steps.data_ptr(), n, int(any_hit),
+        nodes.data_ptr(), nodes.shape[0], leaves.data_ptr(),
+        leaves.shape[0], 1 if sah else bvh.num_levels, offs_c,
+        origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
+        live.data_ptr(), t.data_ptr(), tri.data_ptr(), steps.data_ptr(), n,
+        int(any_hit), bvh.depth if sah else 0, int(group_dirs is not None),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches_by_kernel['K5' if group_dirs is not None
+                       else 'K3-SAH' if sah else 'K3'] += 1
     return dict(hit=tri >= 0, t=t, tri=tri, steps=steps)
 
 
-def traverse(bvh: Bvh, origins, directions, t_max, any_hit=False,
-             live=None) -> dict:
-    """Trace rays through the tree: CUDA tensors launch the kernel, CPU
-    tensors run the plain version."""
+def traverse(bvh, origins, directions, t_max, any_hit=False, live=None,
+             group_dirs=None) -> dict:
+    """Trace rays through either tree: CUDA tensors launch the kernel,
+    CPU tensors run the plain version."""
     dev = origins.device
     if dev.type == 'cuda':
-        return launch(bvh, origins, directions, t_max, any_hit, live)
+        return launch(bvh, origins, directions, t_max, any_hit, live,
+                      group_dirs)
     if dev.type == 'cpu':
         return traverse_plain(bvh, origins, directions, t_max, any_hit,
-                              live)
+                              live, group_dirs=group_dirs)
     raise ValueError(f"traverse: unsupported device {dev}")
 
 
-def traverse_auto(bvh: Bvh, origins, directions, t_max,
-                  any_hit: bool = False, max_steps: int = 128, live=None,
-                  sp_mesh=None, group_dirs=None, chunked: bool = False,
+def traverse_auto(bvh, origins, directions, t_max, any_hit: bool = False,
+                  max_steps: int = 128, live=None, sp_mesh=None,
+                  group_dirs=None, chunked: bool = False,
                   pairs: bool = False, pair_tables=None) -> dict:
     """The frame's entry to the traversal (bvh_pallas.py:96): `traverse`
-    on the complete tree.  `max_steps` is accepted and, as for the
-    reference's kernel, does not bound the walk.  The reference's other
-    routes are not ported yet and raise, naming their ROADMAP item."""
+    on either tree.  `group_dirs` (N / 128, 3) routes to the grouped-
+    direction kernel when N is a multiple of 128, as the reference does;
+    otherwise the per-ray `directions` are traced.  `max_steps` is
+    accepted and, as for the reference's kernel, does not bound the
+    walk.  The reference's other routes are not ported yet and raise,
+    naming their ROADMAP item."""
     for on, what in (
             (sp_mesh is not None, "sp_mesh (multi-device rays): ROADMAP "
              "queue 1 item 12"),
-            (group_dirs is not None, "group_dirs (the grouped-direction "
-             "kernel K5): ROADMAP queue 1 item 9"),
             (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 9"),
             (pairs or pair_tables is not None, "pairs (the pair kernel "
              "K6): ROADMAP queue 1 item 9")):
         if on:
             raise NotImplementedError(f"traverse_auto {what}")
-    return traverse(bvh, origins, directions, t_max, any_hit, live)
+    if group_dirs is not None and origins.shape[0] % GROUP:
+        group_dirs = None
+    return traverse(bvh, origins, directions, t_max, any_hit, live,
+                    group_dirs)

@@ -5,8 +5,9 @@ source/DeferredLightingRenderer.cpp + deferredlighting.hlsl): read the
 GBuffer shading planes, evaluate the directional sun BRDF, add ambient
 and emissive, and write sky radiance where no geometry was rasterized
 (depth == 0); the sun term is multiplied by the shadow mask when one is
-given.  AO and GI terms and the debug views wait for the slices that
-port those passes.
+given, and the ambient term -- the probe irradiance when GI is on, else
+the constant ambient -- by the AO.  The debug views wait for their
+slice.
 """
 
 from __future__ import annotations
@@ -35,10 +36,13 @@ def world_pos_from_depth(depth, inv_view_proj, width, height):
 
 def deferred_lighting(gb: dict, cam_pos, inv_view_proj, sun_direction,
                       sun_color, sun_intensity, sky_fn,
-                      ambient_factor: float = 0.03, shadow_mask=None):
+                      ambient_factor: float = 0.03, shadow_mask=None,
+                      ao=None, gi_irradiance=None):
     """HDR lighting (H, W, 3).  sky_fn: callable(dirs (..., 3)) ->
     (..., 3) sky radiance (Hosek or Preetham, chosen by the frame);
-    shadow_mask: optional (H, W) sun visibility (1 = lit)."""
+    shadow_mask: optional (H, W) sun visibility (1 = lit); ao: optional
+    (H, W) ambient occlusion (1 = open); gi_irradiance: optional
+    (H, W, 3) probe irradiance, which replaces the constant ambient."""
     depth = gb['depth']
     h, w = depth.shape
     hit = depth > 0.0
@@ -56,7 +60,12 @@ def deferred_lighting(gb: dict, cam_pos, inv_view_proj, sun_direction,
     lit = radiance * (sun_color * sun_intensity)
     if shadow_mask is not None:
         lit = lit * shadow_mask[..., None]
-    ambient = albedo * ambient_factor * sun_intensity
+    if gi_irradiance is not None:
+        ambient = gi_irradiance * albedo
+    else:
+        ambient = albedo * ambient_factor * sun_intensity
+    if ao is not None:
+        ambient = ambient * ao[..., None]
     lit = lit + ambient + gb['emissive_f']
 
     sky_rgb = sky_fn(sky_mod.view_rays(inv_view_proj, w, h))

@@ -94,7 +94,8 @@ def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
     yet."""
     if gdir:
         raise NotImplementedError(
-            "trace_shadow_mask gdir (the grouped-direction kernel K5): "
+            "trace_shadow_mask gdir (the sun rays' strip layout for the "
+            "grouped-direction kernel K5, TR_SHADOW_GDIR): "
             "ROADMAP queue 1 item 9")
     h, w = hit_mask.shape
     origins = world_pos + normal * normal_bias

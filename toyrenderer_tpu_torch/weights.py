@@ -14,6 +14,7 @@ import torch
 
 from toyrenderer_tpu_torch.device import resolve_device
 from toyrenderer_tpu_torch.ops.bvh import Bvh, RtStatic
+from toyrenderer_tpu_torch.ops.bvh_sah import BvhSah, RtStaticSah
 from toyrenderer_tpu_torch.scene.scenebuild import DeviceScene
 
 
@@ -84,3 +85,37 @@ def bvh_from_numpy(arrays: dict, device=None) -> Bvh:
         num_levels=int(arrays['num_levels']),
         leaf_rows=torch.from_numpy(
             np.array(arrays['leaf_rows'], np.float32)).to(dev))
+
+
+def rt_static_sah_from_numpy(arrays: dict, device=None) -> RtStaticSah:
+    """RtStaticSah from its fields as numpy arrays (obj_v0, obj_e1,
+    obj_e2, tri_inst, payload, child_ref, node_axis, pair_keep, seg_inst,
+    seg_lens) plus the statics depth_ranges and n_mask_pairs -- an SAH
+    topology built by either package."""
+    dev = resolve_device(device)
+
+    def on(k, dtype):
+        return torch.from_numpy(np.array(arrays[k], dtype=dtype)).to(dev)
+    return RtStaticSah(
+        obj_v0=on('obj_v0', np.float32), obj_e1=on('obj_e1', np.float32),
+        obj_e2=on('obj_e2', np.float32), tri_inst=on('tri_inst', np.int32),
+        payload=on('payload', np.int32), child_ref=on('child_ref', np.int32),
+        node_axis=on('node_axis', np.int32),
+        pair_keep=on('pair_keep', bool), seg_inst=on('seg_inst', np.int32),
+        seg_lens=on('seg_lens', np.int64),
+        depth_ranges=tuple((int(a), int(b))
+                           for a, b in arrays['depth_ranges']),
+        n_mask_pairs=int(arrays.get('n_mask_pairs', 0)))
+
+
+def bvh_sah_from_numpy(arrays: dict, device=None) -> BvhSah:
+    """BvhSah from node_rows (PR, 64) and leaf_rows (NG, 120) as numpy
+    plus the static depth (node levels) -- a refitted SAH tree of either
+    package."""
+    dev = resolve_device(device)
+    return BvhSah(
+        node_rows=torch.from_numpy(
+            np.array(arrays['node_rows'], np.float32)).to(dev),
+        leaf_rows=torch.from_numpy(
+            np.array(arrays['leaf_rows'], np.float32)).to(dev),
+        depth=int(arrays['depth']))
