@@ -34,7 +34,17 @@ both main paths through the port's entry points at 1920x1080:
   version and against K3-SAH, that frame's image against the default
   layout's, 1 + 8 frames (two of them update frames) with per-frame
   gates, update-frame and hold-frame medians and profiles, 384x216
-  frames on the card against the CPU through one update.
+  frames on the card against the CPU through one update;
+* the probe rays' pair route (slice 5, TR_GI_PAIRS=1): the first update
+  frame rendered again through it, the pair fold (K6) held against its
+  plain version on both of the frame's launches, each route call (box
+  phase, pair list, K6, the overflowed blocks' K3-SAH) against K3-SAH
+  on the same rays, the frame against the default route's, both update
+  frames profiled;
+* the ray-traversal bench (slice 5, toyrenderer_tpu_torch/tools/
+  rtbench.py) at 1,048,576 rays: the seeded walk (K3-seeded) of the
+  binned rows held against its plain version, and each binned result
+  against K3's root walk on the same rays.
 
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
@@ -62,6 +72,7 @@ SMALL = (384, 216)               # card-vs-CPU frames
 FRAMES = 5                       # timed frames after one warm-up
 ALLON_FRAMES = 8                 # the all-on path's: two update frames
 KERNEL_REPS = 10                 # timed launches per kernel input
+PROFILE_TRIES = 3                # device traces taken before none counts
 OPAQUE_PAIR_FRAC = 0.6           # bench.py:140-146: the culled frame's
 #                                  early pair list, as a share of LOD0
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s outside
@@ -90,6 +101,16 @@ OPS_PER_TRI_TEST = 54
 # direction once per group)
 SLOT_BYTES = 4 + 4 + 12
 VEC3_BYTES = 12
+# f32 operations of one (pair, ray, triangle) test of the pair fold
+# (K6): the forms' multiply-adds (two each) on their coefficients that
+# are not zero by construction (rt_pairs.mt_tables: det 3 on d; u_num
+# and v_num 3 on d and the 6 off-diagonal o (x) d; t_num 4 on 1 and o)
+# and the epilogue (the |det| test, the reciprocal, three multiplies,
+# u + v, six compares, the inv_det test)
+OPS_PER_PAIR_TEST = (3 + 9 + 9 + 4) * 2 + 13
+# bytes of one pair-fold ray slot: read [o, d, t_max, live], write
+# (t, ordinal)
+PAIR_SLOT_BYTES = 8 * 4 + 2 * 4
 SHADOW_YAW = 0.002               # rad a frame: ~2 px of pan at 1080p
 # planes the kernel copies from the winner's record (material factors,
 # ids, texture statics, cutoff): bit-equal; the others are computed and
@@ -126,23 +147,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled(fn):
+    """fn() under the profiler: (fn's result, the trace's key averages,
+    the device ms of its kernels).  The profiler's device trace now and
+    then comes back with no kernel in it although fn launched some; such
+    a trace is taken again, up to PROFILE_TRIES times in all, and the
+    last one is returned (device ms 0.0 when every one was empty)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        ms = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e3
+        if ms > 0:
+            break
+        phase("profiler", note="the device trace came back empty",
+              attempt=f"{attempt + 1}/{PROFILE_TRIES}")
+    return out, events, ms
+
+
 def device_ms(fn, reps: int) -> float:
     """Mean device time of fn() over `reps` calls after a warm-up: the
     summed time of the device kernels it launched, from the profiler.
     Events around a loop of short kernels would also count the gaps in
-    which the host is still launching the next one."""
+    which the host is still launching the next one; they are the
+    measurement only where every trace came back empty."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    _, _, ms = profiled(lambda: [fn() for _ in range(reps)])
+    if ms > 0:
+        return ms / reps
+    phase("profiler", note="no device trace; timed with CUDA events")
+    return cuda_ms(fn, reps)
 
 
 def big_box_tests(inp):
@@ -311,26 +353,27 @@ def hold_k1(name, inp) -> dict:
 
 
 @contextlib.contextmanager
-def recorded(modules):
-    """While open, each module's kernel launch also appends (its
-    arguments, its result) to that module's list in the yielded dict;
-    the kernels run as they do in any frame."""
+def recorded(modules, attr="launch"):
+    """While open, each call of each module's function `attr` (its
+    kernel launch by default) also appends (its positional arguments,
+    its keyword arguments, its result) to that module's list in the
+    yielded dict; the functions run as they do in any frame."""
     seen = {m: [] for m in modules}
-    originals = {m: m.launch for m in modules}
+    originals = {m: getattr(m, attr) for m in modules}
 
     def recording(m):
-        def launch(*args):
-            out = originals[m](*args)
-            seen[m].append((args, out))
+        def call(*args, **kwargs):
+            out = originals[m](*args, **kwargs)
+            seen[m].append((args, kwargs, out))
             return out
-        return launch
+        return call
     try:
         for m in modules:
-            m.launch = recording(m)
+            setattr(m, attr, recording(m))
         yield seen
     finally:
         for m, f in originals.items():
-            m.launch = f
+            setattr(m, attr, f)
 
 
 def launch_inputs(render, scene, pairs, fi_np, carry, kw, modules):
@@ -341,7 +384,7 @@ def launch_inputs(render, scene, pairs, fi_np, carry, kw, modules):
     with recorded(modules) as seen:
         out = render(scene, *pairs, fi_np, carry, **kw)
         torch.cuda.synchronize()
-    return [[a for a, _ in seen[m]] for m in modules], out
+    return [[a for a, _, _ in seen[m]] for m in modules], out
 
 
 def drops_of(aux) -> tuple[int, int]:
@@ -364,12 +407,14 @@ def reset_launch_counts():
 
 
 def launch_counts() -> list[int]:
-    """The launch counts K1 K2 K3 K4 K3-SAH K5 since the last reset."""
+    """The launch counts K1 K2 K3 K4 K3-SAH K5 K3-seeded K6 since the
+    last reset."""
     from toyrenderer_tpu_torch.ops import (
         bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
     by = bvh_cuda.launches_by_kernel
     return [raster_cuda.launches, peel_cuda.launches, by['K3'],
-            warp_cuda.launches, by['K3-SAH'], by['K5']]
+            warp_cuda.launches, by['K3-SAH'], by['K5'], by['K3-seeded'],
+            by['K6']]
 
 
 def drive(render, scene, pairs, fi_np, carry, mask_kw, frames, per_frame):
@@ -422,19 +467,13 @@ def profile_frame(render, scene, pairs, fi_np, carry, mask_kw):
     """One frame under the profiler: device busy ms (each device kernel
     once), (op, ms, calls) by the PyTorch op that launched them (the
     hand-written kernels, launched through ctypes, by their own names),
-    and the frame's result."""
-    import torch
+    and the frame's result (busy 0.0: not measured, every trace came
+    back empty)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = render(scene, *pairs, fi_np, carry, **mask_kw)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA) / 1e3
+    out, events, busy = profiled(
+        lambda: render(scene, *pairs, fi_np, carry, **mask_kw))
     mine = ("fill_resolve_kernel", "fill_peel_kernel", "traverse_kernel",
-            "warp_kernel")
+            "warp_kernel", "pairs_kernel")
 
     def name(key):
         return next((m for m in mine if m in key), key)
@@ -489,7 +528,7 @@ def card_vs_cpu(host, scene, settings, pairs_np, frames, cfg_kw,
 
 
 def traverse_bound_ms(census, alive, node_floats=48,
-                      grouped=False) -> tuple[float, str]:
+                      grouped=False, seed_bytes=0) -> tuple[float, str]:
     """Least time the card could take for these rays: operations, every
     slab test of the internal nodes and every triangle test of the
     leaves the rays visit (the plain version's census of this run's
@@ -497,7 +536,8 @@ def traverse_bound_ms(census, alive, node_floats=48,
     `node_floats` floats: 48 on the complete tree, 64 on the SAH tree),
     each slot's SLOT_BYTES, and the origin and direction of each live
     slot (`alive` (N,) bool) read once -- with `grouped` directions, the
-    direction of each group of 128 that holds a live slot."""
+    direction of each group of 128 that holds a live slot; `seed_bytes`:
+    a seeded launch's seed table."""
     from toyrenderer_tpu_torch.ops.bvh_cuda import GROUP
     leaf = int(census['leaf_steps'].sum())
     inner = int(census['steps'].sum()) - leaf
@@ -507,7 +547,8 @@ def traverse_bound_ms(census, alive, node_floats=48,
               else n_live)
     bytes_ = (int(census['box_rows_read'].sum()) * node_floats * 4
               + int(census['leaf_rows_read'].sum()) * 120 * 4
-              + alive.numel() * SLOT_BYTES + (n_live + n_dirs) * VEC3_BYTES)
+              + alive.numel() * SLOT_BYTES + (n_live + n_dirs) * VEC3_BYTES
+              + seed_bytes)
     return bound(ops, bytes_)
 
 
@@ -522,12 +563,14 @@ def hold_trace(label, args) -> dict:
     import torch
     from toyrenderer_tpu_torch.ops import bvh_cuda
     from toyrenderer_tpu_torch.ops.bvh_sah import BvhSah
-    bvh, o, d, t_max, any_hit, live, gd = args
+    bvh, o, d, t_max, any_hit, live, gd = args[:7]
+    seeded = (dict(seeds=args[7], packet=args[8])
+              if len(args) > 7 and args[7] is not None else {})
     mode = "any-hit" if any_hit else "closest-hit"
     got = bvh_cuda.launch(*args)
     t = time.time()
     want = bvh_cuda.traverse_plain(bvh, o, d, t_max, any_hit, live,
-                                   census=True, group_dirs=gd)
+                                   census=True, group_dirs=gd, **seeded)
     torch.cuda.synchronize()
     plain_wall = time.time() - t
     checks = [("plain", want)]
@@ -549,16 +592,20 @@ def hold_trace(label, args) -> dict:
               ms=device_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS),
               events_ms=cuda_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS),
               plain_ms=cuda_ms(lambda: bvh_cuda.traverse_plain(
-                  bvh, o, d, t_max, any_hit, live, group_dirs=gd), 1),
+                  bvh, o, d, t_max, any_hit, live, group_dirs=gd,
+                  **seeded), 1),
               bound=traverse_bound_ms(
                   want, alive, 64 if isinstance(bvh, BvhSah) else 48,
-                  gd is not None),
+                  gd is not None,
+                  4 * seeded['seeds'].numel() if seeded else 0),
               visits_mean=float(steps.mean()), visits_max=int(steps.max()),
               ray_slots=o.shape[0], live_rays=n_live)
     st['mrays_s'] = n_live / st['ms'] / 1e3
     phase(label + " vs plain", mode=mode, ray_slots=o.shape[0],
           live_rays=n_live, stack_entries=bvh_cuda.stack_entries(bvh),
           group_dirs=0 if gd is None else gd.shape[0],
+          seeded_packets=(f"{int((seeded['seeds'] >= 0).sum())}"
+                          f"/{seeded['seeds'].numel()}" if seeded else 0),
           hit_share=f"{float(got['hit'][alive].float().mean()):.4f}",
           visits_mean=f"{st['visits_mean']:.1f}",
           visits_max=st['visits_max'],
@@ -574,6 +621,155 @@ def hold_trace(label, args) -> dict:
           plain_first_wall_s=f"{plain_wall:.1f}",
           bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
     return st
+
+
+def pair_bound_ms(args) -> tuple[float, str]:
+    """Least time the card could take for one pair fold (K6) on these
+    inputs: operations, every (walked pair, live ray of its block,
+    triangle) test; bytes, the used coefficients of each distinct chunk
+    walked (16 x 4 forms x 96 triangles f32), the walked pair-list
+    entries, each block's start and count, and every ray slot read and
+    its result written once."""
+    import torch
+    from toyrenderer_tpu_torch.ops import rt_pairs
+    rays, feat, pchk, starts, n_walk = args
+    n_walk = n_walk.long()
+    live = (rays[..., 7] > 0).sum(1)
+    ops = (int((n_walk * live).sum()) * rt_pairs.CHUNK_TRIS
+           * OPS_PER_PAIR_TEST)
+    total = int(n_walk.sum())
+    blk = torch.repeat_interleave(torch.arange(rays.shape[0],
+                                               device=rays.device), n_walk)
+    rank = torch.arange(total, device=rays.device) - (
+        torch.cumsum(n_walk, 0) - n_walk)[blk]
+    chunks = torch.unique(pchk[starts.long()[blk] + rank]).numel()
+    bytes_ = (chunks * rt_pairs.NFEAT * rt_pairs.NSLAB
+              * rt_pairs.CHUNK_TRIS * 4 + total * 4
+              + rays.shape[0] * 8 + rays.shape[0] * rays.shape[1]
+              * PAIR_SLOT_BYTES)
+    return bound(ops, bytes_)
+
+
+def hold_k6(label, args) -> dict:
+    """One recorded launch of the pair fold (K6) against pair_fold_plain
+    on its arguments: best t and ordinal bit-equal.  Prints a phase line;
+    returns its err, ms (the profiler's device time per launch), events
+    ms, plain ms and bound."""
+    import torch
+    from toyrenderer_tpu_torch.ops import pairs_cuda, rt_pairs
+    got = pairs_cuda.launch(*args)
+    t = time.time()
+    want = rt_pairs.pair_fold_plain(*args)
+    torch.cuda.synchronize()
+    plain_wall = time.time() - t
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K6 ({label}): output {k} differs on "
+                                 f"{int((a != b).sum())} rays")
+    st = dict(err=float((got[0] - want[0]).abs().nan_to_num(0.0).max()),
+              ms=device_ms(lambda: pairs_cuda.launch(*args), KERNEL_REPS),
+              events_ms=cuda_ms(lambda: pairs_cuda.launch(*args),
+                                KERNEL_REPS),
+              plain_ms=cuda_ms(lambda: rt_pairs.pair_fold_plain(*args), 1),
+              bound=pair_bound_ms(args))
+    phase("K6 vs plain", input=json.dumps(label),
+          blocks=args[0].shape[0], pairs_walked=int(args[4].sum()),
+          rays_with_hit=int(torch.isfinite(got[0]).sum()),
+          t_ordinal="bit-equal", kernel_ms=f"{st['ms']:.4f}",
+          kernel_events_ms=f"{st['events_ms']:.4f}",
+          plain_ms=f"{st['plain_ms']:.1f}",
+          plain_first_wall_s=f"{plain_wall:.1f}",
+          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
+    return st
+
+
+def hold_pair_route(label, call, k6) -> dict:
+    """One recorded call of the pair route (rt_pairs.traverse_pairs)
+    against K3-SAH on the same rays.  The live rays of overflowed blocks
+    come from K3-SAH in the route's own mode: bit-equal to it.  The
+    other live rays come from the fold, which is closest-hit in either
+    mode: against K3-SAH closest-hit, hit equal on >= 99.9% of them, t
+    within rtol and atol 2e-4 and tri equal on >= 98% where both hit (the
+    gates of tests/test_rt_pairs.py:36-51: t_num is a difference of
+    products of world coordinates, so a short t carries an absolute
+    rounding error).  Times the whole route (box phase,
+    sort, fold, fallback) beside K3-SAH in the route's own mode, and the
+    pair tables' build.  Prints a phase line; returns the census."""
+    import torch
+    from toyrenderer_tpu_torch.ops import bvh_cuda, rt_pairs
+    (bvh, o, d, t_max), kw, res = call
+    any_hit, live, tables = kw['any_hit'], kw['live'], kw['tables']
+    st = {}
+    before = dict(bvh_cuda.launches_by_kernel)
+    again = rt_pairs.traverse_pairs(bvh, o, d, t_max, any_hit=any_hit,
+                                    live=live, tables=tables, stats=st)
+    fallback_launches = (bvh_cuda.launches_by_kernel['K3-SAH']
+                         - before['K3-SAH'])
+    for k in ('hit', 't', 'tri', 'steps'):
+        if not torch.equal(again[k], res[k]):
+            raise AssertionError(f"pair route ({label}): {k} changed "
+                                 "between two calls")
+    counts, n_walk, over = st['counts'], st['n_walk'], st['overflow']
+    ref = bvh_cuda.launch(bvh, o, d, t_max, False, live)
+    own = bvh_cuda.launch(bvh, o, d, t_max, True, live) if any_hit else ref
+    alive = live > 0
+    n_live = int(alive.sum())
+    fb = over.repeat_interleave(rt_pairs.BLOCK)[:o.shape[0]] & alive
+    for k in ('hit', 't', 'tri'):
+        if not torch.equal(res[k][fb], own[k][fb]):
+            raise AssertionError(f"pair route ({label}): the overflowed "
+                                 f"blocks' {k} differs from K3-SAH")
+    fold = alive & ~fb
+    hit_agree = float((res['hit'] == ref['hit'])[fold].float().mean())
+    both = res['hit'] & ref['hit'] & fold
+    dt = (res['t'][both] - ref['t'][both]).abs()
+    t_ok = bool(torch.isclose(res['t'][both], ref['t'][both], rtol=2e-4,
+                              atol=2e-4).all())
+    tri_agree = float((res['tri'] == ref['tri'])[both].float().mean())
+    if hit_agree < 0.999 or not t_ok or tri_agree < 0.98:
+        raise AssertionError(
+            f"pair route ({label}) vs K3-SAH: hit on {hit_agree:.5f} of "
+            f"the fold's live rays, t within 2e-4 {t_ok}, tri on "
+            f"{tri_agree:.4f}")
+    walked = n_walk[n_walk > 0].float()
+    out = dict(
+        ray_slots=o.shape[0], live_rays=n_live, blocks=counts.numel(),
+        empty_blocks=int((counts == 0).sum()), pcap=st['pcap'],
+        pairs=int(counts.sum()), pairs_walked=int(n_walk.sum()),
+        walked_mean=float(walked.mean()) if walked.numel() else 0.0,
+        walked_max=int(n_walk.max()), overflow_blocks=int(over.sum()),
+        fold_rays=int(fold.sum()), fallback_rays=int(fb.sum()),
+        fallback_launches=fallback_launches, hit_agree=hit_agree,
+        tri_agree=tri_agree,
+        route_ms=device_ms(lambda: rt_pairs.traverse_pairs(
+            bvh, o, d, t_max, any_hit=any_hit, live=live, tables=tables), 3),
+        sah_ms=device_ms(lambda: bvh_cuda.launch(bvh, o, d, t_max, any_hit,
+                                                 live), KERNEL_REPS),
+        tables_ms=device_ms(lambda: rt_pairs.mt_tables(bvh), 3))
+    phase("pair route vs K3-SAH", input=json.dumps(label),
+          mode="any-hit" if any_hit else "closest-hit",
+          ray_slots=out['ray_slots'], live_rays=n_live,
+          blocks=out['blocks'], blocks_without_pairs=out['empty_blocks'],
+          pair_capacity=out['pcap'], pairs=out['pairs'],
+          pairs_walked=out['pairs_walked'],
+          pairs_per_walking_block_mean=f"{out['walked_mean']:.1f}",
+          pairs_per_block_max=out['walked_max'],
+          overflowed_blocks=out['overflow_blocks'],
+          fallback_k3sah_launches=fallback_launches,
+          fold_live_rays=out['fold_rays'],
+          fallback_live_rays=f"{out['fallback_rays']} (bit-equal to K3-SAH)",
+          hit_equal_share=f"{hit_agree:.6f}", t_within_2e4="held",
+          t_max_abs_diff=f"{float(dt.max()) if dt.numel() else 0.0:.3g}",
+          t_max_rel_diff=(f"{float((dt / ref['t'][both]).max()):.3g}"
+                          if dt.numel() else "0"),
+          tri_equal_share=f"{tri_agree:.5f}",
+          k6_ms=f"{k6['ms']:.4f}",
+          k6_mrays_per_s=f"{n_live / k6['ms'] / 1e3:.1f}",
+          k6_bound_ms=f"{k6['bound'][0]:.4f}", k6_bound_by=k6['bound'][1],
+          route_device_ms=f"{out['route_ms']:.4f}",
+          k3sah_same_rays_ms=f"{out['sah_ms']:.4f}",
+          mt_tables_ms=f"{out['tables_ms']:.4f}")
+    return out
 
 
 def hold_k4(name, args) -> dict:
@@ -660,12 +856,14 @@ def main() -> int:
     from toyrenderer_tpu_torch.ops import geometry as geo_mod
     from toyrenderer_tpu_torch.ops import raster as raster_mod
     from toyrenderer_tpu_torch.ops import (
-        bvh_cuda, bvh_sah, ddgi, peel_cuda, raster_cuda, warp_cuda)
+        bvh_cuda, bvh_sah, ddgi, pairs_cuda, peel_cuda, raster_cuda,
+        rt_pairs, warp_cuda)
     from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
     from toyrenderer_tpu_torch.scene import load_scene
     from toyrenderer_tpu_torch.scene.gltf import (
         ALPHA_BLEND, ALPHA_MASK, load_gltf)
     from toyrenderer_tpu_torch.scene.png import decode_png
+    from toyrenderer_tpu_torch.tools import rtbench
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -681,7 +879,7 @@ def main() -> int:
     # 2. kernel builds: one nvcc per source, started together ---------------
     t = time.time()
     libs = {"fill_resolve": raster_cuda, "fill_peel": peel_cuda,
-            "traverse": bvh_cuda, "warp": warp_cuda}
+            "traverse": bvh_cuda, "warp": warp_cuda, "pairs": pairs_cuda}
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(m.kernel_library) for m in libs.values()]:
             f.result()
@@ -1107,7 +1305,7 @@ def main() -> int:
             s_render, scene, c_pairs, pan_fi.pop, s_carry, s_kw, FRAMES,
             per_frame)
     lit = []
-    for args, res in traced[bvh_cuda][1:]:
+    for args, _, res in traced[bvh_cuda][1:]:
         live = args[5] > 0
         lit.append(1.0 - float(res['hit'][live].float().mean()))
     prev = [0, 0, 0, 0]
@@ -1266,7 +1464,56 @@ def main() -> int:
           probes_bit_equal=bool(torch.equal(
               a_carry['ddgi_irradiance'], carry3g['ddgi_irradiance'])),
           min_share=0.999)
-    del img3, img3g, carry3, carry3g
+    del img3g, carry3g
+
+    # 17b. the pair route (TR_GI_PAIRS=1): the same update frame rendered
+    #      again through it.  K6's two launches (the probe rays closest-
+    #      hit, their sun rays any-hit) held bit-equal to pair_fold_plain;
+    #      each route call (box phase, pair list, K6, the overflowed
+    #      blocks' K3-SAH) against K3-SAH on the same rays; the frame's
+    #      image against the default route's; both update frames
+    #      profiled
+    os.environ['TR_GI_PAIRS'] = '1'
+    try:
+        reset_launch_counts()
+        with recorded((rt_pairs,), "traverse_pairs") as routes:
+            (k6_in,), (img3p, carry3p, _) = launch_inputs(
+                a_render, scene, c_pairs, fi3, carry3, a_kw, (pairs_cuda,))
+        p_launches = launch_counts()
+        p_busy, p_by_op, _ = profile_frame(a_render, scene, c_pairs, fi3,
+                                           carry3, a_kw)
+    finally:
+        del os.environ['TR_GI_PAIRS']
+    calls = routes[rt_pairs]
+    if (p_launches[4:] != [2, 0, 0, 2] or len(calls) != 2
+            or [c[1]['any_hit'] for c in calls] != [False, True]):
+        raise AssertionError(f"pair frame: launches K3-SAH K5 K3-seeded K6 "
+                             f"{p_launches[4:]}, route calls "
+                             f"{[c[1]['any_hit'] for c in calls]}; want "
+                             "[2, 0, 0, 2] and [False, True]")
+    k6, pair_route = {}, {}
+    for name, args, call in zip(("probe rays, closest-hit",
+                                 "probe-hit sun rays, any-hit"), k6_in,
+                                calls):
+        k6[name] = hold_k6(name, args)
+        pair_route[name] = hold_pair_route(name, call, k6[name])
+    del k6_in, calls, routes
+    pdiff = (img3.int() - img3p.int()).abs().amax(-1)
+    p_close = float((pdiff <= 1).float().mean())
+    if p_close < 0.995:
+        raise AssertionError(f"pair frame vs default frame: within 1 on "
+                             f"{p_close:.5f} of pixels")
+    d_busy, _, _ = profile_frame(a_render, scene, c_pairs, fi3, carry3, a_kw)
+    irr_d = (carry3p['ddgi_irradiance'] - a_carry['ddgi_irradiance']).abs()
+    phase("pair frame vs default frame", frame=3, within_1=f"{p_close:.6f}",
+          max_diff=int(pdiff.max()), min_share=0.995,
+          probe_irradiance_diff_mean=f"{float(irr_d.mean()):.3g}",
+          probe_irradiance_diff_max=f"{float(irr_d.max()):.3g}",
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6=json.dumps(p_launches),
+          update_busy_ms_pairs=f"{p_busy:.3f}",
+          update_busy_ms_default=f"{d_busy:.3f}",
+          pairs_by_op_ms_calls=json.dumps(p_by_op[:12]))
+    del img3, img3p, carry3, carry3p
 
     # 18. the all-on frame at 1920x1080 through the entry points: 1 + 8
     #     frames of the pan (frames 4-12: updates at 7 and 11); gates on
@@ -1285,15 +1532,15 @@ def main() -> int:
     a_times, a_walls, a_img, a_aux, a_carry, a_rows = drive(
         a_render, scene, c_pairs, a_fi.pop, a_carry, a_kw, ALLON_FRAMES,
         a_per_frame)
-    prev = [0] * 6
+    prev = [0] * 8
     for i, r in enumerate(a_rows):
         per = [a - b for a, b in zip(r['launches'], prev)]
         prev = r['launches']
-        want = [2, 1, 1, 2, 2 if r['updated'] else 0, 0]
+        want = [2, 1, 1, 2, 2 if r['updated'] else 0, 0, 0, 0]
         if per != want or r['drops'] != (0, 0):
             raise AssertionError(
-                f"all-on frame {i}: launches K1 K2 K3 K4 K3-SAH K5 {per} "
-                f"(want {want}), drops {r['drops']}")
+                f"all-on frame {i}: launches K1 K2 K3 K4 K3-SAH K5 "
+                f"K3-seeded K6 {per} (want {want}), drops {r['drops']}")
         lo, mean, hi = r['ao']
         if not (r['irr_finite'] and r['irr_max'] > 0
                 and np.isfinite(r['variability'])
@@ -1318,7 +1565,7 @@ def main() -> int:
           all_ms=json.dumps([round(x, 3) for x in a_times]),
           updated=json.dumps([r['updated'] for r in a_rows]),
           host_wall_ms=json.dumps([round(x, 3) for x in a_walls]),
-          launches_k1_k2_k3_k4_k3sah_k5=json.dumps(a_launches),
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6=json.dumps(a_launches),
           coverage=f"{a_coverage:.4f}", raster_dropped=drops_of(a_aux)[0],
           raster_mask_dropped=drops_of(a_aux)[1],
           probe_irradiance_max=json.dumps(
@@ -1377,6 +1624,58 @@ def main() -> int:
           max_diff=max_diff, min_share=0.995)
 
 
+    # 20b. the ray-traversal bench (tools/rtbench.py) in this process, at
+    #      its default 1,048,576 rays on the courtyard (the bench's 60%
+    #      pair cut): K3-seeded's first-round launch of probe(binned) and
+    #      of shadow(binned) held bit-equal to the plain seeded walk; each
+    #      binned result against K3's root walk on the same rays: hit
+    #      bit-equal, closest-hit t bit-equal, tri differing only on
+    #      exact t ties (counted)
+    reset_launch_counts()
+    with recorded((bvh_cuda,)) as traced:
+        rb_rows = rtbench.run(["--scene", "courtyard"])
+    rb_launches = dict(bvh_cuda.launches_by_kernel)
+    seeded_in = [a for a, _, _ in traced[bvh_cuda]
+                 if len(a) > 7 and a[7] is not None]
+    del traced
+    first = {any_hit: next(a for a in seeded_in if a[4] == any_hit)
+             for any_hit in (False, True)}
+    del seeded_in
+    k3seed = {"probe(binned), round 1": hold_trace("K3-seeded", first[False]),
+              "shadow(binned), round 1": hold_trace("K3-seeded",
+                                                    first[True])}
+    del first
+    for r in rb_rows:
+        if "binned" not in r['name']:
+            continue
+        res, st = r['result'], r['stats']
+        ref = bvh_cuda.traverse(r['tree'], r['o'], r['d'], rtbench.T_MAX,
+                                r['any_hit'])
+        if not torch.equal(res['hit'], ref['hit']):
+            raise AssertionError(f"{r['name']}: hit differs from K3 on "
+                                 f"{int((res['hit'] != ref['hit']).sum())}"
+                                 " rays")
+        ties = int((res['tri'] != ref['tri'])[res['hit']].sum())
+        if not r['any_hit'] and not torch.equal(res['t'], ref['t']):
+            raise AssertionError(f"{r['name']}: t differs from K3 on "
+                                 f"{int((res['t'] != ref['t']).sum())} rays")
+        phase("binned vs K3", row=r['name'], rays=r['o'].shape[0],
+              mode="any-hit" if r['any_hit'] else "closest-hit",
+              rounds=st['rounds'], entries=st['entries'],
+              packets_per_round=json.dumps([int(x) for x in st['packets']]),
+              cap_packets=st['cap_packets'],
+              exactness_pass_live_rays=int(st['rest']),
+              hit="bit-equal",
+              t="bit-equal" if not r['any_hit'] else "any-hit: not compared",
+              tri_differ_on_t_ties=ties if not r['any_hit'] else "n/a",
+              binned_ms=f"{r['ms']:.3f}",
+              hit_share=f"{float(res['hit'].float().mean()):.4f}")
+    phase("rtbench", rows=json.dumps({r['name']: [round(r['mrays_s'], 2),
+                                                  round(r['ms'], 4)]
+                                      for r in rb_rows}),
+          launches=json.dumps(rb_launches))
+    del rb_rows
+
     # 21. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
@@ -1389,7 +1688,11 @@ def main() -> int:
     #     traverse_gdir: the same probe rays in the gdir layout, from the
     #     update frame rendered again with TR_GI_GDIR=1 (an opt-in route,
     #     so its inputs are not the default all-on path's; its launches
-    #     are that frame's)
+    #     are that frame's); traverse_pairs: the mean over that frame's
+    #     two K6 launches with TR_GI_PAIRS=1 (each input also carries its
+    #     route's census and times); traverse_seeded: the mean over the
+    #     first-round launches of rtbench's two binned rows (its launches
+    #     are the whole rtbench run's)
     def row(name, st, main):
         return dict(input=name, main_path=main, ms=st['ms'],
                     plain_ms=st['plain_ms'], bound_ms=st['bound'][0],
@@ -1464,6 +1767,26 @@ def main() -> int:
                          visits_mean=v['visits_mean'],
                          visits_max=v['visits_max'])
                     for k, v in st.items()]))
+    for name, src, line, st, n, path in (
+            ("traverse_pairs", "pairs.cu", "rt_pairs.py:145", k6,
+             p_launches[7], "all-on, TR_GI_PAIRS=1"),
+            ("traverse_seeded", "traverse.cu", "bvh_pallas.py:250", k3seed,
+             rb_launches['K3-seeded'], "rtbench binned")):
+        kernels.append(dict(
+            name=name, route="cuda", path=path, main_path=False,
+            source=f"toyrenderer_tpu_torch/csrc/{src}",
+            replaces=f"toyrenderer_tpu/ops/{line}",
+            launches=n, max_abs_err=max(v['err'] for v in st.values()),
+            ms=statistics.mean(v['ms'] for v in st.values()),
+            plain_ms=statistics.mean(v['plain_ms'] for v in st.values()),
+            bound_ms=statistics.mean(v['bound'][0] for v in st.values()),
+            bound_by=max(st.values(), key=lambda v: v['bound'][0])[
+                'bound'][1],
+            library_ms=None,
+            inputs=[dict(row(k, v, False), path=path) for k, v in st.items()]))
+    kernels[-2]['inputs'] = [
+        dict(i, **{k: v for k, v in pair_route[i['input']].items()})
+        for i in kernels[-2]['inputs']]
     print(json.dumps({"kernels": kernels,
                       "wall_s": round(time.time() - t_start, 1)}),
           flush=True)

@@ -262,7 +262,10 @@ def test_traverse_auto_routes():
     # per-ray directions are traced, as in the reference
     res = TBC.traverse_auto(tb, o, d, 50.0, group_dirs=d[:2])
     assert torch.equal(res['t'], want['t'])
-    for kw in (dict(chunked=True), dict(pairs=True),
-               dict(sp_mesh=object())):
-        with pytest.raises(NotImplementedError):
+    # the pair route (K6's plain fold on the CPU) finds the same hits
+    res = TBC.traverse_auto(tb, o, d, 50.0, pairs=True)
+    assert TBC.launches_by_kernel == before
+    assert torch.equal(res['hit'], want['hit'])
+    for kw in (dict(chunked=True), dict(sp_mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             TBC.traverse_auto(tb, o, d, 50.0, **kw)

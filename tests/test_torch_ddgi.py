@@ -371,7 +371,7 @@ def test_unported_routes_raise(cornell, monkeypatch):
     z = torch.zeros((2, 2, 3))
     with pytest.raises(NotImplementedError, match="TR_GI_VIS_PACK"):
         TD.sample_irradiance_visibility(vol, None, None, z, z)
-    monkeypatch.setenv('TR_GI_PAIRS', '1')
-    with pytest.raises(NotImplementedError, match="TR_GI_PAIRS"):
+    monkeypatch.setenv('TR_RT_CHUNKS', '1')
+    with pytest.raises(NotImplementedError, match="TR_RT_CHUNKS"):
         TD.trace_probe_block(vol, None, None, torch.zeros(1), None, None,
                              None, torch.tensor(0), None, 1)

@@ -1,7 +1,7 @@
 """The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2; BVH
 traversal, K3 on the complete tree and K3-SAH on the SAH tree, with
-grouped directions K5; reprojection warp, K4) against their plain
-PyTorch versions.
+grouped directions K5 and seeded packets K3-seeded; reprojection warp, K4;
+the pair route's fold, K6) against their plain PyTorch versions.
 
 These tests need the card (the kernel has no CPU mode) and skip
 elsewhere.  They import nothing of JAX, so they also run where only the
@@ -12,9 +12,11 @@ port is installed:
 Tolerances: ids and depth bit-equal -- the kernels are built with
 -fmad=false and evaluate edges and depth in the plain version's order,
 and PyTorch's elementwise kernels round each operation once; planes to
-1e-5, for the same sums with sqrt / divide rounding.  K3's, K3-SAH's
-and K5's hit, t, tri and visit counts and K4's output bit-equal, for
-the same reason (each ray walks the tree in the plain version's order).
+1e-5, for the same sums with sqrt / divide rounding.  K3's, K3-SAH's,
+K5's and K3-seeded's hit, t, tri and visit counts and K4's output
+bit-equal, for the same reason (each ray walks the tree in the plain
+version's order); K6's best t and ordinal bit-equal (each form summed
+in the plain version's order).
 """
 
 from pathlib import Path
@@ -28,7 +30,9 @@ from toyrenderer_tpu_torch.ops import bvh as B
 from toyrenderer_tpu_torch.ops import bvh_cuda as BC
 from toyrenderer_tpu_torch.ops import bvh_sah as BS
 from toyrenderer_tpu_torch.ops import geometry as G
+from toyrenderer_tpu_torch.ops import pairs_cuda as PRC
 from toyrenderer_tpu_torch.ops import peel_cuda as PC
+from toyrenderer_tpu_torch.ops import rt_pairs as RP
 from toyrenderer_tpu_torch.ops import raster as R
 from toyrenderer_tpu_torch.ops import raster_cuda as RC
 from toyrenderer_tpu_torch.ops import warp_cuda as WC
@@ -298,7 +302,8 @@ def test_sah_stack_guard_refuses_deep_trees(cuda_device):
         tree.node_rows.data_ptr(), tree.node_rows.shape[0],
         tree.leaf_rows.data_ptr(), tree.leaf_rows.shape[0], 1,
         (ctypes.c_int * 1)(0), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
-        live.data_ptr(), *(x.data_ptr() for x in outs), 256, 0, 23, 0,
+        live.data_ptr(), None, 1, *(x.data_ptr() for x in outs), 256, 0,
+        23, 0,
         torch.cuda.current_stream(cuda_device).cuda_stream)
     assert err != 0
     # the deepest tree the guard admits runs
@@ -338,3 +343,86 @@ def test_warp_wrapper_launches_for_cuda_tensors(cuda_device):
         WC.launch(img, mot[:, :, :1].contiguous())
     with pytest.raises(ValueError):            # motion on another device
         WC.launch(img, mot.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair_factor", [1024, 1])
+def test_pair_kernel_matches_plain_version(cuda_device, pair_factor,
+                                           monkeypatch):
+    """K6 on the pair route's own inputs (the GI tree, probe-like rays),
+    bit-equal to pair_fold_plain; the route's result against K3-SAH on
+    the same rays (hit on >= 99.9% of live rays, t within rtol and atol
+    2e-4 where both hit, the gate of tests/test_rt_pairs.py:36-51: the
+    fold's t_num is a difference of products of world coordinates, so a
+    short t carries an absolute rounding error).  At pair_factor 1024 the cap holds every (block, chunk)
+    pair, so no block overflows; at 1 most blocks overflow and take
+    K3-SAH."""
+    tree, o, gd, live = _gi_tree_and_rays(cuda_device, n=128 * 96)
+    d = gd.repeat_interleave(BC.GROUP, 0).contiguous()
+    seen = []
+    launch = PRC.launch
+
+    def recording(*args):
+        seen.append(args)
+        return launch(*args)
+    monkeypatch.setattr(PRC, "launch", recording)
+    before = dict(BC.launches_by_kernel)
+    stats = {}
+    res = RP.traverse_pairs(tree, o, d, 1e4, live=live,
+                            pair_factor=pair_factor, stats=stats)
+    torch.cuda.synchronize()
+    assert BC.launches_by_kernel == dict(before, **{
+        'K6': before['K6'] + 1, 'K3-SAH': before['K3-SAH'] + 1})
+    assert len(seen) == 1
+    got = launch(*seen[0])
+    want = RP.pair_fold_plain(*seen[0])
+    assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
+    assert torch.equal(got[1], want[1])
+    assert bool(torch.isfinite(got[0]).any())
+    over = int(stats['overflow'].sum())
+    assert (over > 0) == (pair_factor == 1)
+    ref = BC.launch(tree, o, d, 1e4, False, live)
+    alive = live > 0
+    agree = (res['hit'] == ref['hit'])[alive].float().mean()
+    assert float(agree) >= 0.999, float(agree)
+    both = res['hit'] & ref['hit']
+    assert torch.allclose(res['t'][both], ref['t'][both], rtol=2e-4,
+                          atol=2e-4)
+    assert not bool(res['hit'][~alive].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [True, False])
+def test_seeded_kernel_matches_plain_version(cuda_device, any_hit):
+    """K3-seeded (packets of 1024 rays, each from an entry subtree or
+    empty) bit-equal to traverse_plain(seeds=); the binned traversal's
+    hit (and closest-hit t) bit-equal to K3's root walk."""
+    bvh, o, d, live = _tree_and_rays(cuda_device, n=1024 * 12)
+    _, seeds, _ = BC._entry_nodes_complete(bvh)
+    g = torch.Generator(device='cpu').manual_seed(2)
+    pick = torch.randint(0, seeds.shape[0], (12,), generator=g)
+    seed_p = seeds[pick.to(cuda_device)].clone()
+    seed_p[3] = -1
+    before = dict(BC.launches_by_kernel)
+    got = BC.launch(bvh, o, d, 1e4, any_hit, live, None, seed_p, 1024)
+    torch.cuda.synchronize()
+    assert BC.launches_by_kernel == dict(
+        before, **{'K3-seeded': before['K3-seeded'] + 1})
+    want = BC.traverse_plain(bvh, o, d, 1e4, any_hit, live, seeds=seed_p,
+                             packet=1024)
+    for k in ('hit', 't', 'tri', 'steps'):
+        assert torch.equal(got[k], want[k]), (k, int((got[k] != want[k]).sum()))
+    assert not bool(got['steps'][3 * 1024:4 * 1024].any())
+    assert int(got['hit'].sum()) > 0
+    res = BC.traverse_binned(bvh, o, d, 1e4, any_hit, live)
+    ref = BC.launch(bvh, o, d, 1e4, any_hit, live)
+    assert torch.equal(res['hit'], ref['hit'])
+    if not any_hit:
+        assert torch.equal(res['t'], ref['t'])
+    with pytest.raises(ValueError):            # seeds walk the complete tree
+        tree, o2, gd, live2 = _gi_tree_and_rays(cuda_device, n=1024)
+        BC.launch(tree, o2, gd.repeat_interleave(BC.GROUP, 0), 1e4, False,
+                  live2, None, seed_p[:1], 1024)
+    with pytest.raises(ValueError):            # and per-ray directions
+        BC.traverse(bvh, o, d, 1e4, any_hit, live,
+                    group_dirs=d[::BC.GROUP].contiguous(), seeds=seed_p)

@@ -162,6 +162,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "toyrenderer_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "toyrenderer_tpu_torch" / "tools" / "rtbench.py" in files
     bad = re.compile(r"toyrenderer_tpu\.|import jax|from jax|PIL")
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(), 1):

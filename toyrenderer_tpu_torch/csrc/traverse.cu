@@ -2,10 +2,11 @@
 // on either tree flavour and with per-ray or grouped directions.
 //
 // Replaces the TPU kernels _traverse_kernel
-// (toyrenderer_tpu/ops/bvh_pallas.py:250), on the complete tree (K3)
-// and on the SAH tree (its explicit_refs mode, K3-SAH), and
-// _traverse_kernel_gdir (bvh_pallas.py:595, K5), which is K3 with ray
-// i's direction group_dirs[i / 128].
+// (toyrenderer_tpu/ops/bvh_pallas.py:250), on the complete tree (K3),
+// on the SAH tree (its explicit_refs mode, K3-SAH) and seeded (its
+// seeded mode, K3-seeded: the binned traversal's packets each start at
+// their own subtree), and _traverse_kernel_gdir (bvh_pallas.py:595, K5),
+// which is K3 with ray i's direction group_dirs[i / 128].
 //
 // Trees.  The complete tree of ops/bvh.py: child rows (R, 48) f32,
 // component-major [lo.x x8 | lo.y x8 | lo.z x8 | hi.x x8 | hi.y x8 |
@@ -38,7 +39,13 @@
 // entries its walk uses.  With grouped
 // directions each thread reads its group's direction (one 12-byte row
 // per 128 rays) instead of its own; everything else is the same, so K5
-// gives exactly what K3 gives on the expanded directions.
+// gives exactly what K3 gives on the expanded directions.  Seeded
+// (complete tree, per-ray directions only): stack entry 0 is the seed of
+// the ray's packet, seeds[i / packet], in the reference's encoding
+// (node << 4) | level; a negative seed leaves the stack empty and the
+// ray reports a miss; the walk below the seed is K3's.  The instances:
+// any-hit x (complete, SAH) x (per-ray, grouped) directions, and
+// any-hit x seeded on the complete tree -- 10 in all.
 //
 // Arithmetic is the TPU kernel's, operation for operation: the
 // direction guard |d| < 1e-12 -> +-1e-12, the slab t = lo * inv - o * inv
@@ -80,6 +87,8 @@ struct Rays {
   float* t_out;                                // (N,)
   int* tri_out;                                // (N,) payload, -1 = miss
   int* steps_out;                              // (N,) nodes visited
+  const int* seeds;                            // (N / packet,) or null
+  int packet;                                  // rays per seeded packet
   int n;
 };
 
@@ -161,8 +170,10 @@ __device__ __forceinline__ float guard(float d) {
 
 // kSah: the SAH tree (stack entry (row << 1) | is_leaf) or the complete
 // tree (entry (node << 4) | level); kGroupDirs: ray i's direction is
-// dirs[i / 128]; kStackN: the stack's entries
-template <bool kAnyHit, bool kSah, bool kGroupDirs, int kStackN>
+// dirs[i / 128]; kSeeded: the walk starts at seeds[i / packet]; kStackN:
+// the stack's entries
+template <bool kAnyHit, bool kSah, bool kGroupDirs, bool kSeeded,
+          int kStackN>
 __global__ void __launch_bounds__(kThreads)
 traverse_kernel(Tree tree, Rays rays) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -185,6 +196,11 @@ traverse_kernel(Tree tree, Rays rays) {
     int stack[kStackN];
     int sp = 1;
     stack[0] = 0;                              // the root: row / node 0
+    if (kSeeded) {
+      const int seed = rays.seeds[i / rays.packet];
+      stack[0] = seed;
+      sp = seed >= 0 ? 1 : 0;
+    }
     while (sp > 0) {
       const int e = stack[--sp];
       ++visits;
@@ -250,17 +266,28 @@ traverse_kernel(Tree tree, Rays rays) {
 template <bool kSah, int kStackN>
 void launch_flavour(const Tree& tree, const Rays& rays, bool any_hit,
                     bool group_dirs, int blocks, cudaStream_t s) {
+  if constexpr (!kSah) {
+    if (rays.seeds != nullptr) {
+      if (any_hit)
+        traverse_kernel<true, false, false, true, kStackN>
+            <<<blocks, kThreads, 0, s>>>(tree, rays);
+      else
+        traverse_kernel<false, false, false, true, kStackN>
+            <<<blocks, kThreads, 0, s>>>(tree, rays);
+      return;
+    }
+  }
   if (any_hit && group_dirs)
-    traverse_kernel<true, kSah, true, kStackN>
+    traverse_kernel<true, kSah, true, false, kStackN>
         <<<blocks, kThreads, 0, s>>>(tree, rays);
   else if (any_hit)
-    traverse_kernel<true, kSah, false, kStackN>
+    traverse_kernel<true, kSah, false, false, kStackN>
         <<<blocks, kThreads, 0, s>>>(tree, rays);
   else if (group_dirs)
-    traverse_kernel<false, kSah, true, kStackN>
+    traverse_kernel<false, kSah, true, false, kStackN>
         <<<blocks, kThreads, 0, s>>>(tree, rays);
   else
-    traverse_kernel<false, kSah, false, kStackN>
+    traverse_kernel<false, kSah, false, false, kStackN>
         <<<blocks, kThreads, 0, s>>>(tree, rays);
 }
 
@@ -271,15 +298,20 @@ void launch_flavour(const Tree& tree, const Rays& rays, bool any_hit,
 // n_levels levels and level_offset a host array of n_levels - 1 ints;
 // sah_depth > 0: the SAH tree of that many node levels (boxes = its node
 // rows; n_levels and level_offset are not read).  group_dirs != 0: dirs
-// holds one direction per 128 rays (n a multiple of 128).  Launches on
+// holds one direction per 128 rays (n a multiple of 128).  seeds: null
+// for the walk from the root, or (complete tree, per-ray directions) a
+// device array of ceil(n / packet) ints, each packet's first stack entry
+// (node << 4) | level, negative for an empty packet.  Launches on
 // `stream`; returns the launch's cudaError_t (0 = queued), or
-// cudaErrorInvalidValue for a tree deeper than the stack or a ray count
-// that is not whole groups.
+// cudaErrorInvalidValue for a tree deeper than the stack, a ray count
+// that is not whole groups, or seeds with packet < 1, the SAH tree or
+// grouped directions.
 extern "C" int traverse_launch(const void* boxes, int n_box_rows,
                                const void* leaves, int n_leaf_rows,
                                int n_levels, const int* level_offset,
                                const void* origins, const void* dirs,
                                const void* t_max, const void* live,
+                               const void* seeds, int packet,
                                void* t_out, void* tri_out, void* steps_out,
                                int n, int any_hit, int sah_depth,
                                int group_dirs, void* stream) {
@@ -288,6 +320,8 @@ extern "C" int traverse_launch(const void* boxes, int n_box_rows,
   if (sah_depth > 0 && sah_depth * 7 + 1 > kSahStack)
     return static_cast<int>(cudaErrorInvalidValue);
   if (group_dirs && n % kGroup != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (seeds != nullptr && (packet < 1 || sah_depth > 0 || group_dirs))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   Tree tree;
@@ -307,6 +341,8 @@ extern "C" int traverse_launch(const void* boxes, int n_box_rows,
   rays.t_out = static_cast<float*>(t_out);
   rays.tri_out = static_cast<int*>(tri_out);
   rays.steps_out = static_cast<int*>(steps_out);
+  rays.seeds = static_cast<const int*>(seeds);
+  rays.packet = seeds != nullptr ? packet : 1;
   rays.n = n;
   const int blocks = (n + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

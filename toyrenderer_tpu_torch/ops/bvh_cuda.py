@@ -1,15 +1,17 @@
 """Ray traversal of the two trees -- the complete 8-ary tree (ops/bvh.py)
 and the SAH tree (ops/bvh_sah.py) -- with per-ray or grouped directions:
-the CUDA kernel's wrapper, its plain PyTorch version, and the dispatch
-the frame calls.
+the CUDA kernel's wrapper, its plain PyTorch version, the dispatch the
+frame calls, and the binned traversal.
 
 Counterpart of toyrenderer_tpu/ops/bvh_pallas.py's `traverse_auto`,
-`traverse_pallas` and `traverse_pallas_gdir`.  The TPU kernels it
-replaces, `_traverse_kernel` (bvh_pallas.py:250) on the complete tree
-(K3) and in its explicit-refs mode on the SAH tree (K3-SAH), and
-`_traverse_kernel_gdir` (bvh_pallas.py:595, K5: ray i's direction is
-`group_dirs[i // 128]`), become one source, csrc/traverse.cu, built by
-nvcc into the build directory at first use and called through ctypes.
+`traverse_pallas`, `traverse_pallas_gdir` and `traverse_binned`.  The
+TPU kernels it replaces, `_traverse_kernel` (bvh_pallas.py:250) on the
+complete tree (K3), in its explicit-refs mode on the SAH tree (K3-SAH)
+and in its seeded mode (K3-seeded: every packet of `packet` rays starts
+at its own subtree, `seeds[i // packet]`), and `_traverse_kernel_gdir`
+(bvh_pallas.py:595, K5: ray i's direction is `group_dirs[i // 128]`),
+become one source, csrc/traverse.cu, built by nvcc into the build
+directory at first use and called through ctypes.
 
 The contract is the reference kernel's: `traverse(bvh, origins (N, 3),
 directions (N, 3), t_max (N,) or scalar, any_hit, live)` returns
@@ -47,14 +49,18 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "traverse.cu"
 MAX_LEVELS = 9          # the complete tree's stack bound; node << 4 fits
 SAH_STACK = 160         # the SAH kernels' stack: depth <= 22
 GROUP = 128             # rays per grouped direction (K5)
+BIN_PACKET = 1024       # rays per seeded packet (K3-seeded)
 ABSENT_CUT = -1.0e8     # SAH child refs above it are real
 _LEVEL_BITS = 4         # complete-tree stack entry = (node << 4) | level
 _EPS_DIR = 1e-12
 
-# launches of the CUDA kernel since the last reset, by the TPU kernel
+# launches of the CUDA kernels since the last reset, by the TPU kernel
 # each flavour replaces (K3: the complete tree, K3-SAH: the SAH tree, K5:
-# grouped directions on either tree); the plain version never counts
-launches_by_kernel = {'K3': 0, 'K3-SAH': 0, 'K5': 0}
+# grouped directions on either tree, K3-seeded: seeded packets on the
+# complete tree; K6: the pair route's fold, ops/pairs_cuda.py); the plain
+# versions never count
+launches_by_kernel = {'K3': 0, 'K3-SAH': 0, 'K5': 0, 'K3-seeded': 0,
+                      'K6': 0}
 
 
 def reset_launches():
@@ -149,11 +155,15 @@ def _leaf_fold(rows, o, d, best_t, best_tri):
 
 def traverse_plain(bvh, origins, directions, t_max, any_hit=False,
                    live=None, census: bool = False,
-                   group_dirs=None) -> dict:
+                   group_dirs=None, seeds=None,
+                   packet: int = BIN_PACKET) -> dict:
     """The kernel's function in plain PyTorch, on any device and either
     tree: each ray's depth-first walk, in the kernel's order, lockstep
     over the rays.  With `group_dirs` (N / 128, 3), ray i's direction is
-    group_dirs[i // 128] and `directions` is not read.  Returns the
+    group_dirs[i // 128] and `directions` is not read.  With `seeds`
+    (P,) i32 (the complete tree only), ray i's walk starts at the stack
+    entry seeds[i // packet], (node << 4) | level, instead of the root;
+    a negative seed leaves its stack empty (a miss).  Returns the
     contract's dict (see the module docstring); with `census`, also what
     the walk read, for a bound on the work: `leaf_steps` (N,) i32 (the
     leaf visits among `steps`) and `box_rows_read` (R,) / `leaf_rows_read`
@@ -163,6 +173,8 @@ def traverse_plain(bvh, origins, directions, t_max, any_hit=False,
     n = origins.shape[0]
     if group_dirs is not None:
         directions = expand_group_dirs(group_dirs, n)
+    if seeds is not None:
+        _check_seeds(bvh, seeds, n, packet, group_dirs)
     t_max, live = _rays(origins, t_max, live)
     o, d = origins, directions
     sd = torch.where(torch.abs(d) < _EPS_DIR,
@@ -182,6 +194,10 @@ def traverse_plain(bvh, origins, directions, t_max, any_hit=False,
     stack = torch.zeros((n, stack_entries(bvh) + 1), dtype=torch.int64,
                         device=dev)
     sp = alive.to(torch.int64)              # the root, entry 0, pushed
+    if seeds is not None:
+        seed = seeds.long()[torch.arange(n, device=dev) // packet]
+        stack[:, 0] = torch.clamp(seed, min=0)
+        sp = sp * (seed >= 0)
     if not sah:
         offsets = torch.tensor(list(bvh.level_offset) or [0],
                                dtype=torch.int64, device=dev)
@@ -191,7 +207,7 @@ def traverse_plain(bvh, origins, directions, t_max, any_hit=False,
         leaf_steps = torch.zeros(n, dtype=torch.int32, device=dev)
         box_read = torch.zeros(n_box, dtype=torch.bool, device=dev)
         leaf_read = torch.zeros(n_leaf, dtype=torch.bool, device=dev)
-    run = torch.nonzero(alive).flatten()
+    run = torch.nonzero(sp > 0).flatten()
     while run.numel() > 0:
         top = sp[run] - 1
         entry = stack[run, top]
@@ -276,16 +292,27 @@ def kernel_library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
                    + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     return lib
 
 
+def _check_seeds(bvh, seeds, n: int, packet: int, group_dirs):
+    if isinstance(bvh, BvhSah) or group_dirs is not None:
+        raise ValueError("seeded packets walk the complete tree with "
+                         "per-ray directions")
+    if packet <= 0 or seeds.dim() != 1 or seeds.shape[0] * packet < n:
+        raise ValueError(f"{tuple(seeds.shape)} seeds of {packet} rays "
+                         f"for {n} rays")
+
+
 def launch(bvh, origins, directions, t_max, any_hit=False, live=None,
-           group_dirs=None) -> dict:
+           group_dirs=None, seeds=None, packet: int = BIN_PACKET) -> dict:
     """One launch of the CUDA kernel on the current stream, on either
     tree; with `group_dirs` (N / 128, 3) the grouped-direction kernel
-    (K5), which reads them in place of `directions`.  Returns the
+    (K5), which reads them in place of `directions`; with `seeds` (P,)
+    i32 the seeded kernel (K3-seeded, see traverse_plain).  Returns the
     contract's dict."""
     _check_depth(bvh)
     dev = origins.device
@@ -317,31 +344,38 @@ def launch(bvh, origins, directions, t_max, any_hit=False, live=None,
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if seeds is not None:
+        _check_seeds(bvh, seeds, n, packet, group_dirs)
+        _check(seeds, 'seeds', torch.int32, (seeds.shape[0],), dev)
     err = kernel_library().traverse_launch(
         nodes.data_ptr(), nodes.shape[0], leaves.data_ptr(),
         leaves.shape[0], 1 if sah else bvh.num_levels, offs_c,
         origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
-        live.data_ptr(), t.data_ptr(), tri.data_ptr(), steps.data_ptr(), n,
+        live.data_ptr(), None if seeds is None else seeds.data_ptr(),
+        packet, t.data_ptr(), tri.data_ptr(), steps.data_ptr(), n,
         int(any_hit), bvh.depth if sah else 0, int(group_dirs is not None),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream)
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
-    launches_by_kernel['K5' if group_dirs is not None
+    launches_by_kernel['K3-seeded' if seeds is not None
+                       else 'K5' if group_dirs is not None
                        else 'K3-SAH' if sah else 'K3'] += 1
     return dict(hit=tri >= 0, t=t, tri=tri, steps=steps)
 
 
 def traverse(bvh, origins, directions, t_max, any_hit=False, live=None,
-             group_dirs=None) -> dict:
+             group_dirs=None, seeds=None, packet: int = BIN_PACKET) -> dict:
     """Trace rays through either tree: CUDA tensors launch the kernel,
     CPU tensors run the plain version."""
     dev = origins.device
     if dev.type == 'cuda':
         return launch(bvh, origins, directions, t_max, any_hit, live,
-                      group_dirs)
+                      group_dirs, seeds, packet)
     if dev.type == 'cpu':
         return traverse_plain(bvh, origins, directions, t_max, any_hit,
-                              live, group_dirs=group_dirs)
+                              live, group_dirs=group_dirs, seeds=seeds,
+                              packet=packet)
     raise ValueError(f"traverse: unsupported device {dev}")
 
 
@@ -352,19 +386,167 @@ def traverse_auto(bvh, origins, directions, t_max, any_hit: bool = False,
     """The frame's entry to the traversal (bvh_pallas.py:96): `traverse`
     on either tree.  `group_dirs` (N / 128, 3) routes to the grouped-
     direction kernel when N is a multiple of 128, as the reference does;
-    otherwise the per-ray `directions` are traced.  `max_steps` is
-    accepted and, as for the reference's kernel, does not bound the
-    walk.  The reference's other routes are not ported yet and raise,
-    naming their ROADMAP item."""
+    otherwise the per-ray `directions` are traced.  `pairs` routes to
+    the pair route (ops/rt_pairs.traverse_pairs, K6) with `pair_tables`
+    (its mt_tables, built by the caller once per refit).  The reference
+    takes the pair route only on the TPU (or in interpret mode) and
+    falls through to its lockstep traversal elsewhere; the port takes
+    its accelerator branch on every device, so on the CPU the pair route
+    runs its plain fold.  `max_steps` is accepted and, as for the
+    reference's kernel, does not bound the walk.  The reference's other
+    routes are not ported yet and raise, naming their ROADMAP item."""
     for on, what in (
             (sp_mesh is not None, "sp_mesh (multi-device rays): ROADMAP "
              "queue 1 item 12"),
-            (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 9"),
-            (pairs or pair_tables is not None, "pairs (the pair kernel "
-             "K6): ROADMAP queue 1 item 9")):
+            (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 9")):
         if on:
             raise NotImplementedError(f"traverse_auto {what}")
+    if pairs:
+        from toyrenderer_tpu_torch.ops import rt_pairs
+        return rt_pairs.traverse_pairs(bvh, origins, directions, t_max,
+                                       any_hit=any_hit, live=live,
+                                       tables=pair_tables)
     if group_dirs is not None and origins.shape[0] % GROUP:
         group_dirs = None
     return traverse(bvh, origins, directions, t_max, any_hit, live,
                     group_dirs)
+
+
+def _entry_nodes_complete(bvh, max_entries: int = 128):
+    """The deepest internal level of the complete tree with at most
+    max_entries nodes (bvh_pallas.py:1125) -> (boxes (E, 6) f32
+    [lo.xyz hi.xyz], seeds (E,) i32 stack entries (node << 4) | level,
+    level), or None when no internal level below the root fits.  The
+    boxes come from the parent rows one level up; the prefix-truncated
+    tree's padding children carry sealed far-point boxes and are never
+    entered."""
+    offs = list(bvh.level_offset) + [bvh.child_boxes.shape[0]]
+    best = None
+    for lvl in range(1, bvh.num_levels - 1):
+        if (offs[lvl] - offs[lvl - 1]) * ARITY <= max_entries:
+            best = lvl
+    if best is None:
+        return None
+    rows = bvh.child_boxes[offs[best - 1]:offs[best]]
+    boxes = rows.reshape(-1, 6, ARITY).transpose(1, 2).reshape(-1, 6)
+    ids = torch.arange(boxes.shape[0], dtype=torch.int32,
+                       device=boxes.device)
+    return boxes.contiguous(), (ids << _LEVEL_BITS) | best, best
+
+
+def traverse_binned(bvh, origins, directions, t_max, any_hit: bool = False,
+                    live=None, rounds: int = 2, packet: int = BIN_PACKET,
+                    max_entries: int = 128, stats: dict | None = None
+                    ) -> dict:
+    """The binned traversal of the complete tree (bvh_pallas.py:1150),
+    exact for closest and any hit; `steps` all zeros, as in the
+    reference.
+
+    1. Phase A tests every ray against the entry subtrees' boxes (the
+       deepest level with at most max_entries nodes), with the kernel's
+       slab arithmetic.
+    2. Each round sorts the still-active rays by their nearest unvisited
+       entry, pads each entry's run to whole packets of `packet` slots
+       (capacity (ceil(N / packet) + E) * packet), and walks each packet
+       from its entry (K3-seeded; padding packets get a negative seed),
+       the ray's best t so far as its t_max; a strictly nearer hit
+       replaces the best.  A ray whose best hit precedes every unvisited
+       entry drops out.
+    3. Rays that could still find a nearer hit take one root-seeded
+       walk (K3), live-masked, so the result is exact for any `rounds`.
+
+    A tree with no usable entry level goes straight to `traverse`.  With
+    `stats` (a dict), it also receives the entry count, the packets of
+    each round (`packets`: with a non-negative seed; `cap_packets`) and
+    the exactness pass's live rays (`rest`), as tensors."""
+    if isinstance(bvh, BvhSah):
+        raise ValueError("traverse_binned walks the complete tree: its "
+                         "entry level reads level_offset")
+    n = origins.shape[0]
+    dev = origins.device
+    ent = _entry_nodes_complete(bvh, max_entries)
+    if ent is None:
+        return traverse(bvh, origins, directions, t_max, any_hit, live)
+    boxes, seeds, _ = ent
+    e_n = boxes.shape[0]
+    t_max, live_f = _rays(origins, t_max, live)
+    live_b = live_f > 0.0
+
+    # phase A: the entry intervals, as the kernel tests a child box
+    d = directions
+    sd = torch.where(torch.abs(d) < _EPS_DIR,
+                     torch.where(d < 0.0, -_EPS_DIR, _EPS_DIR), d)
+    inv = 1.0 / sd
+    oinv = origins * inv
+    tn = torch.zeros((n, e_n), device=dev)
+    tf = torch.full((n, e_n), torch.inf, device=dev)
+    for c in range(3):
+        t0 = boxes[None, :, c] * inv[:, c, None] - oinv[:, c, None]
+        t1 = boxes[None, :, 3 + c] * inv[:, c, None] - oinv[:, c, None]
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    ok = ((tf >= tn) & live_b[:, None] & (tn <= t_max[:, None])
+          & (tn < 1e30))
+    tmins = torch.where(ok, tn, torch.inf)                      # (N, E)
+
+    cap_p = -(-n // packet) + e_n
+    cap_slots = cap_p * packet
+    ids = torch.arange(n, device=dev)
+    e_ar = torch.arange(e_n, device=dev)
+    best_t = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    packets = []
+    for _ in range(rounds):
+        active = live_b & (tmins.amin(1) < best_t)
+        if any_hit:
+            active = active & (best_tri < 0)
+        sel = torch.argmin(tmins, 1)
+        key = torch.where(active, sel, e_n)
+        skey, sid = torch.sort(key, stable=True)
+        bounds = torch.searchsorted(skey, torch.arange(e_n + 1, device=dev))
+        counts = bounds[1:] - bounds[:-1]
+        padded = -(-counts // packet) * packet
+        cum = torch.cumsum(padded, 0)
+        sk = torch.clamp(skey, max=e_n - 1)
+        slot = torch.where(skey < e_n, cum[sk] - padded[sk] + ids
+                           - bounds[sk], cap_slots)
+        slot_of_ray = torch.empty_like(slot)
+        slot_of_ray[sid] = slot
+        ray_slot = torch.full((cap_slots + 1,), -1, dtype=torch.int64,
+                              device=dev)
+        ray_slot.scatter_(0, slot, sid)          # cap_slots: a dump slot
+        ray_slot = ray_slot[:cap_slots]
+        e_of_p = torch.searchsorted(
+            cum, torch.arange(cap_p, device=dev) * packet, right=True)
+        seed_p = torch.where(e_of_p < e_n,
+                             seeds[torch.clamp(e_of_p, max=e_n - 1)], -1)
+        packets.append((seed_p >= 0).sum())
+
+        ridx = torch.clamp(ray_slot, min=0)
+        out = traverse(bvh, origins[ridx].contiguous(),
+                       d[ridx].contiguous(), best_t[ridx].contiguous(),
+                       any_hit, (ray_slot >= 0).to(torch.float32),
+                       seeds=seed_p.to(torch.int32).contiguous(),
+                       packet=packet)
+        sl = torch.clamp(slot_of_ray, max=cap_slots - 1)
+        t_r, tri_r = out['t'][sl], out['tri'][sl]
+        upd = (slot_of_ray < cap_slots) & (tri_r >= 0) & (t_r < best_t)
+        best_t = torch.where(upd, t_r, best_t)
+        best_tri = torch.where(upd, tri_r, best_tri)
+        tmins = torch.where(active[:, None] & (e_ar == sel[:, None]),
+                            torch.inf, tmins)
+
+    rest = live_b & (tmins.amin(1) < best_t)
+    if any_hit:
+        rest = rest & (best_tri < 0)
+    res = traverse(bvh, origins, directions, best_t, any_hit,
+                   rest.to(torch.float32))
+    upd = rest & res['hit'] & (res['t'] < best_t)
+    best_t = torch.where(upd, res['t'], best_t)
+    best_tri = torch.where(upd, res['tri'], best_tri)
+    if stats is not None:
+        stats.update(entries=e_n, rounds=rounds, packets=packets,
+                     cap_packets=cap_p, rest=rest.sum())
+    hit = best_tri >= 0
+    return dict(hit=hit, t=torch.where(hit, best_t, t_max), tri=best_tri,
+                steps=torch.zeros(n, dtype=torch.int32, device=dev))

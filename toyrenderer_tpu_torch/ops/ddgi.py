@@ -18,14 +18,17 @@ The rays run through ops/bvh_cuda.traverse_auto (K3-SAH on the GI tree,
 K3 on the complete tree), laid out in cones (16 neighbouring directions
 x a brick of probes), or with TR_GI_GDIR=1 in 32-direction x 128-probe
 blocks whose every 128 rays share a direction, for the grouped-direction
-kernel K5.  Texel updates are small matrix products.  Probe textures are
-dense (P, T, C) tensors in the frame's carry.  A phased block is
-addressed with index tensors, so nothing here waits on the host.
+kernel K5, or with TR_GI_PAIRS=1 direction-major, 128 probes of one
+direction to a block, through the pair route (ops/rt_pairs.py, K6),
+whose tables trace_probe_block builds once for both of its traces.
+Texel updates are small matrix products.  Probe textures are dense
+(P, T, C) tensors in the frame's carry.  A phased block is addressed
+with index tensors, so nothing here waits on the host.
 
 Not ported, each raising NotImplementedError naming its ROADMAP item:
-the pair kernel's route (TR_GI_PAIRS=1, K6) and the block-pair route
-(TR_RT_CHUNKS=1), the corner-packed visibility fetch (TR_GI_VIS_PACK=1),
-`visualize_probes` and the unphased `trace_probes`.
+the block-pair route (TR_RT_CHUNKS=1), the corner-packed visibility
+fetch (TR_GI_VIS_PACK=1), `visualize_probes` and the unphased
+`trace_probes`.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ import torch
 from toyrenderer_tpu_torch.mathlib.transforms import cross
 from toyrenderer_tpu_torch.ops import packing as P
 from toyrenderer_tpu_torch.ops.bvh_cuda import GROUP, traverse_auto
+from toyrenderer_tpu_torch.ops.rt_pairs import BLOCK as PAIR_BLOCK
+from toyrenderer_tpu_torch.ops.rt_pairs import mt_tables
 
 IRR_RES = 8           # octahedral irradiance texels per probe side
 DIST_RES = 16         # distance texels per probe side
@@ -157,14 +162,18 @@ def _gi_gdir_enabled() -> bool:
     return os.environ.get('TR_GI_GDIR', '0') == '1'
 
 
+def _gi_pairs_enabled() -> bool:
+    """TR_GI_PAIRS=1: the probe rays take the pair route (K6), read at
+    call time as the reference reads it (ddgi.py:177-187)."""
+    return os.environ.get('TR_GI_PAIRS', '0') == '1'
+
+
 def _check_routes():
-    """The reference's opt-in probe-ray routes that are not ported."""
-    for var, what in (('TR_GI_PAIRS', "the pair kernel K6"),
-                      ('TR_RT_CHUNKS', "the block-pair traversal")):
-        if os.environ.get(var, '0') == '1':
-            raise NotImplementedError(
-                f"{var}=1 ({what}): not ported yet (ROADMAP queue 1 "
-                "item 9)")
+    """The reference's opt-in probe-ray route that is not ported."""
+    if os.environ.get('TR_RT_CHUNKS', '0') == '1':
+        raise NotImplementedError(
+            "TR_RT_CHUNKS=1 (the block-pair traversal): not ported yet "
+            "(ROADMAP queue 1 item 9)")
 
 
 def _cone_block(x, r: int, pbp: int, brick: int, dirs: int):
@@ -259,11 +268,11 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
     Inactive probes keep only FIXED_RAYS live rays.  Returns (radiance
     (Pb, R, 3), distance (Pb, R), directions (R, 3), block start (an
     int64 tensor scalar), the lifecycle's inputs for
-    update_probe_block)."""
+    update_probe_block).  With TR_GI_PAIRS=1 both traces take the pair
+    route, with `pair_tables` (rt_pairs.mt_tables of `bvh`, built here
+    for both traces when None), in direction-major order with the block
+    padded to whole 128-probe blocks."""
     _check_routes()
-    if pair_tables is not None:
-        raise NotImplementedError("ddgi pair_tables (K6): not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
     dev = prev_irradiance.device
     p = volume.num_probes
     pb = -(-p // num_phases)
@@ -273,7 +282,10 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
 
     r = volume.rays_per_probe
     base = _fibonacci_sphere(r)
-    cone_ok = r % CONE_DIRS == 0
+    use_pairs = _gi_pairs_enabled()
+    if use_pairs and pair_tables is None:
+        pair_tables = mt_tables(bvh)
+    cone_ok = r % CONE_DIRS == 0 and not use_pairs
     if cone_ok:
         base = base[_cone_order(r)]
     dirs = torch.from_numpy(base).to(dev) @ _frame_rotation(frame_index).T
@@ -286,7 +298,12 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
     use_gdir = cone_ok and r % GDIR_DIRS == 0 and _gi_gdir_enabled()
     ndirs = GDIR_DIRS if use_gdir else CONE_DIRS
     brick = GDIR_BRICK if use_gdir else _brick_for(pb)
-    pbp = -(-pb // brick) * brick if cone_ok else pb
+    if cone_ok:
+        pbp = -(-pb // brick) * brick
+    elif use_pairs:
+        pbp = -(-pb // PAIR_BLOCK) * PAIR_BLOCK
+    else:
+        pbp = pb
     pos_p = torch.nn.functional.pad(pos, (0, 0, 0, pbp - pb))
     state_p = torch.nn.functional.pad(state, (0, pbp - pb))
     origins = pos_p.repeat(r, 1)                       # (R * Pbp, 3)
@@ -298,6 +315,10 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
             * pad_live.repeat(r))
 
     def trace(o, d, lv, **kw):
+        if use_pairs:
+            return traverse_auto(bvh, o.contiguous(), d.contiguous(),
+                                 live=lv, sp_mesh=sp_mesh, pairs=True,
+                                 pair_tables=pair_tables, **kw)
         if not cone_ok:
             return traverse_auto(bvh, o.contiguous(), d.contiguous(),
                                  live=lv, sp_mesh=sp_mesh, **kw)
