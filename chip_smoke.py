@@ -44,7 +44,17 @@ both main paths through the port's entry points at 1920x1080:
 * the ray-traversal bench (slice 5, toyrenderer_tpu_torch/tools/
   rtbench.py) at 1,048,576 rays: the seeded walk (K3-seeded) of the
   binned rows held against its plain version, and each binned result
-  against K3's root walk on the same rays.
+  against K3's root walk on the same rays;
+* slice 6: `raster.rasterize` over the default view's dense (tiles, K)
+  table, its fill (K7) held against its plain version on both of its
+  launches (the opaque set, the masked set continuing its planes), and
+  against the bruteforce oracle on Cornell; the all-on update frame
+  rendered again with its probe hits' sun taps read from the sun map;
+  the bench's map-shadowed frame (the sun map's one-layer K2 launch
+  held against its plain version, 1 + 5 frames, a profile); the stored
+  goldens rendered as tests/test_goldens.py renders them (Cornell
+  gated, the courtyard printed); the port's render CLI in its own
+  process.
 
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
@@ -147,28 +157,85 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(fn):
+# each hand-written kernel's symbol, and the positions in launch_counts()
+# of the wrappers that launch it
+KERNEL_SYMBOLS = (("fill_resolve_kernel", (0,)), ("fill_peel_kernel", (1,)),
+                  ("traverse_kernel", (2, 4, 5, 6)), ("warp_kernel", (3,)),
+                  ("pairs_kernel", (7,)), ("fill_dense_kernel", (8,)))
+
+
+def trace(fn):
     """fn() under the profiler: (fn's result, the trace's key averages,
-    the device ms of its kernels).  The profiler's device trace now and
-    then comes back with no kernel in it although fn launched some; such
-    a trace is taken again, up to PROFILE_TRIES times in all, and the
-    last one is returned (device ms 0.0 when every one was empty)."""
+    the device ms of its kernels, short): `short` maps each hand-written
+    kernel whose events in the trace fall short of the launches fn made
+    of it (its wrappers' launch counts) to "events/launches"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(launch_counts(), before)]
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    ms = sum(e.self_device_time_total for e in device) / 1e3
+    short = {}
+    for sym, idx in KERNEL_SYMBOLS:
+        want = sum(launched[i] for i in idx)
+        got = sum(e.count for e in device if sym in e.key)
+        if got < want:
+            short[sym] = f"{got}/{want}"
+    return out, events, ms, short
+
+
+def profiled(fn):
+    """fn() under the profiler: (fn's result, the trace's key averages,
+    the device ms of its kernels; 0.0 when no trace was whole).  The
+    profiler's device trace now and then comes back with no kernel in
+    it, or with fewer events of a hand-written kernel than fn launched
+    of it.  Such a trace is taken again, up to PROFILE_TRIES times in
+    all, each time printing a [profiler] line with the kernel events
+    found against the launches made."""
     for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        ms = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA) / 1e3
-        if ms > 0:
-            break
-        phase("profiler", note="the device trace came back empty",
+        out, events, ms, short = trace(fn)
+        if ms > 0 and not short:
+            return out, events, ms
+        phase("profiler", note=("the device trace came back empty" if ms == 0
+                                else "the device trace holds fewer kernel "
+                                "events than launches"),
+              events_of_launches=json.dumps(short),
               attempt=f"{attempt + 1}/{PROFILE_TRIES}")
-    return out, events, ms
+    return out, events, 0.0
+
+
+def kernel_ms(fn, reps: int, symbol: str) -> float:
+    """Mean device time of one launch of the hand-written kernel
+    `symbol`, which fn() launches: over `reps` calls after a warm-up, the
+    mean duration of that kernel's events in the profiler's trace.  A
+    trace that lost some of them still times the ones it holds (a
+    [profiler] line counts them); one that holds none is taken again, up
+    to PROFILE_TRIES times, then CUDA events time it."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        _, events, _, short = trace(lambda: [fn() for _ in range(reps)])
+        mine = [e for e in events
+                if e.device_type == DeviceType.CUDA and symbol in e.key]
+        n = sum(e.count for e in mine)
+        if symbol in short:
+            phase("profiler", note="the device trace holds fewer kernel "
+                  "events than launches; timed from the events it holds",
+                  kernel=symbol, events_of_launches=short[symbol],
+                  attempt=f"{attempt + 1}/{PROFILE_TRIES}")
+        if n:
+            return sum(e.self_device_time_total for e in mine) / 1e3 / n
+    phase("profiler", note="no kernel event in the trace; timed with CUDA "
+          "events", kernel=symbol)
+    return cuda_ms(fn, reps)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -176,14 +243,14 @@ def device_ms(fn, reps: int) -> float:
     summed time of the device kernels it launched, from the profiler.
     Events around a loop of short kernels would also count the gaps in
     which the host is still launching the next one; they are the
-    measurement only where every trace came back empty."""
+    measurement only where no trace came back whole."""
     import torch
     fn()
     torch.cuda.synchronize()
     _, _, ms = profiled(lambda: [fn() for _ in range(reps)])
     if ms > 0:
         return ms / reps
-    phase("profiler", note="no device trace; timed with CUDA events")
+    phase("profiler", note="no whole device trace; timed with CUDA events")
     return cuda_ms(fn, reps)
 
 
@@ -274,6 +341,52 @@ def peel_bound_ms(inp) -> tuple[float, str]:
               + (0 if inp.occluder is None else hp * wp * 4)
               + 2 * inp.layers * hp * wp * 4)
     return bound(ops, bytes_)
+
+
+def dense_bound_ms(args) -> tuple[float, str]:
+    """Least time the card could take for one dense-table fill (K7) on
+    the arguments of one launch: operations, the edge and depth tests of
+    every table entry a tile walks and of each big triangle whose tile
+    bbox holds the tile (a triangle covers no pixel outside it); bytes,
+    the records of the triangles tested read once, the walked table
+    entries, the big list, the per-tile tables, the init planes given,
+    and the depth and id planes written once."""
+    import torch
+    from toyrenderer_tpu_torch.ops.raster_cuda import big_boxes
+    setup, table, count, big_list, cfg, init_z, init_id, _ = args
+    k = torch.arange(cfg.max_tris_per_tile, device=table.device)
+    walked = table[k[None, :] < count[:, None]]
+    nb = int((big_list >= 0).sum())
+    tests = walked.numel() + int(big_boxes(setup, big_list, cfg)[1].sum())
+    hp, wp = cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w
+    given = [x for x in (init_z, init_id) if x is not None]
+    tested = torch.unique(torch.cat([walked, big_list[:nb]])).numel()
+    bytes_ = (tested * 16 * 4 + walked.numel() * 4 + nb * 5 * 4
+              + cfg.num_tiles * 4 * 4 + len(given) * hp * wp * 4
+              + 2 * hp * wp * 4)
+    return bound(tests * cfg.tile_h * cfg.tile_w * OPS_PER_TEST, bytes_)
+
+
+def perceptual_diff(a_u8, b_u8) -> tuple[float, float]:
+    """The golden images' metric (tests/test_goldens.py:76-85): per pixel
+    the largest channel difference of the two images in linear RGB,
+    each blurred by a separable [1 2 1] / 4 (edges clamped); returns
+    its mean and 99th percentile."""
+    import numpy as np
+
+    def blur(x):
+        k = (0.25, 0.5, 0.25)
+        p = np.pad(x, ((1, 1), (0, 0), (0, 0)), mode='edge')
+        x = k[0] * p[:-2] + k[1] * p[1:-1] + k[2] * p[2:]
+        p = np.pad(x, ((0, 0), (1, 1), (0, 0)), mode='edge')
+        return k[0] * p[:, :-2] + k[1] * p[:, 1:-1] + k[2] * p[:, 2:]
+
+    def lin(u8):
+        s = u8.astype(np.float64) / 255.0
+        return np.where(s <= 0.04045, s / 12.92,
+                        ((s + 0.055) / 1.055) ** 2.4)
+    d = np.abs(blur(lin(a_u8)) - blur(lin(b_u8))).max(axis=-1)
+    return float(d.mean()), float(np.percentile(d, 99))
 
 
 def compare_fill(got, want, won_mask) -> float:
@@ -400,21 +513,21 @@ def drops_of(aux) -> tuple[int, int]:
 def reset_launch_counts():
     """Set every kernel wrapper's launch count to 0."""
     from toyrenderer_tpu_torch.ops import (
-        bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
-    for m in (raster_cuda, peel_cuda, warp_cuda):
+        bvh_cuda, dense_cuda, peel_cuda, raster_cuda, warp_cuda)
+    for m in (raster_cuda, peel_cuda, warp_cuda, dense_cuda):
         m.launches = 0
     bvh_cuda.reset_launches()
 
 
 def launch_counts() -> list[int]:
-    """The launch counts K1 K2 K3 K4 K3-SAH K5 K3-seeded K6 since the
+    """The launch counts K1 K2 K3 K4 K3-SAH K5 K3-seeded K6 K7 since the
     last reset."""
     from toyrenderer_tpu_torch.ops import (
-        bvh_cuda, peel_cuda, raster_cuda, warp_cuda)
+        bvh_cuda, dense_cuda, peel_cuda, raster_cuda, warp_cuda)
     by = bvh_cuda.launches_by_kernel
     return [raster_cuda.launches, peel_cuda.launches, by['K3'],
             warp_cuda.launches, by['K3-SAH'], by['K5'], by['K3-seeded'],
-            by['K6']]
+            by['K6'], dense_cuda.launches]
 
 
 def drive(render, scene, pairs, fi_np, carry, mask_kw, frames, per_frame):
@@ -472,8 +585,7 @@ def profile_frame(render, scene, pairs, fi_np, carry, mask_kw):
     from torch.autograd import DeviceType
     out, events, busy = profiled(
         lambda: render(scene, *pairs, fi_np, carry, **mask_kw))
-    mine = ("fill_resolve_kernel", "fill_peel_kernel", "traverse_kernel",
-            "warp_kernel", "pairs_kernel")
+    mine = tuple(sym for sym, _ in KERNEL_SYMBOLS)
 
     def name(key):
         return next((m for m in mine if m in key), key)
@@ -589,7 +701,8 @@ def hold_trace(label, args) -> dict:
     n_live = int(alive.sum())
     steps = want['steps'][alive].float()
     st = dict(err=float((got['t'] - want['t']).abs().max()),
-              ms=device_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS),
+              ms=kernel_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS,
+                           "traverse_kernel"),
               events_ms=cuda_ms(lambda: bvh_cuda.launch(*args), KERNEL_REPS),
               plain_ms=cuda_ms(lambda: bvh_cuda.traverse_plain(
                   bvh, o, d, t_max, any_hit, live, group_dirs=gd,
@@ -667,7 +780,8 @@ def hold_k6(label, args) -> dict:
             raise AssertionError(f"K6 ({label}): output {k} differs on "
                                  f"{int((a != b).sum())} rays")
     st = dict(err=float((got[0] - want[0]).abs().nan_to_num(0.0).max()),
-              ms=device_ms(lambda: pairs_cuda.launch(*args), KERNEL_REPS),
+              ms=kernel_ms(lambda: pairs_cuda.launch(*args), KERNEL_REPS,
+                           "pairs_kernel"),
               events_ms=cuda_ms(lambda: pairs_cuda.launch(*args),
                                 KERNEL_REPS),
               plain_ms=cuda_ms(lambda: rt_pairs.pair_fold_plain(*args), 1),
@@ -743,8 +857,9 @@ def hold_pair_route(label, call, k6) -> dict:
         tri_agree=tri_agree,
         route_ms=device_ms(lambda: rt_pairs.traverse_pairs(
             bvh, o, d, t_max, any_hit=any_hit, live=live, tables=tables), 3),
-        sah_ms=device_ms(lambda: bvh_cuda.launch(bvh, o, d, t_max, any_hit,
-                                                 live), KERNEL_REPS),
+        sah_ms=kernel_ms(lambda: bvh_cuda.launch(bvh, o, d, t_max, any_hit,
+                                                 live), KERNEL_REPS,
+                         "traverse_kernel"),
         tables_ms=device_ms(lambda: rt_pairs.mt_tables(bvh), 3))
     phase("pair route vs K3-SAH", input=json.dumps(label),
           mode="any-hit" if any_hit else "closest-hit",
@@ -803,7 +918,8 @@ def hold_k4(name, args) -> dict:
             align_corners=True)
     lib_err = float((library()[0].permute(1, 2, 0) - got).abs().max())
     st = dict(err=float((got - want).abs().max()),
-              ms=device_ms(lambda: warp_cuda.launch(*args), KERNEL_REPS),
+              ms=kernel_ms(lambda: warp_cuda.launch(*args), KERNEL_REPS,
+                           "warp_kernel"),
               events_ms=cuda_ms(lambda: warp_cuda.launch(*args),
                                 KERNEL_REPS),
               plain_ms=cuda_ms(lambda: warp_cuda.warp_bilinear_plain(*args),
@@ -856,8 +972,8 @@ def main() -> int:
     from toyrenderer_tpu_torch.ops import geometry as geo_mod
     from toyrenderer_tpu_torch.ops import raster as raster_mod
     from toyrenderer_tpu_torch.ops import (
-        bvh_cuda, bvh_sah, ddgi, pairs_cuda, peel_cuda, raster_cuda,
-        rt_pairs, warp_cuda)
+        bvh_cuda, bvh_sah, ddgi, dense_cuda, pairs_cuda, peel_cuda,
+        raster_cuda, rt_pairs, warp_cuda)
     from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
     from toyrenderer_tpu_torch.scene import load_scene
     from toyrenderer_tpu_torch.scene.gltf import (
@@ -879,7 +995,8 @@ def main() -> int:
     # 2. kernel builds: one nvcc per source, started together ---------------
     t = time.time()
     libs = {"fill_resolve": raster_cuda, "fill_peel": peel_cuda,
-            "traverse": bvh_cuda, "warp": warp_cuda, "pairs": pairs_cuda}
+            "traverse": bvh_cuda, "warp": warp_cuda, "pairs": pairs_cuda,
+            "fill_dense": dense_cuda}
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(m.kernel_library) for m in libs.values()]:
             f.result()
@@ -1485,10 +1602,10 @@ def main() -> int:
     finally:
         del os.environ['TR_GI_PAIRS']
     calls = routes[rt_pairs]
-    if (p_launches[4:] != [2, 0, 0, 2] or len(calls) != 2
+    if (p_launches[4:8] != [2, 0, 0, 2] or len(calls) != 2
             or [c[1]['any_hit'] for c in calls] != [False, True]):
         raise AssertionError(f"pair frame: launches K3-SAH K5 K3-seeded K6 "
-                             f"{p_launches[4:]}, route calls "
+                             f"{p_launches[4:8]}, route calls "
                              f"{[c[1]['any_hit'] for c in calls]}; want "
                              "[2, 0, 0, 2] and [False, True]")
     k6, pair_route = {}, {}
@@ -1509,11 +1626,69 @@ def main() -> int:
           max_diff=int(pdiff.max()), min_share=0.995,
           probe_irradiance_diff_mean=f"{float(irr_d.mean()):.3g}",
           probe_irradiance_diff_max=f"{float(irr_d.max()):.3g}",
-          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6=json.dumps(p_launches),
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
+              p_launches),
           update_busy_ms_pairs=f"{p_busy:.3f}",
           update_busy_ms_default=f"{d_busy:.3f}",
           pairs_by_op_ms_calls=json.dumps(p_by_op[:12]))
-    del img3, img3p, carry3, carry3p
+    del img3p, carry3p
+
+    # 17c. the same update frame rendered again with RT shadows off and
+    #      gi_sun_technique='map': the probe hits' sun taps read the sun
+    #      map (rendered once in the frame) instead of K3-SAH's any-hit
+    #      rays, so K3-SAH launches once (the probe rays); 'auto' without
+    #      RT shadows picks the map too (the same image)
+    t_set = dataclasses.replace(a_set, enable_shadows=False,
+                                gi_sun_technique='map')
+    reset_launch_counts()
+    img3m, carry3m, aux3m = make_render_fn(t_set, **c_kw)(
+        scene, *c_pairs, fi3, carry3, **a_kw)
+    torch.cuda.synchronize()
+    t_launches = launch_counts()
+    img3a, _, _ = make_render_fn(dataclasses.replace(
+        t_set, gi_sun_technique='auto'), **c_kw)(
+        scene, *c_pairs, fi3, carry3, **a_kw)
+    irr_m = carry3m['ddgi_irradiance']
+    if (t_launches != [2, 2, 0, 1, 1, 0, 0, 0, 0]
+            or not aux3m['ddgi_updated']
+            or int(aux3m['shadow_map_dropped']) != 0
+            or not bool(torch.isfinite(irr_m).all())
+            or float(irr_m.max()) <= 0 or not torch.equal(img3a, img3m)):
+        raise AssertionError(
+            f"map-taps update frame: launches K1 K2 K3 K4 K3-SAH K5 "
+            f"K3-seeded K6 K7 {t_launches} (want [2, 2, 0, 1, 1, 0, 0, 0, "
+            f"0]), updated {aux3m['ddgi_updated']}, sun-map drops "
+            f"{int(aux3m['shadow_map_dropped'])}, irradiance max "
+            f"{float(irr_m.max())}, auto = map {torch.equal(img3a, img3m)}")
+    # the next frame holds the probes: it reads no sun tap, so it renders
+    # no sun map (K2 once, for the masked set) and launches no K3-SAH
+    reset_launch_counts()
+    _, _, aux4m = make_render_fn(t_set, **c_kw)(
+        scene, *c_pairs, fi3, carry3m, **a_kw)
+    torch.cuda.synchronize()
+    h_launches = launch_counts()
+    if (h_launches != [2, 1, 0, 1, 0, 0, 0, 0, 0] or aux4m['ddgi_updated']
+            or 'shadow_map_dropped' in aux4m):
+        raise AssertionError(
+            f"map-taps hold frame: launches K1 K2 K3 K4 K3-SAH K5 "
+            f"K3-seeded K6 K7 {h_launches} (want [2, 1, 0, 1, 0, 0, 0, 0, "
+            f"0]), updated {aux4m['ddgi_updated']}, sun map rendered "
+            f"{'shadow_map_dropped' in aux4m}")
+    del aux4m
+    t_close = float(((img3.int() - img3m.int()).abs().amax(-1) <= 1)
+                    .float().mean())
+    irr_t = (irr_m - a_carry['ddgi_irradiance']).abs()
+    phase("all-on update frame, map taps", frame=3,
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
+              t_launches),
+          hold_frame_launches=json.dumps(h_launches),
+          shadow_map_dropped=int(aux3m['shadow_map_dropped']),
+          probe_irradiance_max=f"{float(irr_m.max()):.4f}",
+          probe_irradiance_diff_vs_rt_taps_mean=f"{float(irr_t.mean()):.3g}",
+          image_within_1_of_rt_frame=f"{t_close:.4f}",
+          note="ungated: RT shadows and any-hit taps in the default frame",
+          auto_equals_map=True)
+    del img3, img3m, img3a, carry3, carry3m
 
     # 18. the all-on frame at 1920x1080 through the entry points: 1 + 8
     #     frames of the pan (frames 4-12: updates at 7 and 11); gates on
@@ -1532,15 +1707,15 @@ def main() -> int:
     a_times, a_walls, a_img, a_aux, a_carry, a_rows = drive(
         a_render, scene, c_pairs, a_fi.pop, a_carry, a_kw, ALLON_FRAMES,
         a_per_frame)
-    prev = [0] * 8
+    prev = [0] * 9
     for i, r in enumerate(a_rows):
         per = [a - b for a, b in zip(r['launches'], prev)]
         prev = r['launches']
-        want = [2, 1, 1, 2, 2 if r['updated'] else 0, 0, 0, 0]
+        want = [2, 1, 1, 2, 2 if r['updated'] else 0, 0, 0, 0, 0]
         if per != want or r['drops'] != (0, 0):
             raise AssertionError(
                 f"all-on frame {i}: launches K1 K2 K3 K4 K3-SAH K5 "
-                f"K3-seeded K6 {per} (want {want}), drops {r['drops']}")
+                f"K3-seeded K6 K7 {per} (want {want}), drops {r['drops']}")
         lo, mean, hi = r['ao']
         if not (r['irr_finite'] and r['irr_max'] > 0
                 and np.isfinite(r['variability'])
@@ -1565,7 +1740,8 @@ def main() -> int:
           all_ms=json.dumps([round(x, 3) for x in a_times]),
           updated=json.dumps([r['updated'] for r in a_rows]),
           host_wall_ms=json.dumps([round(x, 3) for x in a_walls]),
-          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6=json.dumps(a_launches),
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
+              a_launches),
           coverage=f"{a_coverage:.4f}", raster_dropped=drops_of(a_aux)[0],
           raster_mask_dropped=drops_of(a_aux)[1],
           probe_irradiance_max=json.dumps(
@@ -1676,7 +1852,350 @@ def main() -> int:
           launches=json.dumps(rb_launches))
     del rb_rows
 
-    # 21. kernels -------------------------------------------------------------
+    # ================ the dense-table fill and the sun map (slice 6) =========
+
+    # 21. the dense-table fill (K7) through raster.rasterize, on the
+    #     default 1080p view at the capacity-sized K: every count set to
+    #     0, the opaque set rasterized, then the masked set continuing its
+    #     planes (ids offset by the opaque set's T), the counts read; each
+    #     launch then held bit-equal to its plain version,
+    #     raster.fill_visibility, on the launch's own arguments
+    geo_o = geo_mod.meshlet_clip_triangles(scene, inst_world, fi['view_proj'],
+                                           pair_inst, pair_meshlet)
+    geo_m = geo_mod.meshlet_clip_triangles(scene, inst_world, fi['view_proj'],
+                                           mask_inst, mask_meshlet)
+    t_opaque = geo_o['tri_valid'].shape[0]
+    reset_launch_counts()
+    with recorded((dense_cuda,)) as seen:
+        setup_o, z_o, id_o = raster_mod.rasterize(geo_o, cfgs["opaque"])
+        setup_m, _, id_c = raster_mod.rasterize(
+            geo_m, cfgs["masked"], init_depth=z_o, init_tri_id=id_o,
+            tri_id_base=t_opaque)
+        torch.cuda.synchronize()
+    k7_launches = launch_counts()
+    if k7_launches != [0] * 8 + [2]:
+        raise AssertionError(f"rasterize: launches K1-K7 {k7_launches}; "
+                             "want K7 2 and no other")
+    dense_in = [a for a, _, _ in seen[dense_cuda]]
+    del seen
+    k7_drops = {name: {k: int(v) for k, v in raster_mod.bin_triangles(
+        st, c)[3].items() if int(v)} for name, st, c in (
+            ("opaque", setup_o, cfgs["opaque"]),
+            ("masked", setup_m, cfgs["masked"]))}
+    if any(k7_drops.values()):
+        raise AssertionError(f"rasterize: drops {k7_drops}")
+    k7 = {}
+    for name, args in zip(("opaque", "masked set continuing the opaque "
+                           "planes"), dense_in):
+        got = dense_cuda.launch(*args)
+        setup, table, count, big, cfg_d, init_z, init_id, base = args
+        # the plain version at a larger tile batch: batching does not
+        # change a tile's arithmetic
+        plain = (setup, table, big,
+                 dataclasses.replace(cfg_d, tile_batch=128), init_z,
+                 init_id, base)
+        t = time.time()
+        want = raster_mod.fill_visibility(*plain)
+        torch.cuda.synchronize()
+        plain_wall = time.time() - t
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"K7 ({name}): ids differ at "
+                                 f"{int((got[1] != want[1]).sum())} pixels")
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"K7 ({name}): depth is not bit-equal")
+        k7[name] = dict(
+            err=float((got[0] - want[0]).abs().max()),
+            ms=kernel_ms(lambda: dense_cuda.launch(*args), KERNEL_REPS,
+                         "fill_dense_kernel"),
+            plain_ms=cuda_ms(lambda: raster_mod.fill_visibility(*plain), 1),
+            bound=dense_bound_ms(args))
+        phase("K7 vs plain", input=json.dumps(name), K=cfg_d.
+              max_tris_per_tile, B=cfg_d.max_big_tris,
+              binned_pairs=int(count.sum()), max_tile_pairs=int(count.max()),
+              big_tris=int((big >= 0).sum()), init_planes=init_z is not None,
+              emit_base=base, won_px=int((got[1] >= base).sum()),
+              ids="equal", depth="bit-equal",
+              kernel_ms=f"{k7[name]['ms']:.4f}",
+              plain_ms=f"{k7[name]['plain_ms']:.1f}",
+              plain_first_wall_s=f"{plain_wall:.1f}",
+              bound_ms=f"{k7[name]['bound'][0]:.4f}",
+              bound_by=k7[name]['bound'][1])
+    del dense_in, args, setup, table, plain, got, want
+    raster_ms = cuda_ms(lambda: raster_mod.rasterize(geo_o, cfgs["opaque"]),
+                        3)
+    phase("rasterize", size=f"{WIDTH}x{HEIGHT}",
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
+              k7_launches),
+          drops=json.dumps(k7_drops), opaque_triangle_slots=t_opaque,
+          covered_px=int((id_c >= 0).sum()),
+          masked_won_px=int((id_c >= t_opaque).sum()),
+          rasterize_ms=f"{raster_ms:.3f}",
+          note="setup + bin_triangles + K7, opaque set")
+    del geo_o, geo_m, setup_o, setup_m, z_o, id_o, id_c
+
+    # 22. rasterize against the bruteforce oracle on the card: Cornell at
+    #     448x256, the bound of tests/test_raster.py:141-144 (depth within
+    #     1e-5, ids differing on < 0.1% of the pixels: exact depth ties)
+    cb_host = load_scene(ROOT / "resources" / "cornell.gltf", use_cache=False)
+    cb_scene = cb_host.to_device(dev)
+    cb_fi = frame_inputs_from_numpy(default_frame_inputs(
+        cb_host, View.from_scene(cb_host, 448, 256).matrices()), dev)
+    cb_world = geo_mod.node_world_matrices(
+        cb_scene, cb_fi['node_translation'], cb_fi['node_rotation'],
+        cb_fi['node_scale'])
+    cb_pairs = [torch.from_numpy(a).to(dev)
+                for a in geo_mod.static_meshlet_pairs(cb_host, 'all')]
+    cb_geo = geo_mod.meshlet_clip_triangles(
+        cb_scene, geo_mod.instance_transforms(cb_scene, cb_world)[0],
+        cb_fi['view_proj'], *cb_pairs)
+    cb_cfg = raster_mod.RasterConfig(width=448, height=256,
+                                     max_tris_per_tile=128, max_big_tris=64)
+    _, zb, idb = raster_mod.rasterize(cb_geo, cb_cfg)
+    _, zf, idf = raster_mod.rasterize_bruteforce(cb_geo, cb_cfg)
+    torch.cuda.synchronize()
+    z_diff = float((zb - zf).abs().max())
+    id_share = float((idb != idf).float().mean())
+    if z_diff > 1e-5 or id_share >= 1e-3:
+        raise AssertionError(f"rasterize vs bruteforce: depth {z_diff}, "
+                             f"ids differ on {id_share}")
+    phase("rasterize vs bruteforce", scene="cornell", size="448x256",
+          depth_max_abs=f"{z_diff:.3g}", ids_differ_share=f"{id_share:.5f}",
+          covered=f"{float((idb >= 0).float().mean()):.4f}",
+          bound="depth 1e-5, ids < 0.1%")
+    del cb_geo, zb, idb, zf, idf
+
+    # 23. the map-shadowed frame: the reference bench's shadowed_frame_ms
+    #     configuration (bench.py:722-734), the culled frame with the sun
+    #     shadow map (shadow_technique='map', 1024^2, over the RT pair
+    #     stream with the coverage-kept masked pairs) and the denoiser;
+    #     the sun map's K2 launch held against its plain version, then
+    #     1 + 5 frames of the pan with per-frame gates, a profile
+    m_set = dataclasses.replace(c_set, enable_shadows=True,
+                                shadow_technique='map')
+    m_render = make_render_fn(m_set, **c_kw)
+    pan = View.from_scene(host, WIDTH, HEIGHT)
+    m_fi = []
+    for _ in range(4 + FRAMES):
+        mats = pan.matrices()
+        m_fi.append(default_frame_inputs(host, mats))
+        pan.advance(mats)
+        pan.rotate_yaw_pitch(SHADOW_YAW, 0.0)
+    m_fi.reverse()
+    _, m_carry, _ = m_render(scene, *c_pairs, m_fi.pop(),
+                             init_carry(scene, m_set), **s_kw)
+    (k2m_in,), (_, m_carry, _) = launch_inputs(
+        m_render, scene, c_pairs, m_fi.pop(), m_carry, s_kw, (peel_cuda,))
+    sm_in = [a[0] for a in k2m_in
+             if a[0].cfg.width == m_set.shadow_map_resolution]
+    if len(k2m_in) != 2 or len(sm_in) != 1 or sm_in[0].layers != 1:
+        raise AssertionError(f"map-shadowed frame: {len(k2m_in)} K2 "
+                             "launches; want the masked set's and one "
+                             "one-layer sun-map launch")
+    sm_in = sm_in[0]
+    del k2m_in
+    z_k, id_k = peel_cuda.launch(sm_in)
+    sm_plain = dataclasses.replace(sm_in, cfg=dataclasses.replace(
+        sm_in.cfg, tile_batch=64))
+    z_p, id_p = peel_cuda.fill_peel_plain(sm_plain)
+    if not (torch.equal(z_k, z_p) and torch.equal(id_k, id_p)):
+        raise AssertionError("K2 (sun map): not bit-equal to the plain "
+                             "version")
+    k2["sun map"] = dict(
+        err=float((z_k - z_p).abs().max()),
+        ms=cuda_ms(lambda: peel_cuda.launch(sm_in), KERNEL_REPS),
+        plain_ms=cuda_ms(lambda: peel_cuda.fill_peel_plain(sm_plain), 1),
+        bound=peel_bound_ms(sm_in))
+    phase("K2 vs plain", input=json.dumps("sun map"), layers=1,
+          map=f"{sm_in.cfg.width}x{sm_in.cfg.height}",
+          K=sm_in.cfg.max_tris_per_tile, B=sm_in.cfg.max_big_tris,
+          triangle_slots=sm_in.tri_rec.shape[0],
+          binned_pairs=int(sm_in.bins['counts'].sum()),
+          pairs_walked=int(sm_in.lay['counts_eff'].sum()),
+          max_tile_pairs=int(sm_in.bins['counts'].max()),
+          texels_covered=f"{float((id_k[0] >= 0).float().mean()):.4f}",
+          ids="equal", depth="bit-equal",
+          kernel_ms=f"{k2['sun map']['ms']:.4f}",
+          plain_ms=f"{k2['sun map']['plain_ms']:.1f}",
+          bound_ms=f"{k2['sun map']['bound'][0]:.4f}",
+          bound_by=k2['sun map']['bound'][1])
+    del sm_in, sm_plain, z_k, id_k, z_p, id_p
+
+    def m_per_frame(aux, carry):
+        lit = aux['shadow'][aux['depth'] > 0]
+        return dict(launches=launch_counts(), drops=drops_of(aux),
+                    sun_map_dropped=int(aux['shadow_map_dropped']),
+                    lit=float(lit.mean()))
+    m_times, m_walls, m_img, m_aux, m_carry, m_rows = drive(
+        m_render, scene, c_pairs, m_fi.pop, m_carry, s_kw, FRAMES,
+        m_per_frame)
+    prev = [0] * 9
+    for i, r in enumerate(m_rows):
+        per = [a - b for a, b in zip(r['launches'], prev)]
+        prev = r['launches']
+        if (per != [2, 2, 0, 1, 0, 0, 0, 0, 0] or r['drops'] != (0, 0)
+                or r['sun_map_dropped'] != 0 or not 0.01 < r['lit'] < 0.99):
+            raise AssertionError(
+                f"map-shadowed frame {i}: launches K1-K7 {per} (want [2, 2, "
+                f"0, 1, 0, 0, 0, 0, 0]), drops {r['drops']}, sun-map drops "
+                f"{r['sun_map_dropped']}, lit share {r['lit']}")
+    m_launches = prev
+    m_coverage = check_frame(m_img, m_aux, m_launches[0], m_launches[1],
+                             2 * FRAMES, 2 * FRAMES, "map-shadowed frame")
+    np.save(BUILD_DIR / f"chip_smoke_shadowed_map_{WIDTH}x{HEIGHT}.npy",
+            m_img.cpu().numpy())
+    phase("frame", path="shadowed-map", size=f"{WIDTH}x{HEIGHT}",
+          frames=FRAMES, median_ms=f"{statistics.median(m_times):.3f}",
+          all_ms=json.dumps([round(x, 3) for x in m_times]),
+          host_wall_ms=json.dumps([round(x, 3) for x in m_walls]),
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
+              m_launches),
+          coverage=f"{m_coverage:.4f}", raster_dropped=drops_of(m_aux)[0],
+          raster_mask_dropped=drops_of(m_aux)[1],
+          shadow_map_dropped=json.dumps([r['sun_map_dropped']
+                                         for r in m_rows]),
+          lit_share=json.dumps([round(r['lit'], 4) for r in m_rows]))
+    m_busy, m_by_op, _ = profile_frame(m_render, scene, c_pairs, m_fi.pop(),
+                                       m_carry, s_kw)
+    phase("profile", path="shadowed-map", device_busy_ms=f"{m_busy:.3f}",
+          busy_share_of_median_frame=(
+              f"{m_busy / statistics.median(m_times):.3f}" if m_busy
+              else "not measured"),
+          by_op_ms_calls=json.dumps(m_by_op[:20]))
+    del m_img, m_aux, m_carry
+
+    # 24. the stored goldens (tests/goldens/*_allon_448x256.png), rendered
+    #     as tests/test_goldens.py's _render_allon renders them: sun-map
+    #     shadows, GTAO, DDGI on the per-frame morton tree (no static
+    #     topology: K3 on bvh.build_bvh every frame) with the map's taps,
+    #     TAA and bloom; Cornell 4 frames, unculled, gated at the golden
+    #     test's tolerance; the courtyard 3 frames, culled, printed only:
+    #     its golden was rendered with a sun map whose CPU branch (the
+    #     dense fill, K clamped at 1024) dropped 71% of the casters, which
+    #     the port draws (ROADMAP queue 3)
+    goldens = {}
+    for name, frames, culled, exposure in (("cornell", 4, False, 0.01),
+                                           ("courtyard", 3, True, 0.25)):
+        g_host = (cb_host if name == "cornell" else host)
+        g_scene = cb_scene if name == "cornell" else scene
+        g_mk = [np.asarray(a) for a in geo_mod.static_meshlet_pairs(
+            g_host, 'mask')]
+        g_pi = [np.asarray(a) for a in geo_mod.static_meshlet_pairs(
+            g_host, 'not_mask' if len(g_mk[0]) else 'all')]
+        g_on = [torch.from_numpy(a).to(dev) for a in (*g_pi, *g_mk)]
+        g_kw = (dict(mask_pair_inst=g_on[2], mask_pair_meshlet=g_on[3])
+                if len(g_mk[0]) else {})
+        g_vol = ddgi.volume_from_aabb(*g_host.world_aabb)
+        g_set = RenderSettings(
+            width=448, height=256, manual_exposure=exposure,
+            enable_culling=culled, enable_shadows=True,
+            shadow_technique='map', enable_ao=True, enable_gi=True,
+            enable_taa=True, enable_bloom=True)
+        g_view = View.from_scene(g_host, 448, 256)
+        g_fi0 = frame_inputs_from_numpy(default_frame_inputs(
+            g_host, g_view.matrices()), dev)
+        mask_pairs = (g_on[2], g_on[3]) if g_kw else None
+        if culled:
+            g_counts = culled_pair_counts(g_scene, g_fi0, g_set,
+                                          len(g_pi[0]), mask_pairs)
+            g_set = sized_culled_settings(g_set, g_counts)
+        else:
+            sets = {"opaque": (g_on[0], g_on[1])}
+            if g_kw:
+                sets["masked"] = mask_pairs
+            g_counts = tile_pair_counts(g_scene, g_fi0, g_set, sets)
+            g_set = sized_settings(g_set, g_counts)
+        g_cfg = {f"{'mask_' if k == 'masked' else ''}raster_cfg":
+                 sized_raster_config(g_set, {k: v})
+                 for k, v in g_counts.items()}
+        g_render = make_render_fn(g_set, **g_cfg)
+        g_carry = init_carry(g_scene, g_set, g_vol)
+        reset_launch_counts()
+        sm_drops, g_drops = [], []
+        for _ in range(frames):
+            mats = g_view.matrices()
+            g_img, g_carry, g_aux = g_render(
+                g_scene, g_on[0], g_on[1], default_frame_inputs(
+                    g_host, mats), g_carry, ddgi_volume=g_vol, **g_kw)
+            g_view.advance(mats)
+            sm_drops.append(int(g_aux['shadow_map_dropped']))
+            g_drops.append(drops_of(g_aux) if g_kw else (
+                sum(int(v) for k, v in g_aux.items()
+                    if k.endswith('dropped')), 0))
+        torch.cuda.synchronize()
+        g_launches = launch_counts()
+        gold = decode_png((ROOT / "tests" / "goldens"
+                           / f"{name}_allon_448x256.png").read_bytes())
+        mean, p99 = perceptual_diff(gold[..., :3], g_img.cpu().numpy())
+        goldens[name] = dict(mean=mean, p99=p99, frames=frames,
+                             launches=g_launches, sun_map_dropped=sm_drops,
+                             drops=g_drops)
+        if g_launches[2] < frames:
+            raise AssertionError(f"golden {name}: K3 launched "
+                                 f"{g_launches[2]} times in {frames} frames")
+        held = name == "cornell"
+        if held and not (mean < 0.010 and p99 < 0.060
+                         and not any(sm_drops)):
+            raise AssertionError(f"golden {name}: mean {mean:.4f}, p99 "
+                                 f"{p99:.4f} (want < 0.010, < 0.060), "
+                                 f"sun-map drops {sm_drops}")
+        phase("golden", scene=name, size="448x256", frames=frames,
+              culled=culled, mean=f"{mean:.5f}", p99=f"{p99:.5f}",
+              gate="mean < 0.010, p99 < 0.060" if held else (
+                  "none: the golden's CPU sun map dropped 71% of the "
+                  "casters (ROADMAP queue 3)"),
+              launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
+                  g_launches),
+              shadow_map_dropped=json.dumps(sm_drops),
+              raster_dropped=json.dumps([d[0] for d in g_drops]))
+
+    # 25. the port's render CLI on the card, in its own process: Cornell
+    #     at 448x256 with sun-map shadows, 2 frames; exit 0, a PNG that
+    #     decodes, equal to the same frames rendered here, and the covered
+    #     pixels it prints equal to that frame's
+    cli_png = BUILD_DIR / "chip_smoke_cli.png"
+    cli_args = ["--scene", "resources/cornell.gltf", "--displayresolution",
+                "448x256", "--frames", "2", "--exposure", "0.01",
+                "--shadows", "--shadowtechnique", "map", "--nocache"]
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "toyrenderer_tpu_torch.tools.render",
+         *cli_args, "--output", str(cli_png)], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.time() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"render CLI exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    covered_line = [ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("[stats] covered pixels: ")]
+    cli_covered = int(covered_line[-1].split(": ")[1].split("/")[0])
+    cli_img = decode_png(cli_png.read_bytes())
+    cb_set = RenderSettings(width=448, height=256, manual_exposure=0.01,
+                            enable_shadows=True, shadow_technique='map')
+    cb_render = make_render_fn(cb_set)
+    cb_carry = init_carry(cb_scene, cb_set)
+    cb_view = View.from_scene(cb_host, 448, 256)
+    cb_rts = bvh_mod.build_rt_static(
+        cb_host, *geo_mod.static_meshlet_pairs(cb_host, 'all'), device=dev)
+    for _ in range(2):
+        mats = cb_view.matrices()
+        cb_img, cb_carry, cb_aux = cb_render(
+            cb_scene, *cb_pairs, default_frame_inputs(cb_host, mats),
+            cb_carry, rt_static=cb_rts)
+        cb_view.advance(mats)
+    cb_covered = int((cb_aux['tri_id'] >= 0).sum())
+    same = np.array_equal(cli_img[..., :3], cb_img.cpu().numpy())
+    if cli_covered != cb_covered or not same:
+        raise AssertionError(f"render CLI: covered {cli_covered} vs "
+                             f"{cb_covered}; image equal {same}")
+    phase("cli", command=json.dumps(
+        "python -m toyrenderer_tpu_torch.tools.render " + " ".join(cli_args)),
+          rc=proc.returncode, wall_s=f"{cli_s:.1f}",
+          png=f"{cli_img.shape[1]}x{cli_img.shape[0]}",
+          covered_px=cli_covered, equals_in_process_frame=True,
+          frame_lines=json.dumps([ln for ln in proc.stdout.splitlines()
+                                  if ln.startswith("[frame")]))
+
+    # 26. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
     #     fill_peel: the input the culled frame launches it with;
@@ -1692,7 +2211,9 @@ def main() -> int:
     #     two K6 launches with TR_GI_PAIRS=1 (each input also carries its
     #     route's census and times); traverse_seeded: the mean over the
     #     first-round launches of rtbench's two binned rows (its launches
-    #     are the whole rtbench run's)
+    #     are the whole rtbench run's); fill_peel also lists the sun map's
+    #     launch; fill_dense: the mean over rasterize's two launches (the
+    #     opaque set, the masked set continuing it)
     def row(name, st, main):
         return dict(input=name, main_path=main, ms=st['ms'],
                     plain_ms=st['plain_ms'], bound_ms=st['bound'][0],
@@ -1716,13 +2237,13 @@ def main() -> int:
              source="toyrenderer_tpu_torch/csrc/fill_peel.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:778",
              launches=k2_default + k2_culled + s_launches[1]
-             + a_launches[1],
+             + a_launches[1] + m_launches[1],
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
              bound_by=k2['occluder']['bound'][1], library_ms=None,
-             inputs=[row(f"masked set, {k}", v, k == "occluder")
-                     for k, v in k2.items()]),
+             inputs=[row(k if k == "sun map" else f"masked set, {k}", v,
+                         k != "no occluder") for k, v in k2.items()]),
         dict(name="traverse", route="cuda",
              source="toyrenderer_tpu_torch/csrc/traverse.cu",
              replaces="toyrenderer_tpu/ops/bvh_pallas.py:250",
@@ -1744,7 +2265,19 @@ def main() -> int:
              bound_by="bytes",
              library_ms=statistics.mean(v['library_ms'] for v in k4.values()),
              inputs=[dict(row(k, v, True), library_ms=v['library_ms'])
-                     for k, v in k4.items()])]
+                     for k, v in k4.items()]),
+        dict(name="fill_dense", route="cuda", path="raster.rasterize",
+             source="toyrenderer_tpu_torch/csrc/fill_dense.cu",
+             replaces="toyrenderer_tpu/ops/raster_pallas.py:66",
+             launches=k7_launches[8],
+             max_abs_err=max(v['err'] for v in k7.values()),
+             ms=statistics.mean(v['ms'] for v in k7.values()),
+             plain_ms=statistics.mean(v['plain_ms'] for v in k7.values()),
+             bound_ms=statistics.mean(v['bound'][0] for v in k7.values()),
+             bound_by=max(k7.values(), key=lambda v: v['bound'][0])[
+                 'bound'][1],
+             library_ms=None,
+             inputs=[row(k, v, True) for k, v in k7.items()])]
     for name, line, st, n, path in (
             ("traverse_sah", 250, k3s, a_launches[4], "all-on"),
             ("traverse_gdir", 595, k5, k5_launches,
@@ -1791,7 +2324,7 @@ def main() -> int:
                       "wall_s": round(time.time() - t_start, 1)}),
           flush=True)
 
-    # 22. result --------------------------------------------------------------
+    # 27. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,9 @@
 Both packages get the same scene arrays, frame inputs and carry (the
 reference's, handed over as numpy).  The reference runs on the CPU:
 
-* Cornell (untextured, 448x256) through its XLA fill path; the port
-  matches it pixel for pixel.
+* Cornell (untextured, 448x256) through its XLA fill path, and again
+  through both packages' brute-force raster (`use_bruteforce_raster`);
+  the port matches it pixel for pixel.
 * The courtyard (textured, alpha-masked foliage, 384x216) through its
   Pallas fill in interpret mode -- the semantics the port's kernel
   implements: pixels no triangle covers carry zero planes, which the
@@ -111,6 +112,22 @@ def test_cornell_frame_matches_reference():
             assert int(aux[k]) == int(v), k
 
 
+def test_cornell_bruteforce_frame_matches_reference():
+    # use_bruteforce_raster: every triangle at every pixel, then the
+    # per-pixel resolve, in both packages
+    (jimg, jaux), (img, aux), _ = _render_both(
+        "resources/cornell.gltf", 448, 256, use_bruteforce_raster=True)
+    assert img.shape == (256, 448, 3) and img.dtype == np.uint8
+    assert (aux['tri_id'].numpy() >= 0).mean() > 0.5
+    np.testing.assert_array_equal(aux['tri_id'].numpy(),
+                                  np.asarray(jaux['tri_id']))
+    np.testing.assert_allclose(aux['depth'].numpy(), np.asarray(jaux['depth']),
+                               rtol=1e-5, atol=1e-7)
+    diff = np.abs(img.astype(int) - jimg.astype(int))
+    assert diff.max() <= 1, diff.max()
+    assert raster_cuda.launches == 0     # CPU tensors ran the plain version
+
+
 def test_courtyard_frame_matches_reference():
     k, b = 1376, 416                      # >= the view's max tile / big
     (jimg, jaux), (img, aux), port = _render_both(
@@ -135,18 +152,13 @@ def test_courtyard_frame_matches_reference():
 
 
 @pytest.mark.parametrize("field,value", [
-    ('shadow_technique', 'map'), ('enable_gi', True),
     ('show_gi_probes', True), ('enable_restir', True),
     ('enable_transparency', True),
     ('pack_gbuffer', True), ('debug_mode', 2)])
 def test_unported_settings_raise(field, value):
     """Each setting whose pass is not ported yet raises, naming its
-    ROADMAP item: the sun shadow map with shadows on; GI without RT
-    shadows (its probe hits' sun taps read the sun map); the probe
-    overlay with GI and RT shadows on."""
-    if field == 'shadow_technique':
-        settings = RenderSettings(enable_shadows=True, **{field: value})
-    elif field == 'show_gi_probes':
+    ROADMAP item (the probe overlay with GI and RT shadows on)."""
+    if field == 'show_gi_probes':
         settings = RenderSettings(enable_shadows=True, enable_gi=True,
                                   **{field: value})
     else:

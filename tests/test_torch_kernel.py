@@ -1,7 +1,8 @@
-"""The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2; BVH
-traversal, K3 on the complete tree and K3-SAH on the SAH tree, with
-grouped directions K5 and seeded packets K3-seeded; reprojection warp, K4;
-the pair route's fold, K6) against their plain PyTorch versions.
+"""The CUDA kernels (fill+resolve, K1; L-layer peel fill, K2; the
+dense-table fill, K7; BVH traversal, K3 on the complete tree and K3-SAH
+on the SAH tree, with grouped directions K5 and seeded packets
+K3-seeded; reprojection warp, K4; the pair route's fold, K6) against
+their plain PyTorch versions.
 
 These tests need the card (the kernel has no CPU mode) and skip
 elsewhere.  They import nothing of JAX, so they also run where only the
@@ -118,6 +119,61 @@ def test_wrapper_launches_for_cuda_tensors(cuda_device):
     assert z.is_cuda and z.shape == (256, 448) and planes.shape[0] == 32
     with pytest.raises(ValueError):            # wrong dtype is refused
         RC.launch(RC.fill_inputs(setup, recs.double(), bins, cfg))
+
+
+def _random_geo(dev, t=4000, seed=7):
+    """Random double-sided triangles over the screen, most small, some
+    large enough for the big list, depths in (0.1, 0.9)."""
+    rng = np.random.default_rng(seed)
+    tris = np.zeros((t, 3, 4), np.float32)
+    size = np.where(rng.uniform(size=(t, 1, 1)) < 0.02, 0.8, 0.06)
+    tris[..., :2] = (rng.uniform(-1.0, 1.0, size=(t, 1, 2))
+                     + rng.uniform(-1.0, 1.0, size=(t, 3, 2)) * size)
+    tris[..., 2] = rng.uniform(0.1, 0.9, size=(t, 3))
+    tris[..., 3] = 1.0
+    geo = dict(clip=tris, vtx_ids=np.zeros((t, 3), np.int32),
+               inst_id=np.zeros(t, np.int32), mat_id=np.zeros(t, np.int32),
+               double_sided=np.ones(t, bool), tri_valid=np.ones(t, bool),
+               pair_meshlet=np.zeros(1, np.int32),
+               pair_inst=np.zeros(1, np.int32))
+    return {k: torch.from_numpy(v).to(dev) for k, v in geo.items()}
+
+
+@pytest.mark.cuda
+def test_dense_kernel_matches_plain_version(cuda_device):
+    """K7 over random triangles at 1000x600 (ragged tiles at both edges),
+    bit-equal to raster.fill_visibility on the same CUDA inputs: a first
+    fill, and a continuation of part of its planes with an id offset
+    through `raster.rasterize`."""
+    from toyrenderer_tpu_torch.ops import dense_cuda as DC
+    cfg = R.RasterConfig(width=1000, height=600, max_tris_per_tile=512,
+                         max_big_tris=256, compact_frac=1.0, short_frac=1.0,
+                         rest_frac=1.0)
+    geo = _random_geo(cuda_device)
+    setup = R.setup_triangles(geo, cfg)
+    table, count, big, drop = R.bin_triangles(setup, cfg)
+    assert int((big >= 0).sum()) > 0 and not any(int(v) for v in
+                                                 drop.values())
+    before = DC.launches
+    z, tid = DC.fill_visibility_dense(setup, table, count, big, cfg)
+    torch.cuda.synchronize()
+    assert DC.launches == before + 1
+    zp, idp = R.fill_visibility(setup, table, big, cfg)
+    assert torch.equal(tid, idp) and torch.equal(z, zp)
+    assert float((tid >= 0).float().mean()) > 0.5
+    init_z = torch.where(z > 0.5, z, 0.0)
+    init_id = torch.where(z > 0.5, tid, -1)
+    _, z2, id2 = R.rasterize(geo, cfg, init_depth=init_z,
+                             init_tri_id=init_id, tri_id_base=4000)
+    assert DC.launches == before + 2
+    zp2, idp2 = R.fill_visibility(setup, table, big, cfg,
+                                  init_depth=init_z, init_tri_id=init_id,
+                                  emit_base=4000)
+    assert torch.equal(id2, idp2) and torch.equal(z2, zp2)
+    kept = id2 < 4000
+    assert bool(kept.any()) and torch.equal(id2[kept], init_id[kept])
+    with pytest.raises(ValueError):            # wrong dtype is refused
+        DC.launch(setup, table.long(), count, big, cfg)
 
 
 @pytest.mark.cuda

@@ -4,10 +4,14 @@ Counterpart of toyrenderer_tpu/engine/frame.py for the passes this port
 has: UpdateInstanceConsts -> GBuffer (raster through the fused
 fill+resolve kernel, textured resolve; with `enable_culling`, the
 GPU-driven 2-phase frame: instance and meshlet culling, screen-error LOD
-and HZB occlusion) -> the alpha-masked set, peeled `alpha_layers` times
+and HZB occlusion; with `use_bruteforce_raster`, every triangle tested
+at every pixel) -> the alpha-masked set, peeled `alpha_layers` times
 (per layer, or in one peel fill and a compact merge with
-`peel_merge_frac` > 0) -> ray-traced sun shadows (tree refit, rays
-through the traversal kernel, temporal + spatial denoise) -> DDGI (on
+`peel_merge_frac` > 0) -> the RT tree (refit from `rt_static`, or a
+per-frame morton rebuild) -> the sun shadow map (rendered every frame,
+for map shadows and for the probe hits' sun taps) -> sun shadows (ray-
+traced through the traversal kernel, or sampled from the map; temporal
++ spatial denoise) -> DDGI (on
 update frames: the GI tree's refit, the probe rays and the probe update;
 every frame: the probe field sampled at half resolution) -> GTAO (half-
 resolution horizons, a depth-aware blur) -> deferred lighting + sky ->
@@ -36,14 +40,16 @@ from toyrenderer_tpu_torch.ops import exposure as exposure_mod
 from toyrenderer_tpu_torch.ops import geometry as geo_mod
 from toyrenderer_tpu_torch.ops import hzb as hzb_mod
 from toyrenderer_tpu_torch.ops import raster as raster_mod
+from toyrenderer_tpu_torch.ops import shadowmap
 from toyrenderer_tpu_torch.ops import shadows as shadows_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
-from toyrenderer_tpu_torch.ops.bvh import refit_bvh, world_triangles
+from toyrenderer_tpu_torch.ops.bvh import (
+    build_bvh, refit_bvh, world_triangles)
 from toyrenderer_tpu_torch.ops.bvh_sah import RtStaticSah, refit_sah
 from toyrenderer_tpu_torch.ops.denoise import depth_aware_blur, denoise_shadow
 from toyrenderer_tpu_torch.ops.gbuffer import (
     finish_gbuffer, masked_peel_merge_compact, pack_resolve_records,
-    unpack_gbuffer)
+    resolve_interpolants, unpack_gbuffer)
 from toyrenderer_tpu_torch.ops.gtao import gtao
 from toyrenderer_tpu_torch.ops.lighting import (
     deferred_lighting, world_pos_from_depth)
@@ -51,7 +57,7 @@ from toyrenderer_tpu_torch.ops.peel_cuda import fill_peel_stream
 from toyrenderer_tpu_torch.ops.postprocess import compose_final
 from toyrenderer_tpu_torch.ops.raster import RasterConfig
 from toyrenderer_tpu_torch.ops.raster_cuda import (
-    crop_image, fill_resolve_stream, stream_layout)
+    bin_pairs_with_budget, crop_image, fill_resolve_stream)
 from toyrenderer_tpu_torch.ops.taa import taa_resolve
 from toyrenderer_tpu_torch.ops.texture import _maxpool2, _quad_expand
 
@@ -146,14 +152,6 @@ class RenderSettings:
 
 # setting -> (is it on?, the ROADMAP queue item that ports it)
 _NOT_PORTED = (
-    ('shadow_technique', lambda s: (s.enable_shadows
-                                    and s.shadow_technique == 'map'),
-     'queue 1 item 6 (sun map)'),
-    ('gi_sun_technique', lambda s: s.enable_gi and (
-        s.gi_sun_technique == 'map' or (
-            s.gi_sun_technique == 'auto'
-            and not (s.enable_shadows and s.shadow_technique == 'rt'))),
-     'queue 1 item 6 (sun map: the probe hits\' sun taps)'),
     ('show_gi_probes', lambda s: s.enable_gi and s.show_gi_probes,
      'queue 1 item 3 (debug views: ddgi.visualize_probes)'),
     ('enable_restir', lambda s: s.enable_restir,
@@ -164,8 +162,6 @@ _NOT_PORTED = (
      'queue 1 item 3 (packed GBuffer)'),
     ('debug_mode', lambda s: s.debug_mode != 0,
      'queue 1 item 3 (debug views)'),
-    ('use_bruteforce_raster', lambda s: s.use_bruteforce_raster,
-     'queue 1 item 3 (brute-force raster oracle)'),
 )
 
 
@@ -177,6 +173,12 @@ def check_settings(settings: RenderSettings):
                 f"RenderSettings.{name}: not ported yet (ROADMAP {item})")
     if settings.sky_model not in ('hosek', 'preetham'):
         raise ValueError(f"unknown sky_model {settings.sky_model!r}")
+    if settings.shadow_technique not in ('rt', 'map'):
+        raise ValueError(
+            f"unknown shadow_technique {settings.shadow_technique!r}")
+    if settings.gi_sun_technique not in ('auto', 'map', 'rt'):
+        raise ValueError(
+            f"unknown gi_sun_technique {settings.gi_sun_technique!r}")
 
 
 def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
@@ -223,18 +225,6 @@ def _raster_stats(setup, bins):
     return out
 
 
-def _bins_with_budget_drop(setup, cfg):
-    """bin_pairs_stream + the pair-budget drop the fill runs under."""
-    bins = raster_mod.bin_pairs_stream(setup, cfg)
-    acc = stream_layout(
-        setup, bins, cfg,
-        min(cfg.chunk, cfg.max_tris_per_tile, cfg.max_big_tris))
-    bins['drop'] = dict(
-        bins['drop'], drop_pair_budget=torch.sum(
-            acc['counts_clamped'] - acc['counts_eff']))
-    return bins
-
-
 def _raster_with_records(scene, geo, cfg, inst_world, inst_adj,
                          prev_inst_world, prev_vp, **fill_kw):
     """setup + bin + fused fill+resolve of one triangle set.  Returns
@@ -244,7 +234,7 @@ def _raster_with_records(scene, geo, cfg, inst_world, inst_adj,
     setup = raster_mod.setup_triangles(geo, cfg)
     records = pack_resolve_records(setup, scene, inst_world, inst_adj,
                                    prev_inst_world, prev_vp)
-    bins = _bins_with_budget_drop(setup, cfg)
+    bins = bin_pairs_with_budget(setup, cfg)
     depth, tri_id, interp = fill_resolve_stream(setup, records, bins, cfg,
                                                 **fill_kw)
     return setup, records, depth, tri_id, interp, _raster_stats(setup, bins)
@@ -388,11 +378,13 @@ _GI_KEYS = ('ddgi_irradiance', 'ddgi_distance', 'ddgi_offset', 'ddgi_state',
 
 
 def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
-             settings, sky_fn):
+             settings, sky_fn, sun_vis_fn=None):
     """The GI pass (reference package, frame.py:898-1105): the
     convergence test, the probe update on update frames, and the probe
     field sampled per pixel.  `trace_inputs()` gives (tree, shade
-    records) on update frames.
+    records) on update frames; `sun_vis_fn(points)`, when given, the
+    probe hits' sun visibility (the sun map's taps) in place of their
+    any-hit rays.
 
     The reference holds the probes through a device-side branch (hold
     frames: 3 of every 4 with gi_update_phases=4 in interval mode, and
@@ -442,7 +434,7 @@ def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
                 frame_index, sky_fn, trace_phases,
                 max_steps=settings.gi_max_steps,
                 probe_offset=carry['ddgi_offset'],
-                probe_state=carry['ddgi_state'])
+                probe_state=carry['ddgi_state'], sun_vis_fn=sun_vis_fn)
         gic = ddgi_mod.update_probe_block(
             volume, dict(carry, ddgi_var_samples=var_samples), radiance,
             ray_dist, ray_dirs, blk,
@@ -519,10 +511,15 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     mask_raster_cfg: the masked set's, sized for that set (default:
     raster_cfg).
     rt_static: the static RT topology (ops/bvh.build_rt_static over the
-    RT pair list, the masked set appended), which RT shadows need, and
-    GI too when it has no tree of its own; the frame refits it every
-    frame.  rt_pair_inst / rt_pair_meshlet: that RT pair list (its
-    payloads index it; default pair_inst / pair_meshlet).
+    RT pair list, the masked set appended), for RT shadows and for GI
+    when it has no tree of its own; the frame refits it every frame.
+    Without it those rebuild the tree every frame (bvh.build_bvh over
+    the RT pair list, no masked set).  rt_pair_inst / rt_pair_meshlet:
+    that RT pair list (its payloads index it; default pair_inst /
+    pair_meshlet).  The sun map (map shadows; the probe hits' sun taps
+    when gi_sun_technique is 'map', or 'auto' without RT shadows) draws
+    the RT pair stream, its masked pairs through rt_static's coverage
+    keep.
     ddgi_volume: the probe grid GI needs (ddgi.volume_from_aabb);
     rt_static_gi: GI's own frozen topology (ops/bvh_sah.
     build_rt_static_gi: the SAH tree, or the complete one) over
@@ -536,17 +533,17 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     passes on, `shadow` (the denoised mask), `ao`, the probes'
     `ddgi_variability` / `ddgi_active_probes` / `ddgi_converged` and
     `ddgi_updated` (a Python bool: this frame updated the probes),
+    `shadow_map_dropped` (the sun map's summed drop counters, on the
+    frames that render it),
     `bloom`, and exposure's `avg_luminance` / `target_exposure`.
     """
     check_settings(settings)
     gi_own_tree = settings.enable_gi and rt_static_gi is not None
-    needs_rt = settings.enable_shadows or (settings.enable_gi
-                                           and not gi_own_tree)
-    if needs_rt and rt_static is None:
-        raise ValueError(
-            "RT shadows (and GI without rt_static_gi) need rt_static "
-            "(ops/bvh.build_rt_static); the per-frame tree build without "
-            "one is not ported (ROADMAP queue 1 item 5)")
+    needs_rays = settings.enable_shadows and settings.shadow_technique == 'rt'
+    needs_rt = needs_rays or (settings.enable_gi and not gi_own_tree)
+    gi_sun_map = settings.enable_gi and (
+        settings.gi_sun_technique == 'map'
+        or (settings.gi_sun_technique == 'auto' and not needs_rays))
     if settings.enable_gi and ddgi_volume is None:
         raise ValueError("enable_gi needs a ddgi_volume "
                          "(ddgi.volume_from_aabb)")
@@ -567,7 +564,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
 
     # -- Geometry + raster (GBuffer pass) -------------------------------------
     new_hzb = None
-    if settings.enable_culling:
+    if settings.enable_culling and not settings.use_bruteforce_raster:
         interp, depth, tri_id, raster_aux, new_hzb = _gbuffer_two_phase(
             scene, inst_world, inst_adj, prev_inst_world, frame_inputs,
             carry, pair_inst, cfg, settings)
@@ -575,9 +572,20 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         geo = geo_mod.meshlet_clip_triangles(
             scene, inst_world, frame_inputs['view_proj'], pair_inst,
             pair_meshlet)
-        _, _, depth, tri_id, interp, rstats = _raster_with_records(
-            scene, geo, cfg, inst_world, inst_adj, prev_inst_world, prev_vp)
-        raster_aux = {f'raster_{k}': v for k, v in rstats.items()}
+        if settings.use_bruteforce_raster:
+            # the oracle: every triangle at every pixel, then the plain
+            # per-pixel resolve (reference package, frame.py:509-514)
+            setup, depth, tri_id = raster_mod.rasterize_bruteforce(geo, cfg)
+            interp = resolve_interpolants(
+                pack_resolve_records(setup, scene, inst_world, inst_adj,
+                                     prev_inst_world, prev_vp),
+                depth, tri_id, cfg)
+            raster_aux = {}
+        else:
+            _, _, depth, tri_id, interp, rstats = _raster_with_records(
+                scene, geo, cfg, inst_world, inst_adj, prev_inst_world,
+                prev_vp)
+            raster_aux = {f'raster_{k}': v for k, v in rstats.items()}
     mstats = {}     # the masked set's counters, when it is drawn
 
     atlas = None
@@ -607,7 +615,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         setup_m = raster_mod.setup_triangles(geo_m, cfg_m)
         records_m = pack_resolve_records(
             setup_m, scene, inst_world, inst_adj, prev_inst_world, prev_vp)
-        bins_m = _bins_with_budget_drop(setup_m, cfg_m)
+        bins_m = bin_pairs_with_budget(setup_m, cfg_m)
         mstats = _raster_stats(setup_m, bins_m)
         n_layers = max(settings.alpha_layers, 1)
         merge_scalar = ('rough_f', 'metal_f')
@@ -655,17 +663,61 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         gb['depth'] = depth
 
     # -- the RT tree: refit every frame (the reference's per-frame refit
-    #    without its cache) ---------------------------------------------------
+    #    without its cache), or rebuilt every frame without rt_static ------
     shadow_mask = None
     new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
                      frame_index=carry['frame_index'] + 1)
     normal = unpack_gbuffer(gb)['normal']
-    bvh = refit_bvh(rt_static, inst_world) if needs_rt else None
+    base_pi = pair_inst if rt_pair_inst is None else rt_pair_inst
+    base_pm = pair_meshlet if rt_pair_meshlet is None else rt_pair_meshlet
+    rt_pi, rt_pm = _rt_streams(base_pi, base_pm, rt_static, mask_pair_inst,
+                               mask_pair_meshlet)
+    bvh = None
+    if needs_rt and rt_static is not None:
+        bvh = refit_bvh(rt_static, inst_world)
+    elif needs_rt:
+        bvh = build_bvh(*world_triangles(scene, inst_world, rt_pi, rt_pm))
 
-    # -- ShadowMask: rays through the traversal kernel, then the temporal
-    #    + spatial denoise ----------------------------------------------------
+    # -- the sun shadow map, for map shadows and the probe hits' sun taps:
+    #    rendered at its first use in the frame, so every frame with map
+    #    shadows and only the GI update frames without them (the
+    #    reference's cache_sun_map keeps it through a device-side branch;
+    #    the cache changes no pixel) -----------------------------------------
+    sm = {}
+    sm_res = settings.shadow_map_resolution
+    sun_vp = frame_inputs['sun_view_proj']
+
+    def sun_map():
+        """The frame's sun map, quad-expanded; rendered once."""
+        if not sm:
+            keep = (rt_static.pair_keep
+                    if rt_static is not None and rt_static.n_mask_pairs > 0
+                    and mask_pair_inst is not None else None)
+            sm_depth, sm['dropped'] = shadowmap.render_shadow_map(
+                scene, inst_world, rt_pi, rt_pm, sun_vp,
+                shadowmap.shadow_map_config(sm_res), tri_keep=keep)
+            sm['quads'] = shadowmap.quad_expand_map(sm_depth)
+        return sm['quads']
+
+    sun_vis_fn = None
+    if gi_sun_map:
+        def sun_vis_fn(points):
+            return shadowmap.sample_shadow_map_points(
+                sun_map(), sm_res, sun_vp, points)
+
+    # -- ShadowMask: rays through the traversal kernel, or a tap of the
+    #    sun map, then the temporal + spatial denoise -------------------------
     if settings.enable_shadows:
-        raw = _shadow_raw(bvh, normal, depth, frame_inputs, carry, settings)
+        if needs_rays:
+            raw = _shadow_raw(bvh, normal, depth, frame_inputs, carry,
+                              settings)
+        else:
+            raw = shadowmap.sample_shadow_map(
+                sun_map(), sm_res, sun_vp,
+                world_pos_from_depth(depth, frame_inputs['inv_view_proj'],
+                                     settings.width, settings.height),
+                normal, -frame_inputs['sun_direction'], depth > 0.0,
+                carry['frame_index'])
         shadow_mask, new_carry['shadow_history'] = denoise_shadow(
             raw, gb['motion'], carry['shadow_history'],
             carry['shadow_valid'], depth, carry['prev_depth'])
@@ -688,9 +740,6 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     gi_irradiance = None
     gi_aux = {}
     if settings.enable_gi:
-        base_pi = pair_inst if rt_pair_inst is None else rt_pair_inst
-        base_pm = pair_meshlet if rt_pair_meshlet is None else rt_pair_meshlet
-
         def trace_inputs():
             """The GI tree and its shade records (payloads index the
             tree's pair stream)."""
@@ -703,9 +752,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                     base_pm if gi_pair_meshlet is None else gi_pair_meshlet,
                     rt_static_gi, mask_pair_inst, mask_pair_meshlet)
             else:
-                tree = bvh
-                streams = _rt_streams(base_pi, base_pm, rt_static,
-                                      mask_pair_inst, mask_pair_meshlet)
+                tree, streams = bvh, (rt_pi, rt_pm)
             v0, v1, v2, _ = world_triangles(scene, inst_world, *streams)
             return tree, ddgi_mod.build_shade_records(scene, *streams, v0,
                                                       v1, v2)
@@ -713,7 +760,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                                   settings.width, settings.height)
         gi_irradiance, gi_carry, gi_aux = _gi_pass(
             ddgi_volume, trace_inputs, depth, wp, normal, frame_inputs,
-            carry, settings, sky_fn)
+            carry, settings, sky_fn, sun_vis_fn)
         new_carry.update(gi_carry)
 
     # -- AmbientOcclusion (GTAO) ----------------------------------------------
@@ -737,6 +784,8 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                resolved_pixels=torch.sum((tri_id >= 0).to(torch.int32)),
                **raster_aux,
                **{f'raster_mask_{k}': v for k, v in mstats.items()})
+    if sm:
+        aux['shadow_map_dropped'] = sm['dropped']
     if shadow_mask is not None:
         aux['shadow'] = shadow_mask
     if ao is not None:

@@ -8,7 +8,9 @@ the TLAS updated per frame, source/Scene.cpp:411-466).  At scene load
 (a forced-size best-axis median split into a COMPLETE 8-ary tree of
 12-triangle leaves) and keeps them in object space; each frame
 `refit_bvh` transforms them by the current instance matrices and reduces
-the boxes up the levels.  No sort runs per frame.
+the boxes up the levels.  No sort runs per frame -- unless the frame has
+no static topology: then `build_bvh` rebuilds the tree every frame from
+a morton sort of the world triangles (the reference's per-frame path).
 
 Row layouts are the reference package's, so a tree built there and
 carried across (weights.bvh_from_numpy) is traversed unchanged:
@@ -288,6 +290,54 @@ def build_rt_static(scene_host, pair_inst, pair_meshlet,
         payload=on(pay),
         pair_keep=on(keep if keep is not None else np.ones(t, bool)),
         num_levels=n_levels, n_real_groups=n_real, n_mask_pairs=n_mask)
+
+
+# -- device: the per-frame morton rebuild --------------------------------------
+
+def _expand_bits(v):
+    """Spread 10 bits to every 3rd bit (morton); int64 in, int64 out."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton3d(p01):
+    """(N, 3) coords in [0,1] -> (N,) 30-bit morton codes (int64 holding
+    the reference's uint32 values)."""
+    q = torch.clamp(p01 * 1024.0, 0.0, 1023.0).to(torch.int64)
+    return ((_expand_bits(q[:, 0]) << 2) | (_expand_bits(q[:, 1]) << 1)
+            | _expand_bits(q[:, 2]))
+
+
+def build_bvh(v0, v1, v2, valid) -> Bvh:
+    """The per-frame tree over world-space triangles (T, 3) x3 and their
+    validity (reference package, bvh.py:106): the triangles sorted by the
+    morton code of their centroid in the valid centroids' box (invalid
+    ones last, code 0xFFFFFFFF; a stable sort, as jnp.argsort), packed
+    into the complete tree that refit_bvh also builds.  Payloads are the
+    triangles' indices in the input."""
+    t = v0.shape[0]
+    n_levels = num_levels_for(t)
+    n_groups = ARITY ** (n_levels - 1)
+    centroid = (v0 + v1 + v2) * (1.0 / 3.0)
+    lo = torch.amin(torch.where(valid[:, None], centroid, _BIG), dim=0)
+    hi = torch.amax(torch.where(valid[:, None], centroid, -_BIG), dim=0)
+    ext = torch.clamp(hi - lo, min=1e-6)
+    codes = torch.where(valid, morton3d((centroid - lo) / ext), 0xFFFFFFFF)
+    order = torch.argsort(codes, stable=True)
+    payload = torch.where(valid[order], order.to(torch.int32), -1)
+    cap = n_groups * LEAF_TRIS
+    v0s, v1s, v2s = v0[order][:cap], v1[order][:cap], v2[order][:cap]
+    if cap > t:
+        pad = (0, 0, 0, cap - t)
+        v0s, v1s, v2s = (torch.nn.functional.pad(x, pad)
+                         for x in (v0s, v1s, v2s))
+        payload = torch.nn.functional.pad(payload, (0, cap - t), value=-1)
+    n_real = min(-(-t // LEAF_TRIS), n_groups)
+    return _pack_tree(v0s, v1s - v0s, v2s - v0s, payload[:cap], n_levels,
+                      n_real)
 
 
 # -- device: the per-frame refit ------------------------------------------------

@@ -29,7 +29,7 @@ import torch
 
 from toyrenderer_tpu_torch._build import shared_library
 from toyrenderer_tpu_torch.ops.raster import (
-    PEEL_BOUND, RasterConfig, tile_pixel_coords)
+    PEEL_BOUND, RasterConfig, coverage_depth, tile_pixel_coords)
 from toyrenderer_tpu_torch.ops.raster_cuda import (
     NVCC_FLAGS, REC, TILE_WALK, _check, crop_image, image_to_tiles,
     nvcc_path, pack_tri_records, pad_image, stream_layout, tiles_to_image,
@@ -143,18 +143,8 @@ def peel_tiles(tri_rec: torch.Tensor, table: torch.Tensor,
         for k0 in range(0, n, c):
             chunk_ids = rows[:, k0:k0 + c]                # (TB, C)
             r = tri_rec[torch.clamp(chunk_ids, min=0).long()]
-
-            def field(f):
-                return r[..., f, None, None]
-            l0 = field(0) * pxn + field(1) * pyn + field(2)
-            l1 = field(3) * pxn + field(4) * pyn + field(5)
-            l2 = field(6) * pxn + field(7) * pyn + field(8)
-            num = field(9) * pxn + field(10) * pyn + field(11)
-            den = field(12) * pxn + field(13) * pyn + field(14)
-            inside = ((torch.minimum(torch.minimum(l0, l1), l2) >= 0.0)
-                      & (den > 0.0) & (chunk_ids >= 0)[..., None, None])
-            depth = torch.where(
-                inside, num / torch.where(den == 0.0, 1.0, den), -1.0)
+            depth = torch.where((chunk_ids >= 0)[..., None, None],
+                                coverage_depth(r, pxn, pyn), -1.0)
             for j in range(chunk_ids.shape[1]):
                 ci = (chunk_ids[:, j] + emit_base)[:, None, None]
                 cascade(z, ids, depth[:, j], ci)

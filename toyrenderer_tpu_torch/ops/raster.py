@@ -16,6 +16,11 @@ Stages:
   3. `fill_visibility`  -- per tile, walk its triangle list in chunks
                            and keep the nearest fragment per pixel
 
+`rasterize` runs the three over the dense (tiles, K) table of
+`bin_triangles`, its fill the dense-table kernel (ops/dense_cuda.py) on
+the card; `rasterize_bruteforce` tests every triangle at every pixel, the
+oracle for tiny scenes.
+
 The sorts are stable and use the reference's exact keys: the pair order
 inside a tile decides depth ties (the first fragment in stream order
 wins), so the port's winners match the reference's pixel for pixel.
@@ -150,6 +155,9 @@ def setup_triangles(geo: dict, cfg: RasterConfig) -> dict:
 # bound, so the bound excludes a ~32-ulp relative band below the stored
 # depth (reference package, raster.py:204-212).
 PEEL_BOUND = 1.0 - 4e-6
+
+# Triangles rasterize_bruteforce tests at every pixel per step.
+BRUTEFORCE_CHUNK = 32
 
 
 def span_classes(setup: dict, cfg: RasterConfig) -> dict:
@@ -307,6 +315,24 @@ def tile_pixel_coords(cfg: RasterConfig, tile_ids: torch.Tensor):
     return (pxn.expand(-1, th, tw), pyn.expand(-1, th, tw))
 
 
+def coverage_depth(rec: torch.Tensor, pxn: torch.Tensor,
+                   pyn: torch.Tensor) -> torch.Tensor:
+    """Reverse-Z depth of each record's triangle at the pixel centres,
+    -1 where the centre is outside it or the plane faces away: the edge
+    and depth arithmetic every plain fill shares (reference package,
+    raster.py `_coverage_depth`).  rec (..., 16) from pack_tri_records
+    gains two pixel axes that broadcast against pxn / pyn."""
+    def field(f):
+        return rec[..., f, None, None]
+    l0 = field(0) * pxn + field(1) * pyn + field(2)
+    l1 = field(3) * pxn + field(4) * pyn + field(5)
+    l2 = field(6) * pxn + field(7) * pyn + field(8)
+    num = field(9) * pxn + field(10) * pyn + field(11)
+    den = field(12) * pxn + field(13) * pyn + field(14)
+    inside = (torch.minimum(torch.minimum(l0, l1), l2) >= 0.0) & (den > 0.0)
+    return torch.where(inside, num / torch.where(den == 0.0, 1.0, den), -1.0)
+
+
 def fill_tiles(tri_rec: torch.Tensor, table: torch.Tensor,
                big_table: torch.Tensor, cfg: RasterConfig,
                init_z: torch.Tensor, peel: torch.Tensor | None = None):
@@ -347,18 +373,8 @@ def fill_tiles(tri_rec: torch.Tensor, table: torch.Tensor,
         for k0 in range(0, n, c):
             ids = rows[:, k0:k0 + c]                     # (TB, C)
             r = tri_rec[torch.clamp(ids, min=0).long()]  # (TB, C, 16)
-
-            def field(f):
-                return r[..., f, None, None]
-            l0 = field(0) * pxn + field(1) * pyn + field(2)
-            l1 = field(3) * pxn + field(4) * pyn + field(5)
-            l2 = field(6) * pxn + field(7) * pyn + field(8)
-            num = field(9) * pxn + field(10) * pyn + field(11)
-            den = field(12) * pxn + field(13) * pyn + field(14)
-            inside = ((torch.minimum(torch.minimum(l0, l1), l2) >= 0.0)
-                      & (den > 0.0) & (ids >= 0)[..., None, None])
-            depth = torch.where(
-                inside, num / torch.where(den == 0.0, 1.0, den), -1.0)
+            depth = torch.where((ids >= 0)[..., None, None],
+                                coverage_depth(r, pxn, pyn), -1.0)
             if pk is not None:
                 depth = torch.where(depth < pk, depth, -1.0)
             cz, carg = torch.max(depth, dim=1)           # first max
@@ -403,3 +419,52 @@ def fill_visibility(setup: dict, table, big_list, cfg: RasterConfig,
     win = tiles_to_image(win, cfg)
     tid = torch.where(win >= 0, win + emit_base, init_id)
     return crop_image(z, cfg), crop_image(tid, cfg)
+
+
+def rasterize(geo: dict, cfg: RasterConfig, use_pallas: bool = False,
+              init_depth=None, init_tri_id=None, tri_id_base: int = 0):
+    """setup + bin + fill over the dense (tiles, K) table; returns
+    (setup, depth (H, W) f32, tri_id (H, W) i32).
+
+    tri_id_base offsets the emitted triangle ids (a continuation's ids
+    then index the concatenated setups); init_depth / init_tri_id
+    continue a previous fill.  `use_pallas` is the reference's fill
+    choice, accepted for its signature: the port has one fill, the
+    dense-table kernel for CUDA tensors and `fill_visibility` for CPU
+    tensors (dense_cuda.fill_visibility_dense)."""
+    from toyrenderer_tpu_torch.ops.dense_cuda import fill_visibility_dense
+    setup = setup_triangles(geo, cfg)
+    table, count, big_list, _ = bin_triangles(setup, cfg)
+    depth, tri_id = fill_visibility_dense(
+        setup, table, count, big_list, cfg, init_depth=init_depth,
+        init_tri_id=init_tri_id, emit_base=tri_id_base)
+    return setup, depth, tri_id
+
+
+def rasterize_bruteforce(geo: dict, cfg: RasterConfig):
+    """Every valid triangle tested at every pixel (reference package,
+    raster.py:535): the oracle for tests and tiny scenes, plain tensor
+    code on any device.  Pixel centres are (i + 0.5) / size, as there;
+    the triangles run in id order, BRUTEFORCE_CHUNK at a time, and a
+    later one must be strictly nearer (the first wins a depth tie).  Returns
+    (setup, depth (H, W) f32, tri_id (H, W) i32)."""
+    from toyrenderer_tpu_torch.ops.raster_cuda import pack_tri_records
+    setup = setup_triangles(geo, cfg)
+    dev = setup['valid'].device
+    rec = pack_tri_records(setup)
+    ids = torch.nonzero(setup['valid']).flatten()
+    h, w = cfg.height, cfg.width
+    pxn = ((torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
+           / w)[None, None, :]
+    pyn = ((torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+           / h)[None, :, None]
+    best_z = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    best_id = torch.full((h, w), -1, dtype=torch.int32, device=dev)
+    for k0 in range(0, ids.shape[0], BRUTEFORCE_CHUNK):
+        cid = ids[k0:k0 + BRUTEFORCE_CHUNK]
+        depth = coverage_depth(rec[cid], pxn, pyn)        # (C, H, W)
+        cz, carg = torch.max(depth, dim=0)                 # first max
+        upd = cz > best_z
+        best_z = torch.where(upd, cz, best_z)
+        best_id = torch.where(upd, cid.to(torch.int32)[carg], best_id)
+    return setup, best_z, best_id

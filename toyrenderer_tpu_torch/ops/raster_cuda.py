@@ -29,7 +29,7 @@ import torch
 from toyrenderer_tpu_torch._build import shared_library
 from toyrenderer_tpu_torch.ops.gbuffer import INTERP_C, RESOLVE_REC
 from toyrenderer_tpu_torch.ops.raster import (
-    PEEL_BOUND, RasterConfig, fill_tiles, tile_table)
+    PEEL_BOUND, RasterConfig, bin_pairs_stream, fill_tiles, tile_table)
 
 REC = 16
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fill_resolve.cu"
@@ -113,18 +113,7 @@ def stream_layout(setup: dict, bins: dict, cfg: RasterConfig,
     big_list = bins['big_list']
     dev = counts.device
 
-    bvalid = big_list >= 0
-    bl = torch.clamp(big_list, min=0).long()
-    big_box = torch.stack([setup['tx0'][bl], setup['tx1'][bl],
-                           setup['ty0'][bl], setup['ty1'][bl]], dim=1)
-    btx = torch.arange(cfg.tiles_x, dtype=i32, device=dev)
-    bty = torch.arange(cfg.tiles_y, dtype=i32, device=dev)
-    hit_x = ((btx[None, :] >= setup['tx0'][bl][:, None])
-             & (btx[None, :] <= setup['tx1'][bl][:, None]))  # (B, TX)
-    hit_y = ((bty[None, :] >= setup['ty0'][bl][:, None])
-             & (bty[None, :] <= setup['ty1'][bl][:, None]))  # (B, TY)
-    big_tests = torch.sum(hit_y[:, :, None] & hit_x[:, None, :]
-                          & bvalid[:, None, None], dim=0).reshape(-1)
+    big_box, big_tests = big_boxes(setup, big_list, cfg)
     bighit = (big_tests > 0).to(i32)
     want = torch.maximum(-(-counts // c), bighit)
     zero = torch.zeros(1, dtype=i32, device=dev)
@@ -137,8 +126,41 @@ def stream_layout(setup: dict, bins: dict, cfg: RasterConfig,
     return dict(ch_cap=ch_cap, n_chunks=n_chunks, chunk_base=chunk_base,
                 total_chunks=chunk_base[-1], counts_eff=counts_eff,
                 counts_clamped=counts, bighit=bighit,
-                big_box=big_box.to(i32).contiguous(),
-                tile_order=tile_order.to(i32))
+                big_box=big_box, tile_order=tile_order.to(i32))
+
+
+def big_boxes(setup: dict, big_list: torch.Tensor, cfg: RasterConfig):
+    """(big_box (B, 4) i32, big_tests (tiles,)): each big-list entry's
+    tile bbox (tx0, tx1, ty0, ty1), and for each tile the number of
+    valid entries whose bbox holds it."""
+    bvalid = big_list >= 0
+    bl = torch.clamp(big_list, min=0).long()
+    box = torch.stack([setup['tx0'][bl], setup['tx1'][bl],
+                       setup['ty0'][bl], setup['ty1'][bl]], dim=1)
+    dev = big_list.device
+    btx = torch.arange(cfg.tiles_x, dtype=torch.int32, device=dev)
+    bty = torch.arange(cfg.tiles_y, dtype=torch.int32, device=dev)
+    hit_x = ((btx[None, :] >= box[:, 0:1])
+             & (btx[None, :] <= box[:, 1:2]))                # (B, TX)
+    hit_y = ((bty[None, :] >= box[:, 2:3])
+             & (bty[None, :] <= box[:, 3:4]))                # (B, TY)
+    big_tests = torch.sum(hit_y[:, :, None] & hit_x[:, None, :]
+                          & bvalid[:, None, None], dim=0).reshape(-1)
+    return box.to(torch.int32).contiguous(), big_tests
+
+
+def bin_pairs_with_budget(setup: dict, cfg: RasterConfig) -> dict:
+    """raster.bin_pairs_stream, its drop counters joined by the pairs the
+    chunk budget of the streamed fills leaves unwalked
+    (`drop_pair_budget`, the accounting of stream_layout)."""
+    bins = bin_pairs_stream(setup, cfg)
+    acc = stream_layout(
+        setup, bins, cfg,
+        min(cfg.chunk, cfg.max_tris_per_tile, cfg.max_big_tris))
+    bins['drop'] = dict(
+        bins['drop'], drop_pair_budget=torch.sum(
+            acc['counts_clamped'] - acc['counts_eff']))
+    return bins
 
 
 def nvcc_path() -> str:

@@ -92,7 +92,9 @@ def taa_resolve(color, motion, history, history_valid,
     h, w = color.shape[:2]
     prev_y, prev_x = pixel_prev_coords(motion)
     if min(h, w) >= 64:
-        hist = warp_bilinear(history, motion.contiguous())
+        # the history takes the layout of the colour it was blended
+        # from (channel-planar in the unculled frame); the warp reads HWC
+        hist = warp_bilinear(history.contiguous(), motion.contiguous())
         fast = ((torch.abs(motion[..., 0]) > MAX_DISP - 1.0)
                 | (torch.abs(motion[..., 1]) > MAX_DISP - 1.0))
     else:

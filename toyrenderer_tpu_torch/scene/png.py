@@ -1,10 +1,12 @@
-"""PNG decoder for material textures: stdlib zlib + numpy.
+"""PNG decoder for material textures, and the writer of rendered frames:
+stdlib zlib + numpy, no imaging library.
 
 Decodes 8-bit RGB and RGBA, non-interlaced PNGs -- every texture of the
 bundled courtyard asset -- to (H, W, 4) u8 RGBA (RGB gains alpha 255).
 All five scanline filters are undone, Paeth included.  Every other kind
 (palette, grey, 16-bit, interlaced) raises PngError: a texture that
-cannot be decoded must not render silently untextured.
+cannot be decoded must not render silently untextured.  `encode_png`
+writes (H, W, 3) u8 RGB as an 8-bit RGB PNG (filter 0 on every row).
 """
 
 from __future__ import annotations
@@ -99,3 +101,23 @@ def decode_png(raw: bytes) -> np.ndarray:
     if ch == 3:
         img = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], -1)
     return img
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) u8 RGB -> PNG bytes (8-bit RGB, non-interlaced)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+        raise PngError(f"encode_png takes (H, W, 3) u8, got "
+                       f"{img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * 3)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))

@@ -1,0 +1,244 @@
+"""Headless renderer CLI: load a glTF scene, render N frames, write a PNG.
+
+Counterpart of toyrenderer_tpu/tools/render.py, with the reference's
+flag names for what the port renders.  It runs on the card unless
+--device says otherwise (`--device cpu` runs the plain versions).  The
+main RT tree is the complete tree of `bvh.build_rt_static` (the
+reference's default), built once at load for shadows or GI and refit
+every frame; GI traces its own LOD-reduced SAH tree
+(`bvh_sah.build_rt_static_gi`).  Raster capacities are sized from the
+first view's content (engine/capacity.py).  Flags of passes the port
+does not have yet raise NotImplementedError naming their ROADMAP item.
+
+Usage:
+  python -m toyrenderer_tpu_torch.tools.render \\
+      --scene resources/courtyard.glb --displayresolution 1920x1080 \\
+      --culling --shadows --shadowtechnique map --output out.png
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# flag -> (is it asked for?, the ROADMAP queue item that ports it)
+_NOT_PORTED = (
+    ('--vtstream', lambda a: a.vtstream != 'off',
+     'queue 1 item 10 (streaming)'),
+    ('--animate', lambda a: a.animate,
+     'queue 1 item 13 (glTF animation channels)'),
+    ('--restir', lambda a: a.restir, 'queue 1 item 9 (opt-in paths)'),
+    ('--transparency', lambda a: a.transparency,
+     'queue 1 item 9 (opt-in paths: transparency)'),
+    ('--showprobes', lambda a: a.showprobes,
+     'queue 1 item 3 (debug views: ddgi.visualize_probes)'),
+    ('--debugview', lambda a: a.debugview != 0,
+     'queue 1 item 3 (debug views)'),
+    ('--passtable', lambda a: a.passtable,
+     'queue 1 item 11 (tools: the per-pass timing table)'),
+    ('--orbit', lambda a: a.orbit != 0.0,
+     'queue 1 item 11 (tools: the camera orbit)'),
+)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--scene", default="resources/cornell.gltf")
+    p.add_argument("--displayresolution", default="1280x720",
+                   help="WxH render resolution")
+    p.add_argument("--frames", type=int, default=1)
+    p.add_argument("--output", default=str(Path(tempfile.gettempdir())
+                                           / "toyrenderer_out.png"))
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the current CUDA device)")
+    p.add_argument("--nocache", action="store_true",
+                   help="bypass the scene build cache")
+    p.add_argument("--exposure", type=float, default=1.0)
+    p.add_argument("--bloom", action="store_true")
+    p.add_argument("--autoexposure", action="store_true")
+    p.add_argument("--taa", action="store_true")
+    p.add_argument("--culling", action="store_true",
+                   help="2-phase GPU-driven occlusion culling + LOD")
+    p.add_argument("--shadows", action="store_true",
+                   help="denoised sun shadows")
+    p.add_argument("--shadowtechnique", choices=("map", "rt"), default="rt",
+                   help="sun shadows: BVH rays (rt) | raster sun map (map)")
+    p.add_argument("--ao", action="store_true", help="GTAO")
+    p.add_argument("--gi", action="store_true", help="DDGI probe GI")
+    p.add_argument("--giraysperprobe", type=int, default=64)
+    p.add_argument("--bruteforceraster", action="store_true",
+                   help="every triangle at every pixel (the oracle)")
+    p.add_argument("--stats", default=None,
+                   help="write per-frame stats JSON to this path")
+    # the reference's flags of passes not ported yet
+    p.add_argument("--debugview", type=int, default=0)
+    p.add_argument("--showprobes", action="store_true")
+    p.add_argument("--restir", action="store_true")
+    p.add_argument("--transparency", action="store_true")
+    p.add_argument("--animate", action="store_true")
+    p.add_argument("--orbit", type=float, default=0.0)
+    p.add_argument("--vtstream", choices=("off", "mip", "tile"),
+                   default="off")
+    p.add_argument("--passtable", action="store_true")
+    args = p.parse_args(argv)
+    for flag, on, item in _NOT_PORTED:
+        if on(args):
+            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP "
+                                      f"{item})")
+    if args.scene == "stress":
+        raise NotImplementedError("--scene stress: not ported yet (ROADMAP "
+                                  "queue 1 item 13: scene/procedural.py)")
+    return args
+
+
+def main(argv=None) -> int:
+    """Parse argv, render, write the PNG (and the stats JSON); returns
+    0."""
+    from toyrenderer_tpu_torch.device import resolve_device
+    from toyrenderer_tpu_torch.engine import (
+        RenderSettings, View, default_frame_inputs, init_carry,
+        make_render_fn)
+    from toyrenderer_tpu_torch.engine import capacity
+    from toyrenderer_tpu_torch.ops.geometry import static_meshlet_pairs
+    from toyrenderer_tpu_torch.scene import load_scene
+    from toyrenderer_tpu_torch.scene.png import encode_png
+    from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
+
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    w, h = (int(x) for x in args.displayresolution.split("x"))
+
+    t0 = time.time()
+    host = load_scene(args.scene, use_cache=not args.nocache)
+    print(f"[scene] {args.scene}: {host.num_vertices} verts, "
+          f"{host.num_meshlets} meshlets, {host.num_instances} instances "
+          f"({time.time() - t0:.2f}s)")
+    scene = host.to_device(dev)
+    mk_i, mk_m = static_meshlet_pairs(host, 'mask')
+    has_mask = len(mk_i) > 0
+    pi, pm = static_meshlet_pairs(host, 'not_mask' if has_mask else 'all')
+
+    def on(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    pair_inst, pair_meshlet = on(pi), on(pm)
+    mask_kw = {}
+    if has_mask:
+        mask_kw = dict(mask_pair_inst=on(mk_i), mask_pair_meshlet=on(mk_m))
+        print(f"[alpha-test] {len(mk_i)} masked pairs")
+
+    settings = RenderSettings(
+        width=w, height=h, manual_exposure=args.exposure,
+        enable_bloom=args.bloom, enable_auto_exposure=args.autoexposure,
+        enable_taa=args.taa, enable_culling=args.culling,
+        enable_shadows=args.shadows, shadow_technique=args.shadowtechnique,
+        enable_ao=args.ao, enable_gi=args.gi,
+        use_bruteforce_raster=args.bruteforceraster)
+
+    # content-sized raster capacities from the first view
+    view = View.from_scene(host, w, h)
+    fi0 = frame_inputs_from_numpy(default_frame_inputs(host, view.matrices()),
+                                  dev)
+    mask_pairs = ((mask_kw['mask_pair_inst'], mask_kw['mask_pair_meshlet'])
+                  if has_mask else None)
+    if args.culling:
+        counts = capacity.culled_pair_counts(scene, fi0, settings,
+                                             len(pi), mask_pairs)
+        settings = capacity.sized_culled_settings(settings, counts)
+    else:
+        sets = {"opaque": (pair_inst, pair_meshlet)}
+        if has_mask:
+            sets["masked"] = mask_pairs
+        counts = capacity.tile_pair_counts(scene, fi0, settings, sets)
+        settings = capacity.sized_settings(settings, counts)
+    cfg_kw = {f"{'mask_' if k == 'masked' else ''}raster_cfg":
+              capacity.sized_raster_config(settings, {k: v})
+              for k, v in counts.items()}
+    print(f"[capacity] K={settings.max_tris_per_tile} "
+          f"B={settings.max_big_tris} pair_capacity="
+          f"{settings.pair_capacity}")
+
+    kw = dict(mask_kw)
+    volume = None
+    if args.gi:
+        from toyrenderer_tpu_torch.ops.ddgi import volume_from_aabb
+        volume = volume_from_aabb(*host.world_aabb,
+                                  rays_per_probe=args.giraysperprobe)
+        kw['ddgi_volume'] = volume
+        print(f"[gi] probe grid {volume.counts}, {volume.num_probes} probes "
+              f"x {volume.rays_per_probe} rays")
+    if args.gi or args.shadows:
+        # built for 'map' shadows too: the sun map draws the masked set
+        # through the tree's coverage keep
+        from toyrenderer_tpu_torch.ops.bvh import build_rt_static
+        t0 = time.time()
+        kw['rt_static'] = build_rt_static(
+            host, pi, pm, mask_pair_inst=mk_i if has_mask else None,
+            mask_pair_meshlet=mk_m if has_mask else None, device=dev)
+        print(f"[rt] static topology (complete): "
+              f"{kw['rt_static'].payload.shape[0]} tri slots "
+              f"({time.time() - t0:.2f}s)")
+    if args.gi:
+        from toyrenderer_tpu_torch.ops.bvh_sah import build_rt_static_gi
+        t0 = time.time()
+        gi_static, g_pi, g_pm, gi_lod = build_rt_static_gi(
+            host, 'not_mask' if has_mask else 'all',
+            mask_pair_inst=mk_i if has_mask else None,
+            mask_pair_meshlet=mk_m if has_mask else None, device=dev)
+        kw.update(rt_static_gi=gi_static, gi_pair_inst=g_pi,
+                  gi_pair_meshlet=g_pm)
+        print(f"[rt] GI topology (sah, LOD{gi_lod}): "
+              f"{gi_static.payload.shape[0]} tri slots "
+              f"({time.time() - t0:.2f}s)")
+
+    render = make_render_fn(settings, dev, **cfg_kw)
+    carry = init_carry(scene, settings, volume)
+    rows = []
+    for i in range(args.frames):
+        mats = view.matrices()
+        fi = default_frame_inputs(host, mats)
+        t0 = time.time()
+        image, carry, aux = render(scene, pair_inst, pair_meshlet, fi, carry,
+                                   **kw)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+        dt = (time.time() - t0) * 1000
+        view.advance(mats)
+        label = "build+run" if i == 0 else "frame"
+        print(f"[frame {i}] {label}: {dt:.2f} ms")
+        if args.stats:
+            rec = dict(frame=i, ms=round(dt, 3),
+                       coverage=round(float((aux['tri_id'] >= 0).float()
+                                            .mean()), 4),
+                       exposure=float(carry['exposure']))
+            if dev.type == 'cuda':
+                rec['hbm_mb'] = round(torch.cuda.memory_allocated(dev)
+                                      / 2 ** 20)
+                rec['hbm_peak_mb'] = round(
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+            for k in ('early_instances', 'late_instances',
+                      'early_meshlets', 'late_meshlets'):
+                if k in aux:
+                    rec[k] = int(aux[k])
+            rows.append(rec)
+
+    img = image.cpu().numpy()
+    Path(args.output).write_bytes(encode_png(img))
+    print(f"[out] wrote {args.output} ({img.shape[1]}x{img.shape[0]})")
+    npx = int((aux['tri_id'] >= 0).sum())
+    print(f"[stats] covered pixels: {npx}/{w * h} "
+          f"({100.0 * npx / (w * h):.1f}%)")
+    if args.stats:
+        Path(args.stats).write_text(json.dumps(rows, indent=1))
+        print(f"[stats] wrote {args.stats}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
