@@ -56,6 +56,18 @@ both main paths through the port's entry points at 1920x1080:
   gated, the courtyard printed); the port's render CLI in its own
   process.
 
+Each K1, K2 and K7 line also gives the bound counted at the pixels of
+each tested triangle's bbox (bound_ms) beside the count at every pixel
+of the tile that PERF.md's earlier rows used (bound_all_px_ms); each K1
+and K2 line gives its kernel's time from its profiler events
+(kernel_ms) and from CUDA events over the launches (events_ms) and the
+census of the warp walk's corner reject (raster_cuda.region_census:
+(pair, region) tests walked and kept, the densest unit's records).  In
+the `kernels` line, K1's and K2's `ms` is kernel_ms, the measure of
+every other kernel there; PERF.md's K1 and K2 rows from before the warp
+walk took CUDA events over the launches, which events_ms still gives
+beside it.
+
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
 and prints no `ok` line.  Without a CUDA device, or outside a checkout
@@ -270,21 +282,47 @@ def big_box_tests(inp):
 
 
 def walked_pairs(inp):
-    """(tests, the stream entries walked, the triangles tested): each
-    visited tile's own pairs, and the big triangles whose tile bbox
-    holds it (a triangle covers no pixel outside its bbox)."""
+    """(tile, triangle) of every test a streamed fill makes (each visited
+    tile's own pairs, then the big triangles whose tile bbox holds it: a
+    triangle covers no pixel outside its bbox), and how many of them are
+    pair-stream entries."""
+    from toyrenderer_tpu_torch.ops.raster_cuda import walked_pairs_by_tile
+    tile, tri = walked_pairs_by_tile(inp)
+    lay = inp.lay
+    return tile, tri, int(lay['counts_eff'][lay['n_chunks'] > 0].sum())
+
+
+def box_pixels(edges, tiles, cfg) -> int:
+    """The pixel tests a fill needs for its (tile, triangle) tests: for
+    each, the tile's pixels inside the triangle's pixel bbox, or the whole
+    tile where a vertex is not in front of the camera (its covered region
+    is then not bounded by its vertices).  edges (N, 3, 3): the tested
+    triangles' edge equations, raster records [0:9]; tiles (N,).  The
+    vertices come back from the edges: edge i is (v_j x v_k) up to the
+    winding's sign, so e_1 x e_2 is det * v_0 (and so on round), and the
+    sign of det(e) is the sign of det, which gives each vertex's w."""
     import torch
-    lay, bins = inp.lay, inp.bins
-    visited = lay['n_chunks'] > 0
-    in_box = big_box_tests(inp)
-    nb = in_box.shape[1]
-    tests = int(lay['counts_eff'][visited].sum()) + int(in_box.sum())
-    walked = torch.cat([bins['vals_s'][:0]] + [
-        bins['vals_s'][o:o + c] for o, c in zip(
-            bins['offs'][:-1][visited].tolist(),
-            lay['counts_eff'][visited].tolist())])
-    tested = torch.cat([walked, bins['big_list'][:nb][in_box.any(0)]])
-    return tests, walked, tested
+    e = edges.double()
+    c = torch.stack([torch.linalg.cross(e[:, 1], e[:, 2]),
+                     torch.linalg.cross(e[:, 2], e[:, 0]),
+                     torch.linalg.cross(e[:, 0], e[:, 1])], dim=1)
+    w = c[..., 2] * torch.sign(torch.linalg.det(e))[:, None]
+    sx = c[..., 0] / c[..., 2] * cfg.width
+    sy = c[..., 1] / c[..., 2] * cfg.height
+    bounded = (w > 0).all(1) & torch.isfinite(sx).all(1) & torch.isfinite(
+        sy).all(1)
+    x0 = (tiles % cfg.tiles_x) * cfg.tile_w
+    y0 = (tiles // cfg.tiles_x) * cfg.tile_h
+
+    def span(lo, hi, t0, size):
+        a = torch.clamp(torch.floor(lo), min=-1, max=1e6)
+        b = torch.clamp(torch.floor(hi), min=-1, max=1e6)
+        return torch.clamp(torch.minimum(b, t0 + size - 1.0)
+                           - torch.maximum(a, t0.double()) + 1.0, min=0)
+    nx = span(sx.amin(1), sx.amax(1), x0, cfg.tile_w)
+    ny = span(sy.amin(1), sy.amax(1), y0, cfg.tile_h)
+    n = torch.where(bounded, nx * ny, float(cfg.tile_w * cfg.tile_h))
+    return int(n.sum())
 
 
 def bound(ops: float, bytes_: float) -> tuple[float, str]:
@@ -295,26 +333,37 @@ def bound(ops: float, bytes_: float) -> tuple[float, str]:
                                  else "operations")
 
 
-def fill_bound_ms(inp, tid, won) -> tuple[float, str]:
+def pixel_tests(inp, tile, tri, all_px: bool) -> int:
+    """The (pair, pixel) tests a streamed fill needs for its (tile,
+    triangle) tests: box_pixels, or (all_px, the count the earlier rows
+    of PERF.md used) every pixel of the tile for each."""
+    if all_px:
+        return tile.numel() * inp.cfg.tile_h * inp.cfg.tile_w
+    return box_pixels(inp.tri_rec[tri, :9].reshape(-1, 3, 3), tile,
+                      inp.cfg)
+
+
+def fill_bound_ms(inp, tid, won, all_px=False) -> tuple[float, str]:
     """Least time the card could take for one fill+resolve on these
-    inputs, counted for this run's data.  Bytes: each input read once --
-    the records of the triangles tested and of the winners, the pair
-    stream, the per-tile tables, the init planes and peel bound this fill
-    was given (the first layer is given none) -- and the 34 output planes
-    written once."""
+    inputs, counted for this run's data.  Operations: the (pair, pixel)
+    tests of `pixel_tests` and the resolve of each won pixel.  Bytes:
+    each input read once -- the records of the triangles tested and of
+    the winners, the pair stream, the per-tile tables, the init planes
+    and peel bound this fill was given (the first layer is given none) --
+    and the 34 output planes written once."""
     import torch
     cfg = inp.cfg
-    tests, walked, tested = walked_pairs(inp)
+    tile, tri, n_stream = walked_pairs(inp)
     n_won = int(won.sum())
-    ops = (tests * cfg.tile_h * cfg.tile_w * OPS_PER_TEST
+    ops = (pixel_tests(inp, tile, tri, all_px) * OPS_PER_TEST
            + n_won * OPS_PER_RESOLVE)
     winners = torch.unique(tid[won] - inp.emit_base).numel()
     hp, wp = inp.padded_shape
     n_px = hp * wp
     nb = int((inp.bins['big_list'] >= 0).sum())
     given = [x for x in (inp.init_z, inp.init_id, inp.peel) if x is not None]
-    bytes_ = (torch.unique(tested).numel() * 16 * 4   # raster records
-              + walked.numel() * 4 + nb * 5 * 4       # stream, big list
+    bytes_ = (torch.unique(tri).numel() * 16 * 4      # raster records
+              + n_stream * 4 + nb * 5 * 4             # stream, big list
               + cfg.num_tiles * 4 * 4                 # per-tile tables
               + winners * 64 * 4                      # resolve records
               + len(given) * n_px * 4
@@ -323,48 +372,60 @@ def fill_bound_ms(inp, tid, won) -> tuple[float, str]:
     return bound(ops, bytes_)
 
 
-def peel_bound_ms(inp) -> tuple[float, str]:
+def peel_bound_ms(inp, all_px=False) -> tuple[float, str]:
     """Least time the card could take for one L-layer peel fill on these
-    inputs: every test runs the edge and depth evaluation and the
-    cascade's L layers; bytes: the occluder read once, the records of
-    the triangles tested, the pair stream and per-tile tables, and the
-    2 L planes (depth, id) written once."""
+    inputs: every (pair, pixel) test of `pixel_tests` runs the edge and
+    depth evaluation and the cascade's L layers; bytes: the occluder read
+    once, the records of the triangles tested, the pair stream and
+    per-tile tables, and the 2 L planes (depth, id) written once."""
     import torch
     cfg = inp.cfg
-    tests, walked, tested = walked_pairs(inp)
-    ops = (tests * cfg.tile_h * cfg.tile_w
+    tile, tri, n_stream = walked_pairs(inp)
+    ops = (pixel_tests(inp, tile, tri, all_px)
            * (OPS_PER_TEST + OPS_PER_CASCADE_LAYER * inp.layers))
     hp, wp = inp.padded_shape
     nb = int((inp.bins['big_list'] >= 0).sum())
-    bytes_ = (torch.unique(tested).numel() * 16 * 4
-              + walked.numel() * 4 + nb * 5 * 4 + cfg.num_tiles * 4 * 4
+    bytes_ = (torch.unique(tri).numel() * 16 * 4
+              + n_stream * 4 + nb * 5 * 4 + cfg.num_tiles * 4 * 4
               + (0 if inp.occluder is None else hp * wp * 4)
               + 2 * inp.layers * hp * wp * 4)
     return bound(ops, bytes_)
 
 
-def dense_bound_ms(args) -> tuple[float, str]:
+def dense_bound_ms(args, all_px=False) -> tuple[float, str]:
     """Least time the card could take for one dense-table fill (K7) on
-    the arguments of one launch: operations, the edge and depth tests of
-    every table entry a tile walks and of each big triangle whose tile
-    bbox holds the tile (a triangle covers no pixel outside it); bytes,
-    the records of the triangles tested read once, the walked table
-    entries, the big list, the per-tile tables, the init planes given,
-    and the depth and id planes written once."""
+    the arguments of one launch: operations, the edge and depth tests,
+    at the pixels box_pixels counts (or, all_px, at every pixel of the
+    tile), of every table entry a tile walks and of each big triangle
+    whose tile bbox holds the tile (a triangle covers no pixel outside
+    it); bytes, the records of the triangles tested read once, the
+    walked table entries, the big list, the per-tile tables, the init
+    planes given, and the depth and id planes written once."""
     import torch
     from toyrenderer_tpu_torch.ops.raster_cuda import big_boxes
     setup, table, count, big_list, cfg, init_z, init_id, _ = args
     k = torch.arange(cfg.max_tris_per_tile, device=table.device)
-    walked = table[k[None, :] < count[:, None]]
+    own = k[None, :] < count[:, None]
+    walked = table[own]
     nb = int((big_list >= 0).sum())
-    tests = walked.numel() + int(big_boxes(setup, big_list, cfg)[1].sum())
+    box = big_boxes(setup, big_list, cfg)[0][:nb]
+    tiles = torch.arange(cfg.num_tiles, device=table.device)
+    tx, ty = (tiles % cfg.tiles_x)[:, None], (tiles // cfg.tiles_x)[:, None]
+    in_box = ((tx >= box[None, :, 0]) & (tx <= box[None, :, 1])
+              & (ty >= box[None, :, 2]) & (ty <= box[None, :, 3]))
+    big_tile, big_j = torch.nonzero(in_box, as_tuple=True)
+    tile = torch.cat([torch.nonzero(own, as_tuple=True)[0], big_tile])
+    tri = torch.cat([walked, big_list[big_j]]).long()
+    tests = tile.numel()
+    px = (tests * cfg.tile_h * cfg.tile_w if all_px else
+          box_pixels(setup['edges'][tri], tile, cfg))
     hp, wp = cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w
     given = [x for x in (init_z, init_id) if x is not None]
     tested = torch.unique(torch.cat([walked, big_list[:nb]])).numel()
     bytes_ = (tested * 16 * 4 + walked.numel() * 4 + nb * 5 * 4
               + cfg.num_tiles * 4 * 4 + len(given) * hp * wp * 4
               + 2 * hp * wp * 4)
-    return bound(tests * cfg.tile_h * cfg.tile_w * OPS_PER_TEST, bytes_)
+    return bound(px * OPS_PER_TEST, bytes_)
 
 
 def perceptual_diff(a_u8, b_u8) -> tuple[float, float]:
@@ -449,20 +510,53 @@ def hold_k1(name, inp) -> dict:
         raise AssertionError(f"K1 ({name}): the big-list bbox filter "
                              "changed the fill")
     st = dict(err=err,
-              ms=cuda_ms(lambda: raster_cuda.launch(inp), KERNEL_REPS),
+              ms=kernel_ms(lambda: raster_cuda.launch(inp), KERNEL_REPS,
+                           "fill_resolve_kernel"),
+              events_ms=cuda_ms(lambda: raster_cuda.launch(inp),
+                                KERNEL_REPS),
               plain_ms=cuda_ms(lambda: raster_cuda.fill_resolve_plain(inp),
                                1),
-              bound=fill_bound_ms(inp, want[1], won))
+              bound=fill_bound_ms(inp, want[1], won),
+              bound_all_px=fill_bound_ms(inp, want[1], won, True)[0],
+              census=raster_cuda.region_census(inp))
     phase("K1 vs plain", input=json.dumps(name), won_px=int(won.sum()),
           pairs_walked=int(inp.lay['counts_eff'].sum()),
           init_planes=inp.init_z is not None, emit_base=inp.emit_base,
           ids="equal", depth="bit-equal", planes_max_abs=f"{err:.3g}",
           big_tests_in_box=f"{int(big_box_tests(inp).sum())}"
           f"/{int(big_box_tests(every_box(inp)).sum())}",
-          kernel_ms=f"{st['ms']:.3f}", plain_ms=f"{st['plain_ms']:.1f}",
+          census=json.dumps(st['census']),
+          kernel_ms=f"{st['ms']:.4f}", events_ms=f"{st['events_ms']:.4f}",
+          plain_ms=f"{st['plain_ms']:.1f}",
           plain_first_wall_s=f"{plain_wall:.1f}",
-          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
+          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1],
+          bound_all_px_ms=f"{st['bound_all_px']:.4f}")
     return st
+
+
+def hold_k2_times(inp, plain_inp) -> dict:
+    """K2's numbers on one input (held bit-equal by the caller): its
+    time from its kernel events and from CUDA events, the plain
+    version's, the bound and the all-pixel bound, and the reject's
+    census."""
+    from toyrenderer_tpu_torch.ops import peel_cuda, raster_cuda
+    return dict(
+        ms=kernel_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS,
+                     "fill_peel_kernel"),
+        events_ms=cuda_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS),
+        plain_ms=cuda_ms(lambda: peel_cuda.fill_peel_plain(plain_inp), 1),
+        bound=peel_bound_ms(inp), bound_all_px=peel_bound_ms(inp, True)[0],
+        census=raster_cuda.region_census(inp))
+
+
+def k2_fields(st) -> dict:
+    """hold_k2_times' numbers as phase fields."""
+    return dict(census=json.dumps(st['census']),
+                kernel_ms=f"{st['ms']:.4f}",
+                events_ms=f"{st['events_ms']:.4f}",
+                plain_ms=f"{st['plain_ms']:.1f}",
+                bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1],
+                bound_all_px_ms=f"{st['bound_all_px']:.4f}")
 
 
 @contextlib.contextmanager
@@ -1249,12 +1343,8 @@ def main() -> int:
         if not (torch.equal(id_all, id_k) and torch.equal(z_all, z_k)):
             raise AssertionError(f"K2 ({name}): the big-list bbox filter "
                                  "changed the fill")
-        k2[name] = dict(
-            err=float((z_k - z_p).abs().max()),
-            ms=cuda_ms(lambda: peel_cuda.launch(peel), KERNEL_REPS),
-            plain_ms=cuda_ms(
-                lambda: peel_cuda.fill_peel_plain(plain_peel), 1),
-            bound=peel_bound_ms(peel))
+        k2[name] = hold_k2_times(peel, plain_peel)
+        k2[name]['err'] = float((z_k - z_p).abs().max())
         phase("K2 vs plain", input=json.dumps(f"masked set, {name}"),
               layers=peel.layers,
               fragments_per_layer=json.dumps(
@@ -1262,11 +1352,8 @@ def main() -> int:
               ids="equal", depth="bit-equal",
               big_tests_in_box=f"{int(big_box_tests(peel).sum())}"
               f"/{int(big_box_tests(every_box(peel)).sum())}",
-              kernel_ms=f"{k2[name]['ms']:.4f}",
-              plain_ms=f"{k2[name]['plain_ms']:.1f}",
               plain_first_wall_s=f"{plain_wall:.1f}",
-              bound_ms=f"{k2[name]['bound'][0]:.4f}",
-              bound_by=k2[name]['bound'][1])
+              **k2_fields(k2[name]))
     del peels
 
     # 8. the culled frame at 1920x1080 through the entry points -------------
@@ -1908,7 +1995,8 @@ def main() -> int:
             ms=kernel_ms(lambda: dense_cuda.launch(*args), KERNEL_REPS,
                          "fill_dense_kernel"),
             plain_ms=cuda_ms(lambda: raster_mod.fill_visibility(*plain), 1),
-            bound=dense_bound_ms(args))
+            bound=dense_bound_ms(args),
+            bound_all_px=dense_bound_ms(args, True)[0])
         phase("K7 vs plain", input=json.dumps(name), K=cfg_d.
               max_tris_per_tile, B=cfg_d.max_big_tris,
               binned_pairs=int(count.sum()), max_tile_pairs=int(count.max()),
@@ -1919,7 +2007,8 @@ def main() -> int:
               plain_ms=f"{k7[name]['plain_ms']:.1f}",
               plain_first_wall_s=f"{plain_wall:.1f}",
               bound_ms=f"{k7[name]['bound'][0]:.4f}",
-              bound_by=k7[name]['bound'][1])
+              bound_by=k7[name]['bound'][1],
+              bound_all_px_ms=f"{k7[name]['bound_all_px']:.4f}")
     del dense_in, args, setup, table, plain, got, want
     raster_ms = cuda_ms(lambda: raster_mod.rasterize(geo_o, cfgs["opaque"]),
                         3)
@@ -2000,11 +2089,8 @@ def main() -> int:
     if not (torch.equal(z_k, z_p) and torch.equal(id_k, id_p)):
         raise AssertionError("K2 (sun map): not bit-equal to the plain "
                              "version")
-    k2["sun map"] = dict(
-        err=float((z_k - z_p).abs().max()),
-        ms=cuda_ms(lambda: peel_cuda.launch(sm_in), KERNEL_REPS),
-        plain_ms=cuda_ms(lambda: peel_cuda.fill_peel_plain(sm_plain), 1),
-        bound=peel_bound_ms(sm_in))
+    k2["sun map"] = hold_k2_times(sm_in, sm_plain)
+    k2["sun map"]['err'] = float((z_k - z_p).abs().max())
     phase("K2 vs plain", input=json.dumps("sun map"), layers=1,
           map=f"{sm_in.cfg.width}x{sm_in.cfg.height}",
           K=sm_in.cfg.max_tris_per_tile, B=sm_in.cfg.max_big_tris,
@@ -2013,11 +2099,7 @@ def main() -> int:
           pairs_walked=int(sm_in.lay['counts_eff'].sum()),
           max_tile_pairs=int(sm_in.bins['counts'].max()),
           texels_covered=f"{float((id_k[0] >= 0).float().mean()):.4f}",
-          ids="equal", depth="bit-equal",
-          kernel_ms=f"{k2['sun map']['ms']:.4f}",
-          plain_ms=f"{k2['sun map']['plain_ms']:.1f}",
-          bound_ms=f"{k2['sun map']['bound'][0]:.4f}",
-          bound_by=k2['sun map']['bound'][1])
+          ids="equal", depth="bit-equal", **k2_fields(k2["sun map"]))
     del sm_in, sm_plain, z_k, id_k, z_p, id_p
 
     def m_per_frame(aux, carry):
@@ -2215,9 +2297,12 @@ def main() -> int:
     #     launch; fill_dense: the mean over rasterize's two launches (the
     #     opaque set, the masked set continuing it)
     def row(name, st, main):
+        extra = {k: st[k] for k in ('events_ms', 'census') if k in st}
+        if 'bound_all_px' in st:
+            extra['bound_all_px_ms'] = st['bound_all_px']
         return dict(input=name, main_path=main, ms=st['ms'],
                     plain_ms=st['plain_ms'], bound_ms=st['bound'][0],
-                    bound_by=st['bound'][1], max_abs_err=st['err'])
+                    bound_by=st['bound'][1], max_abs_err=st['err'], **extra)
     main_in = list(stats.values())
     kernels = [
         dict(name="fill_resolve", route="cuda",
@@ -2230,6 +2315,8 @@ def main() -> int:
              plain_ms=statistics.mean(s['plain_ms'] for s in main_in),
              bound_ms=statistics.mean(s['bound'][0] for s in main_in),
              bound_by=max(main_in, key=lambda s: s['bound'][0])['bound'][1],
+             bound_all_px_ms=statistics.mean(s['bound_all_px']
+                                             for s in main_in),
              library_ms=None,
              inputs=[row(k, v, True) for k, v in stats.items()]
              + [row(k, v, False) for k, v in split.items()]),
@@ -2241,7 +2328,8 @@ def main() -> int:
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
-             bound_by=k2['occluder']['bound'][1], library_ms=None,
+             bound_by=k2['occluder']['bound'][1],
+             bound_all_px_ms=k2['occluder']['bound_all_px'], library_ms=None,
              inputs=[row(k if k == "sun map" else f"masked set, {k}", v,
                          k != "no occluder") for k, v in k2.items()]),
         dict(name="traverse", route="cuda",
@@ -2276,6 +2364,8 @@ def main() -> int:
              bound_ms=statistics.mean(v['bound'][0] for v in k7.values()),
              bound_by=max(k7.values(), key=lambda v: v['bound'][0])[
                  'bound'][1],
+             bound_all_px_ms=statistics.mean(v['bound_all_px']
+                                             for v in k7.values()),
              library_ms=None,
              inputs=[row(k, v, True) for k, v in k7.items()])]
     for name, line, st, n, path in (

@@ -20,6 +20,7 @@ version's order); K6's best t and ordinal bit-equal (each form summed
 in the plain version's order).
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -174,6 +175,112 @@ def test_dense_kernel_matches_plain_version(cuda_device):
     assert bool(kept.any()) and torch.equal(id2[kept], init_id[kept])
     with pytest.raises(ValueError):            # wrong dtype is refused
         DC.launch(setup, table.long(), count, big, cfg)
+
+
+# the scaled variants: subnormal products, small, past the margin's cap
+SCALES = dict(tiny=1e-40, small=1e-30, huge=1e36)
+
+
+def _adversarial(dev, variant, t=3000, seed=11):
+    """The streamed fills' inputs over random triangles at 1000x600
+    (ragged tiles at both edges), their raster records made adversarial
+    for the warp walk's corner reject (tests/test_torch_region_reject.py
+    holds the plain predicate on the same kinds of record): `behind`,
+    some vertices behind the camera; `centres`, an edge of every 5th
+    record moved onto a row or column of pixel centres; SCALES, every
+    function scaled; `nan`, a NaN in an edge or denominator coefficient
+    of every 7th record (the record then covers no pixel; a NaN depth,
+    which no frame makes, is left out: the plain fill's chunk max takes
+    it, the kernels skip it).  The resolve records are benign (the base
+    records' edges, unit scales, random attributes).  Returns (setup,
+    res_rec, bins, cfg, tri_rec)."""
+    cfg = R.RasterConfig(width=1000, height=600, max_tris_per_tile=512,
+                         max_big_tris=256, pair_capacity=1 << 16,
+                         compact_frac=1.0, short_frac=1.0, rest_frac=1.0)
+    geo = _random_geo(dev, t, seed)
+    if variant == "behind":
+        w = geo['clip'][..., 3].clone()
+        w[::4, 0] = -0.5
+        geo['clip'] = torch.cat([geo['clip'][..., :3] * w[..., None]
+                                 / geo['clip'][..., 3:], w[..., None]], -1)
+    setup = R.setup_triangles(geo, cfg)
+    bins = R.bin_pairs_stream(setup, cfg)
+    rec = RC.pack_tri_records(setup)
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    res = torch.rand(t, 64, generator=g).to(dev)
+    res[:, 0:9] = rec[:, 0:9]
+    res[:, 9:12] = 1.0
+    if variant == "centres":
+        i = torch.arange(0, t, 5, device=dev)
+        col = torch.randint(0, cfg.width, (i.numel(),), generator=g).to(dev)
+        row = torch.randint(0, cfg.height, (i.numel(),), generator=g).to(dev)
+        xc = (col.float() + 0.5) * (1.0 / cfg.width)
+        yc = (row.float() + 0.5) * (1.0 / cfg.height)
+        sign = torch.where(i % 2 == 0, 1.0, -1.0)
+        one, zero = torch.ones_like(xc), torch.zeros_like(xc)
+        vertical = torch.stack([sign * one, zero, -sign * xc], 1)
+        horizontal = torch.stack([zero, sign * one, -sign * yc], 1)
+        k = (i % 3) * 3
+        for j, line in ((0, vertical), (1, horizontal)):
+            pick = (i // 5) % 2 == j
+            for c in range(3):
+                rec[i[pick], k[pick] + c] = line[pick, c]
+    elif variant in SCALES:
+        rec[:, :15] = (rec[:, :15].double() * SCALES[variant]).float()
+    elif variant == "nan":
+        i = torch.arange(0, t, 7, device=dev)
+        coeff = torch.tensor([*range(9), 12, 13, 14], device=dev)
+        rec[i, coeff[i % coeff.numel()]] = float('nan')
+    return setup, res.contiguous(), bins, cfg, rec.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["base", "behind", "centres", "tiny",
+                                     "small", "huge", "nan"])
+def test_fills_match_plain_on_adversarial_records(cuda_device, variant):
+    """K1 (a first layer; a continuation from init planes, part of them
+    at depth -1, the floor of the fills' domain, where a failed test
+    ties; a peeled layer) and K2 (L = 1..4, without an occluder, with
+    one, and with one partly at depth -1) on records made to sit on the
+    reject's edge cases: ids and depth bit-equal to the plain versions,
+    which test every record at every pixel, and the planes of pixels no
+    fragment won bit-equal (the planes of won pixels are held on real
+    records by test_kernel_matches_plain_version: these resolve records
+    are random)."""
+    setup, res, bins, cfg, rec = _adversarial(cuda_device, variant)
+
+    def held(inp, won_id_floor):
+        (z_k, id_k, pl_k), (z_p, id_p, pl_p) = (
+            RC.launch(inp), RC.fill_resolve_plain(inp))
+        assert torch.equal(id_k, id_p), int((id_k != id_p).sum())
+        assert torch.equal(z_k, z_p)
+        kept = id_p < won_id_floor
+        assert torch.equal(pl_k[:, kept], pl_p[:, kept])
+        return z_k, id_k, pl_k
+
+    first = dataclasses.replace(RC.fill_inputs(setup, res, bins, cfg),
+                                tri_rec=rec)
+    z0, id0, planes0 = held(first, 0)
+    torch.cuda.synchronize()
+    assert bool((id0 >= 0).any())
+    low = torch.where(torch.arange(z0.shape[1], device=cuda_device) < 300,
+                      -1.0, z0 * 0.5)
+    for kw, floor in ((dict(init_depth=low, init_tri_id=id0,
+                            init_rec=planes0, emit_base=5000), 5000),
+                      (dict(peel_depth=z0), 0)):
+        held(dataclasses.replace(
+            RC.fill_inputs(setup, res, bins, cfg, padded_io=True, **kw),
+            tri_rec=rec), floor)
+    for layers in (1, 2, 3, 4):
+        for occ in (None, RC.crop_image(z0, cfg) * 0.5,
+                    RC.crop_image(low, cfg)):
+            inp = dataclasses.replace(
+                PC.peel_inputs(setup, bins, cfg, layers, 3, occ),
+                tri_rec=rec)
+            z_k, id_k = PC.launch(inp)
+            z_p, id_p = PC.fill_peel_plain(inp)
+            assert torch.equal(id_k, id_p), (layers, occ is None)
+            assert torch.equal(z_k, z_p), (layers, occ is None)
 
 
 @pytest.mark.cuda

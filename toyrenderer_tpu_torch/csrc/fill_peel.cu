@@ -9,14 +9,21 @@
 // nearer), nearest first, by an insertion cascade.  No resolve: the
 // masked set's textured resolve runs downstream on compacted quads.
 //
-// The design is the fill+resolve kernel's: the tile walk of
-// tile_walk.cuh (one 256-thread block per tile, heaviest first; batches
-// of 32 raster records staged in shared memory; the big list filtered by
-// tile bbox), each thread keeping its 8 pixels' L x (depth, id) in
-// registers.  The TPU kernel
-// re-reads and re-writes its (L, 16, 128) output block per chunk of 32
-// pairs; here the cascade never leaves registers and each layer is
-// written once.
+// What bounds it: the (pair, pixel) edge and depth tests and the
+// cascade's L steps, under -fmad=false; the sun map (1024^2, one layer,
+// ~542k pairs, the densest 16x128 tile ~6.7k of them) is the largest
+// launch.  The design is the fill+resolve kernel's: the warp walk of
+// tile_walk.cuh (a warp owns a 32x8 region of a tile and walks the
+// tile's pairs by itself, the units dealt heaviest tile first across
+// blocks so that the densest tile's eight regions run on eight SMs;
+// records that fail the region's corner test, tile_walk::region_rejects,
+// are dropped before the per-pixel tests; the big list filtered by tile
+// bbox), each lane keeping its 8 pixels' L x (depth, id) in registers.
+// A rejected record covers no pixel of the region, so the cascade sees
+// exactly the fragments of the full walk, in stream order.  The TPU
+// kernel re-reads and re-writes its (L, 16, 128) output block per chunk
+// of 32 pairs; here the cascade never leaves registers and each layer
+// is written once.
 //
 // The cascade is the TPU kernel's, step for step: at each layer a
 // fragment within the PEEL_BOUND band at or below the layer's depth is
@@ -33,7 +40,6 @@ namespace {
 
 using tile_walk::kRec;
 using tile_walk::kRows;
-using tile_walk::kThreads;
 
 struct Params {
   tile_walk::Stream s;
@@ -83,16 +89,16 @@ __device__ __forceinline__ void peel_batch(
 }
 
 template <int L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(tile_walk::kWalkThreads)
 fill_peel_kernel(Params p) {
-  __shared__ tile_walk::Shared sh;
-  const tile_walk::Pixels px(p.s);
+  __shared__ tile_walk::Slot slots[tile_walk::kWalkWarps];
+  const tile_walk::Pixels px = tile_walk::region_pixels(p.s);
   const size_t plane = (size_t)p.hp * p.s.wp;
   float z[kRows][L];
   int id[kRows][L];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const float occ = p.occluder ? p.occluder[px.pix[i]] : 0.0f;
+    const float occ = p.occluder ? __ldg(p.occluder + px.pix[i]) : 0.0f;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
       z[i][l] = occ;
@@ -105,10 +111,12 @@ fill_peel_kernel(Params p) {
     float cy[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) cy[i] = px.centre_y(p.s, i);
-    tile_walk::walk(p.s, px, sh, [&](float (*rec)[kRec], const int* tri,
-                                     int n) {
-      peel_batch<L>(rec, tri, n, cx, cy, p.emit_base, p.peel_bound, z, id);
-    });
+    tile_walk::walk_region(
+        p.s, px, slots[threadIdx.x / 32],
+        [&](float (*rec)[kRec], const int* tri, int n) {
+          peel_batch<L>(rec, tri, n, cx, cy, p.emit_base, p.peel_bound, z,
+                        id);
+        });
   }
 
 #pragma unroll
@@ -123,7 +131,8 @@ fill_peel_kernel(Params p) {
 
 template <int L>
 int launch(const Params& p, int num_tiles, cudaStream_t stream) {
-  fill_peel_kernel<L><<<num_tiles, kThreads, 0, stream>>>(p);
+  fill_peel_kernel<L><<<tile_walk::walk_blocks(num_tiles),
+                        tile_walk::kWalkThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,20 +10,29 @@
 // record and write the 32 interpolant planes.
 //
 // What bounds it on an H100: the pair loop is arithmetic (5 affine
-// evaluations per test and pixel, ~8.8e5 tile-triangle tests x 2048 px
-// for the opaque set of the unculled 1080p courtyard); the
-// epilogue is bytes (34 f32 planes written per pixel, ~0.28 GB per launch,
-// plus a 256-byte record gathered per covered pixel).  The design is the
-// tile walk of tile_walk.cuh: one 256-thread block per tile, each thread
-// owning 8 pixels of one column, so depth / winner stay in registers and
-// every plane store of a warp is one coalesced row segment; batches of 32
-// raster records (2 KB) are staged in shared memory and reused by all 2048
-// pixels of the tile.  A tile tests only the big triangles whose tile bbox
-// holds it (one warp ballot per 32 list entries, stream order kept);
-// testing every big triangle on every tile a big bbox touches would double
-// the opaque set's tests at 1080p.  The densest tile tests ~7x the mean,
-// so blocks take the tiles heaviest first (tile_order) and the densest
-// ones do not start last.
+// evaluations per test and pixel, ~8.8e5 tile-triangle tests over the
+// opaque set of the unculled 1080p courtyard, 20 f32 operations each,
+// done under -fmad=false as separate multiplies and adds); the epilogue
+// is bytes (34 f32 planes written per pixel, ~0.28 GB per launch, plus a
+// 256-byte record gathered per covered pixel).  The design is the warp
+// walk of tile_walk.cuh: a warp owns a 32x8 region of a tile (each lane 8
+// pixels of one column, so depth / winner stay in registers and every
+// plane store of a warp is one coalesced row segment) and walks the
+// tile's pairs by itself, the units dealt heaviest tile first across
+// blocks, so the densest tile -- ~7x the mean -- runs on eight SMs.  A
+// record whose edge or depth functions fail at the region's four corners
+// by more than their rounding (tile_walk::region_rejects) is dropped
+// before the per-pixel tests: the triangles of these views cover a few
+// pixels each, so most (pair, region) tests end there.  A rejected
+// record fails the coverage test at every pixel of the region, so the
+// winners and depth are those of the full walk -- for an init depth of
+// at least -1, as every frame's is (a failed test, d = -1, would win
+// below it).  A tile tests only the big triangles whose tile bbox holds
+// it (a lane per list entry and a ballot, stream order kept).
+// The epilogue is per warp: each resolves its own 256 pixels, and where
+// no fragment won copies the init planes, a pixel's 32 plane loads
+// issued before its stores (on a still view the late culled launch walks
+// no pair and is nothing but that copy).
 // The first layer passes no init planes: the kernel writes their
 // constants instead of reading 34 zero planes.
 // The TPU's VMEM record scratch (K x 64 f32 = 512 KiB) and its one-hot
@@ -43,20 +52,20 @@ namespace {
 
 using tile_walk::kRec;
 using tile_walk::kRows;
-using tile_walk::kThreads;
 constexpr int kRes = 64;                            // resolve record floats
 constexpr int kPlanes = 32;                         // interpolant planes
 
+// The outputs never alias the inputs: the wrapper allocates them.
 struct Params {
   tile_walk::Stream s;
-  const float* res_rec;      // (T, 64) resolve records
-  const float* init_z;       // (Hp, Wp), or null: depth 0
-  const int* init_id;        // (Hp, Wp), or null: id -1
-  const float* init_rec;     // (32, Hp, Wp), or null: planes 0
-  const float* peel;         // (Hp, Wp) exclusive near bound, or null
-  float* z_out;
-  int* id_out;
-  float* planes_out;         // (32, Hp, Wp)
+  const float* __restrict__ res_rec;   // (T, 64) resolve records
+  const float* __restrict__ init_z;    // (Hp, Wp), or null: depth 0
+  const int* __restrict__ init_id;     // (Hp, Wp), or null: id -1
+  const float* __restrict__ init_rec;  // (32, Hp, Wp), or null: planes 0
+  const float* __restrict__ peel;      // (Hp, Wp) exclusive near bound
+  float* __restrict__ z_out;
+  int* __restrict__ id_out;
+  float* __restrict__ planes_out;      // (32, Hp, Wp)
   int hp, emit_base;
   float peel_bound;
 };
@@ -114,8 +123,8 @@ __device__ __forceinline__ void cross3(const float* a, const float* b,
 }
 
 // The 32 interpolant planes of one pixel (gbuffer.resolve_interpolants).
-__device__ void resolve_pixel(const float* rec, float pxn, float pyn,
-                              float dx, float dy, float* out) {
+__device__ void resolve_pixel(const float* __restrict__ rec, float pxn,
+                              float pyn, float dx, float dy, float* out) {
   float pc[3], pcx[3], pcy[3];
   bary(rec, pxn, pyn, pc);
   bary(rec, pxn + dx, pyn, pcx);
@@ -167,46 +176,61 @@ __device__ void resolve_pixel(const float* rec, float pxn, float pyn,
   out[k++] = rec[58];                                // texture statics B
 }
 
-// Where no fragment won: the init planes, or the first layer's constants.
+// Where no fragment won: the init planes, or the first layer's
+// constants.  The pixel's 32 plane loads are all issued before its
+// stores.
 __device__ __forceinline__ void keep_init(const Params& p, size_t pix,
                                           size_t plane) {
-  p.id_out[pix] = p.init_id ? p.init_id[pix] : -1;
+  const float* __restrict__ in = p.init_rec;
+  float* __restrict__ out = p.planes_out;
+  float v[kPlanes];
+#pragma unroll
   for (int c = 0; c < kPlanes; ++c)
-    p.planes_out[c * plane + pix] =
-        p.init_rec ? p.init_rec[c * plane + pix] : 0.0f;
+    v[c] = in ? __ldg(in + c * plane + pix) : 0.0f;
+#pragma unroll
+  for (int c = 0; c < kPlanes; ++c) out[c * plane + pix] = v[c];
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(tile_walk::kWalkThreads)
 fill_resolve_kernel(Params p) {
-  __shared__ tile_walk::Shared sh;
-  const tile_walk::Pixels px(p.s);
+  __shared__ tile_walk::Slot slots[tile_walk::kWalkWarps];
+  const tile_walk::Pixels px = tile_walk::region_pixels(p.s);
   const size_t plane = (size_t)p.hp * p.s.wp;
   const size_t* pix = px.pix;
 
+  float bz[kRows];
+  int iid[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    bz[i] = p.init_z ? __ldg(p.init_z + pix[i]) : 0.0f;
+    iid[i] = p.init_id ? __ldg(p.init_id + pix[i]) : -1;
+  }
   if (p.s.n_chunks[px.tile] == 0) {        // not visited: init stays
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      p.z_out[pix[i]] = p.init_z ? p.init_z[pix[i]] : 0.0f;
-      keep_init(p, pix[i], plane);
+      p.z_out[pix[i]] = bz[i];
+      p.id_out[pix[i]] = iid[i];
     }
+#pragma unroll 1
+    for (int i = 0; i < kRows; ++i) keep_init(p, pix[i], plane);
     return;
   }
 
   const float cx = px.centre_x(p.s);
-  float cy[kRows], pk[kRows], bz[kRows];
+  float cy[kRows], pk[kRows];
   int bw[kRows];
   const bool has_peel = p.peel != nullptr;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     cy[i] = px.centre_y(p.s, i);
-    pk[i] = has_peel ? p.peel[pix[i]] * p.peel_bound : 0.0f;
-    bz[i] = p.init_z ? p.init_z[pix[i]] : 0.0f;
+    pk[i] = has_peel ? __ldg(p.peel + pix[i]) * p.peel_bound : 0.0f;
     bw[i] = -1;
   }
-  tile_walk::walk(p.s, px, sh, [&](float (*rec)[kRec], const int* tri,
-                                   int n) {
-    raster_batch(rec, tri, n, cx, cy, pk, has_peel, bz, bw);
-  });
+  tile_walk::walk_region(
+      p.s, px, slots[threadIdx.x / 32],
+      [&](float (*rec)[kRec], const int* tri, int n) {
+        raster_batch(rec, tri, n, cx, cy, pk, has_peel, bz, bw);
+      });
 
   // epilogue: resolve each won pixel from its winner's record
   const float dx = p.s.inv_w, dy = p.s.inv_h;
@@ -215,15 +239,16 @@ fill_resolve_kernel(Params p) {
 #pragma unroll 1
   for (int i = 0; i < kRows; ++i) {
     const int y = px.ty * tile_walk::kTileH + px.row0 + i;
+    p.z_out[pix[i]] = bz[i];
     if (bw[i] >= 0) {
-      p.z_out[pix[i]] = bz[i];
       p.id_out[pix[i]] = bw[i] + p.emit_base;
       const float pyr = ((float)y + 0.5f) * p.s.inv_h;
       resolve_pixel(p.res_rec + (size_t)bw[i] * kRes, pxr, pyr, dx, dy, out);
+#pragma unroll
       for (int c = 0; c < kPlanes; ++c)
         p.planes_out[c * plane + pix[i]] = out[c];
     } else {
-      p.z_out[pix[i]] = bz[i];
+      p.id_out[pix[i]] = iid[i];
       keep_init(p, pix[i], plane);
     }
   }
@@ -256,7 +281,8 @@ extern "C" int fill_resolve_launch(
   p.hp = hp;
   p.emit_base = emit_base;
   p.peel_bound = peel_bound;
-  fill_resolve_kernel<<<num_tiles, kThreads, 0,
+  fill_resolve_kernel<<<tile_walk::walk_blocks(num_tiles),
+                        tile_walk::kWalkThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,16 +1,34 @@
-// The tile walk shared by the fill kernels (fill_resolve.cu, fill_peel.cu).
+// The tile walks of the fill kernels: the block walk of the dense-table
+// fill (K7, fill_dense.cu) and the warp walk of the streamed fills (K1,
+// fill_resolve.cu; K2, fill_peel.cu).
 //
-// One 256-thread block renders one 16x128 screen tile, the tiles taken
-// heaviest first (tile_order); each thread owns 8 pixels of one column.
-// A visited tile walks its own (tile, triangle) pairs in stream order,
-// then the big triangles whose tile bbox holds it: warp 0 keeps those,
-// in list order, by a ballot over 32 list entries at a time (a triangle
-// covers no pixel outside its bbox, so the filter changes no pixel).
-// Each batch of up to 32 raster records is staged in shared memory and
-// handed to the kernel's per-pixel body.  The plain PyTorch versions walk
-// the same tables (raster_cuda.walk_tables) and round the pixel centres
-// the same way, which the kernels' bit-equality with them relies on.
-
+// The pixels: a 16x128 screen tile is eight 32x8 regions, each one
+// warp's; a lane owns 8 pixels of one column of its region.  The plain
+// PyTorch versions walk the same tables (raster_cuda.walk_tables) and
+// round the pixel centres the same way, which the kernels' bit-equality
+// with them relies on.
+//
+// walk (K7): one 256-thread block renders one tile, the tiles taken
+// heaviest first (tile_order).  A visited tile walks its own (tile,
+// triangle) pairs in stream order, then the big triangles whose tile
+// bbox holds it: warp 0 keeps those, in list order, by a ballot over 32
+// list entries at a time (a triangle covers no pixel outside its bbox,
+// so the filter changes no pixel).  Each batch of up to 32 raster
+// records is staged in shared memory and handed to the kernel's
+// per-pixel body, with a __syncthreads per batch.
+//
+// walk_region (K1, K2): the warp is the unit of work.  The units -- the
+// (tile, region) pairs, the tiles heaviest first -- are dealt so that
+// warp w of block b takes unit w * B + b of B blocks: the eight regions
+// of the densest tile run on eight blocks (eight SMs), not one.  A warp
+// walks its tile's pairs, then the big list (each lane testing one entry
+// against the tile bbox), by itself: lane r loads record r of a batch of
+// up to 32 with 16-byte loads, the next batch's records and the batch
+// after's ids in flight while this one runs; each lane then tests its
+// record against the region's four corner pixel centres (region_rejects,
+// below) and a ballot keeps the rest, which are staged in the warp's own
+// 2 KB slot of shared memory in stream order and handed to the body.
+// Only __syncwarp orders the slot: no warp waits for another.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,12 +72,18 @@ struct Pixels {
   int tile, tx, ty, col, row0, x;
   size_t pix[kRows];
 
-  __device__ __forceinline__ explicit Pixels(const Stream& s) {
-    tile = s.tile_order[blockIdx.x];
+  // the block walk's: block b renders tile tile_order[b]
+  __device__ __forceinline__ explicit Pixels(const Stream& s)
+      : Pixels(s, s.tile_order[blockIdx.x], threadIdx.x % kTileW,
+               (threadIdx.x / kTileW) * kRows) {}
+
+  __device__ __forceinline__ Pixels(const Stream& s, int tile_, int col_,
+                                    int row0_) {
+    tile = tile_;
     tx = tile % s.tiles_x;
     ty = tile / s.tiles_x;
-    col = threadIdx.x % kTileW;
-    row0 = (threadIdx.x / kTileW) * kRows;
+    col = col_;
+    row0 = row0_;
     x = tx * kTileW + col;
 #pragma unroll
     for (int i = 0; i < kRows; ++i)
@@ -130,6 +154,208 @@ __device__ __forceinline__ void walk(const Stream& s, const Pixels& px,
     body(sh.rec, sh.tri, n);
     __syncthreads();
     if (done) break;
+  }
+}
+
+// ---- the warp walk (K1, K2) ---------------------------------------------
+
+constexpr int kWarps = kThreads / 32;               // regions per tile
+constexpr int kRegionW = kTileW / 4;                // columns per region
+static_assert(kWarps == 8 && kRegionW == 32 && 2 * kRows == kTileH,
+              "a tile is 4 x 2 regions of 32 x 8 pixels, one per warp");
+// Warps per block of the warp walk (raster_cuda.WALK_WARPS).  A block
+// holds its registers and shared memory until its slowest warp ends, so
+// a heavy unit keeps its block's finished warps' share of the SM idle.
+// Of 1, 2, 4 and 8 on an H100, 4 tied 1 on K1's opaque launch and was
+// the fastest on K2's sun map (PERF.md, the block-size sweep).
+constexpr int kWalkWarps = 4;
+constexpr int kWalkThreads = 32 * kWalkWarps;
+static_assert(kWarps % kWalkWarps == 0, "a tile's regions fill blocks");
+
+// The warp walk's launch: blocks for num_tiles tiles.
+inline int walk_blocks(int num_tiles) {
+  return num_tiles * (kWarps / kWalkWarps);
+}
+
+// The reject's margin.  Each edge function and the depth denominator is
+// affine, f(x, y) = a x + b y + c, and every kernel and plain version
+// evaluates it as ((a * x) + (b * y)) + c, each operation rounded once
+// (-fmad=false).  With u = 2^-24 and gamma_3 = 3u / (1 - 3u), the rounded
+// value differs from the exact one by at most
+//     E = gamma_3 (|a| |x| + |b| |y| + |c|)
+// (each product meets one rounding and two additions, c two additions;
+// Higham, Accuracy and Stability of Numerical Algorithms, 2nd ed., 3.1),
+// plus at most 2^-150 for each product that falls below the normal
+// range.  Let S = |a| X + |b| Y + |c|, X and Y the largest |x| and |y| of
+// the region's pixel centres: then E <= gamma_3 S at every centre.  The
+// exact f is affine and the centres are a product grid of rounded
+// coordinates, so its exact maximum over them is at one of the four
+// corner centres, where the rounded value is at least exact - E.  So if
+// the rounded values at all four corners are below -2 gamma_3 S, the
+// exact maximum is below -gamma_3 S and the rounded value at every
+// centre below 0: the record fails that edge test (l >= 0) at every
+// pixel of the region.  For the denominator, at or below -2 gamma_3 S at
+// the corners gives at most 0 at every centre, failing den > 0.
+//
+// In f32 the margin is m = S' kMarginScale + kMarginFloor, S' the rounded
+// S (its terms are not negative, so S' >= S (1 - gamma_3)):
+// kMarginScale = 3.6e-7 >= 2 gamma_3 / ((1 - gamma_3)(1 - u)) = 3.57628e-7,
+// and kMarginFloor = 1e-37 covers the products below the normal range.
+// Where S' is above kMarginCap, or not a number, a sum might overflow,
+// and the record is kept; a NaN corner value fails every comparison, so
+// NaN never rejects.  raster_cuda.region_rejects is the plain version.
+constexpr float kMarginScale = 3.6e-7f;
+constexpr float kMarginFloor = 1e-37f;
+constexpr float kMarginCap = 1e30f;
+
+// A pixel centre, rounded as Pixels::centre_x / centre_y round it.
+__device__ __forceinline__ float centre(int t, int size, int c, float inv) {
+  return ((float)t * (float)size + ((float)c + 0.5f)) * inv;
+}
+
+// A warp's region: its corner pixel centres and their largest magnitudes.
+struct Corners {
+  float x0, x1, y0, y1, mx, my;
+};
+
+// True when (a, b, c) is below -margin at all four corners (kDen: at or
+// below).
+template <bool kDen>
+__device__ __forceinline__ bool below(float a, float b, float c,
+                                      const Corners& k) {
+  const float s = (fabsf(a) * k.mx + fabsf(b) * k.my) + fabsf(c);
+  const float m = -(s * kMarginScale + kMarginFloor);
+  const float v00 = a * k.x0 + b * k.y0 + c;
+  const float v10 = a * k.x1 + b * k.y0 + c;
+  const float v01 = a * k.x0 + b * k.y1 + c;
+  const float v11 = a * k.x1 + b * k.y1 + c;
+  if (kDen)
+    return (s <= kMarginCap) & (v00 <= m) & (v10 <= m) & (v01 <= m)
+           & (v11 <= m);
+  return (s <= kMarginCap) & (v00 < m) & (v10 < m) & (v01 < m) & (v11 < m);
+}
+
+// The record r (edges [0:9], depth numerator [9:12], denominator
+// [12:15], id [15]) covers no pixel of the region.
+__device__ __forceinline__ bool region_rejects(const float4* r,
+                                               const Corners& k) {
+  return below<false>(r[0].x, r[0].y, r[0].z, k)
+         | below<false>(r[0].w, r[1].x, r[1].y, k)
+         | below<false>(r[1].z, r[1].w, r[2].x, k)
+         | below<true>(r[3].x, r[3].y, r[3].z, k);
+}
+
+// This lane's pixels in the warp walk.  Warp w of block b takes unit
+// u = w * gridDim.x + b of the units ordered heaviest tile first: tile
+// tile_order[u / 8], region q = u % 8, whose pixels are columns
+// 32 (q % 4) .. + 31 and rows 8 (q / 4) .. + 7 of the tile -- the pixels
+// the block walk gives warp q.  The launch has walk_blocks(tiles) blocks
+// of kWalkWarps warps, so every unit is dealt once, and the blocks that
+// start first hold the heaviest units (raster_cuda.dealt_units).
+__device__ __forceinline__ Pixels region_pixels(const Stream& s) {
+  const int lane = threadIdx.x % 32;
+  const int unit = (threadIdx.x / 32) * gridDim.x + blockIdx.x;
+  const int q = unit % kWarps;
+  return Pixels(s, s.tile_order[unit / kWarps], kRegionW * (q % 4) + lane,
+                kRows * (q / 4));
+}
+
+// A warp's staging slot: up to 32 kept records in stream order.
+struct Slot {
+  __align__(16) float rec[kBatch][kRec];
+  int tri[kBatch];
+};
+
+// One lane's entry of a batch: a triangle id (-1 past the big list's
+// end), and whether the region tests it (a pair of the tile's list, or a
+// big triangle whose tile bbox holds the tile).
+struct Entry {
+  int t;
+  bool ok;
+};
+
+// Walk a visited tile for this warp's region: body(rec, tri, n) for each
+// batch's kept records, in stream order -- the tile's own pairs, then the
+// big triangles whose tile bbox holds the tile.  A record region_rejects
+// is dropped before the body sees it.  Every lane of the warp calls it;
+// the body runs on all of them.
+template <class Body>
+__device__ __forceinline__ void walk_region(const Stream& s,
+                                            const Pixels& px, Slot& slot,
+                                            Body body) {
+  const int lane = threadIdx.x % 32;
+  const int col0 = px.col - lane;
+  Corners k;
+  k.x0 = centre(px.tx, kTileW, col0, s.inv_w);
+  k.x1 = centre(px.tx, kTileW, col0 + kRegionW - 1, s.inv_w);
+  k.y0 = centre(px.ty, kTileH, px.row0, s.inv_h);
+  k.y1 = centre(px.ty, kTileH, px.row0 + kRows - 1, s.inv_h);
+  k.mx = fmaxf(fabsf(k.x0), fabsf(k.x1));
+  k.my = fmaxf(fabsf(k.y0), fabsf(k.y1));
+
+  const int first = s.offs[px.tile];
+  const int count = s.counts_eff[px.tile];
+  const int n_own = (count + kBatch - 1) / kBatch;
+  const int n_all = n_own + (s.bighit[px.tile] > 0
+                             ? (s.big_cap + kBatch - 1) / kBatch : 0);
+  auto entry = [&](int b) {
+    Entry e{-1, false};
+    if (b < n_own) {
+      const int j = b * kBatch + lane;
+      if (j < count) {
+        e.t = s.vals_s[first + j];
+        e.ok = true;
+      }
+    } else if (b < n_all) {
+      const int j = (b - n_own) * kBatch + lane;
+      if (j < s.big_cap) {
+        e.t = s.big_list[j];
+        if (e.t >= 0) {
+          const int4 bb = s.big_box[j];
+          e.ok = px.tx >= bb.x && px.tx <= bb.y && px.ty >= bb.z
+                 && px.ty <= bb.w;
+        }
+      }
+    }
+    return e;
+  };
+  auto fetch = [&](const Entry& e, float4* r) {
+    const float4* src = reinterpret_cast<const float4*>(s.tri_rec)
+                        + (size_t)(e.ok ? e.t : 0) * (kRec / 4);
+#pragma unroll
+    for (int i = 0; i < kRec / 4; ++i)
+      r[i] = e.ok ? __ldg(src + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  Entry cur = entry(0), nxt = entry(1);
+  float4 next[kRec / 4];
+  fetch(cur, next);
+  for (int b = 0; b < n_all; ++b) {
+    float4 r[kRec / 4];
+#pragma unroll
+    for (int i = 0; i < kRec / 4; ++i) r[i] = next[i];
+    const Entry e = cur;
+    const bool ended = b >= n_own && __ballot_sync(0xffffffffu, e.t < 0);
+    if (!ended) {        // in flight while this batch runs
+      fetch(nxt, next);
+      cur = nxt;
+      nxt = entry(b + 2);
+    }
+    const bool keep = e.ok && !region_rejects(r, k);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (m != 0u) {
+      if (keep) {
+        const int at = __popc(m & ((1u << lane) - 1u));
+        float4* dst = reinterpret_cast<float4*>(slot.rec[at]);
+#pragma unroll
+        for (int i = 0; i < kRec / 4; ++i) dst[i] = r[i];
+        slot.tri[at] = e.t;
+      }
+      __syncwarp();
+      body(slot.rec, slot.tri, __popc(m));
+      __syncwarp();
+    }
+    if (ended) break;
   }
 }
 

@@ -44,7 +44,7 @@ from toyrenderer_tpu_torch.ops import shadowmap
 from toyrenderer_tpu_torch.ops import shadows as shadows_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
 from toyrenderer_tpu_torch.ops.bvh import (
-    build_bvh, refit_bvh, world_triangles)
+    build_bvh, check_main_tree_switch, refit_bvh, world_triangles)
 from toyrenderer_tpu_torch.ops.bvh_sah import RtStaticSah, refit_sah
 from toyrenderer_tpu_torch.ops.denoise import depth_aware_blur, denoise_shadow
 from toyrenderer_tpu_torch.ops.gbuffer import (
@@ -179,6 +179,21 @@ def check_settings(settings: RenderSettings):
     if settings.gi_sun_technique not in ('auto', 'map', 'rt'):
         raise ValueError(
             f"unknown gi_sun_technique {settings.gi_sun_technique!r}")
+
+
+# frame_inputs keys through which the reference's streaming manager
+# overrides the atlas's residency (reference engine/frame.py:528-537)
+_RESIDENCY_KEYS = ('tex_texels', 'tex_desc', 'tex_min_mip', 'tex_tile_table')
+
+
+def check_frame_inputs(frame_inputs: dict):
+    """Raise NotImplementedError for frame inputs the reference's frame
+    reads and the port's does not: the texture-residency overrides."""
+    given = [k for k in _RESIDENCY_KEYS if k in frame_inputs]
+    if given:
+        raise NotImplementedError(
+            f"frame_inputs {', '.join(given)} (virtual-texture residency "
+            "overrides): not ported yet (ROADMAP queue 1 item 4)")
 
 
 def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
@@ -538,6 +553,9 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     `bloom`, and exposure's `avg_luminance` / `target_exposure`.
     """
     check_settings(settings)
+    check_frame_inputs(frame_inputs)
+    if rt_static is not None:
+        check_main_tree_switch()
     gi_own_tree = settings.enable_gi and rt_static_gi is not None
     needs_rays = settings.enable_shadows and settings.shadow_technique == 'rt'
     needs_rt = needs_rays or (settings.enable_gi and not gi_own_tree)

@@ -254,14 +254,24 @@ def build_rt_static_sah(scene_host, pair_inst, pair_meshlet,
         depth_ranges=tuple(ranges), n_mask_pairs=n_mask)
 
 
+def gi_sah_wanted() -> bool:
+    """TR_GI_SAH: '1' (the default) builds the GI tree with SAH, any
+    other value the complete tree (reference bvh_sah.py:489)."""
+    return os.environ.get('TR_GI_SAH', '1') == '1'
+
+
 def build_rt_static_gi(scene_host, alpha_filter: str = 'all',
                        mask_pair_inst=None, mask_pair_meshlet=None,
-                       rest_inst_world=None, sah: bool = True, device=None):
+                       rest_inst_world=None, sah: bool | None = None,
+                       device=None):
     """The GI tree's frozen topology: DDGI's probe rays are diffuse, so
     they trace the finest LOD whose triangle count fits the budget
     (TR_GI_TRIS, default 100k) on the SAH tree, while shadow rays keep
     the full-detail tree.  `sah=False` builds the complete tree
-    (ops/bvh.build_rt_static) over the same pairs.  The SAH tree is
+    (ops/bvh.build_rt_static) over the same pairs; `sah=None` reads
+    TR_GI_SAH as the reference does (its bvh_sah.py:489: '1', the
+    default, for the SAH tree, anything else for the complete one; see
+    `gi_sah_wanted`).  The SAH tree is
     built on every device (the reference's accelerator branch; its CPU
     branch takes the complete tree, because its SAH walk is a Pallas
     kernel).  Returns (rt_static_gi, gi_pair_inst, gi_pair_meshlet,
@@ -272,6 +282,8 @@ def build_rt_static_gi(scene_host, alpha_filter: str = 'all',
     budget = int(os.environ.get('TR_GI_TRIS', '100000'))
     g_pi, g_pm, lod = rt_lod_pairs(scene_host, alpha_filter,
                                    budget_tris=budget)
+    if sah is None:
+        sah = gi_sah_wanted()
     build = build_rt_static_sah if sah else build_rt_static
     rts = build(scene_host, g_pi, g_pm, rest_inst_world,
                 mask_pair_inst=mask_pair_inst,

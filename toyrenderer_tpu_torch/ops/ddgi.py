@@ -27,7 +27,8 @@ with index tensors, so nothing here waits on the host.
 
 Not ported, each raising NotImplementedError naming its ROADMAP item:
 the block-pair route (TR_RT_CHUNKS=1), the corner-packed visibility
-fetch (TR_GI_VIS_PACK=1), `visualize_probes` and the unphased
+fetch (TR_GI_VIS_PACK=1), cone layouts other than the default
+(TR_CONE_DIRS / TR_CONE_BRICK), `visualize_probes` and the unphased
 `trace_probes`.
 """
 
@@ -168,12 +169,28 @@ def _gi_pairs_enabled() -> bool:
     return os.environ.get('TR_GI_PAIRS', '0') == '1'
 
 
+def check_cone_layout():
+    """The reference reads its cone layout from TR_CONE_DIRS /
+    TR_CONE_BRICK (its ddgi.py:137-139); the port has only the default
+    16 x 256."""
+    for var, want in (('TR_CONE_DIRS', CONE_DIRS),
+                      ('TR_CONE_BRICK', CONE_BRICK)):
+        got = os.environ.get(var)
+        if got is not None and int(got) != want:
+            raise NotImplementedError(
+                f"{var}={got} (a cone layout other than {CONE_DIRS} "
+                f"directions x {CONE_BRICK} probes): not ported yet "
+                "(ROADMAP queue 1 item 7)")
+
+
 def _check_routes():
-    """The reference's opt-in probe-ray route that is not ported."""
+    """The reference's opt-in probe-ray routes and layouts that are not
+    ported."""
     if os.environ.get('TR_RT_CHUNKS', '0') == '1':
         raise NotImplementedError(
             "TR_RT_CHUNKS=1 (the block-pair traversal): not ported yet "
-            "(ROADMAP queue 1 item 9)")
+            "(ROADMAP queue 1 item 7)")
+    check_cone_layout()
 
 
 def _cone_block(x, r: int, pbp: int, brick: int, dirs: int):

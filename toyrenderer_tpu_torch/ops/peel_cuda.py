@@ -31,9 +31,9 @@ from toyrenderer_tpu_torch._build import shared_library
 from toyrenderer_tpu_torch.ops.raster import (
     PEEL_BOUND, RasterConfig, coverage_depth, tile_pixel_coords)
 from toyrenderer_tpu_torch.ops.raster_cuda import (
-    NVCC_FLAGS, REC, TILE_WALK, _check, crop_image, image_to_tiles,
-    nvcc_path, pack_tri_records, pad_image, stream_layout, tiles_to_image,
-    walk_tables)
+    NVCC_FLAGS, TILE_WALK, _check, check_records, crop_image,
+    image_to_tiles, nvcc_path, pack_tri_records, pad_image, stream_layout,
+    tiles_to_image, walk_tables)
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fill_peel.cu"
 MAX_LAYERS = 4                   # the kernel's register cascade depth
@@ -197,7 +197,7 @@ def launch(inp: PeelInputs):
         counts_eff=inp.lay['counts_eff'], n_chunks=inp.lay['n_chunks'],
         bighit=inp.lay['bighit'], big_list=inp.bins['big_list'],
         big_box=inp.lay['big_box'], tile_order=inp.lay['tile_order']).items()}
-    _check(inp.tri_rec, 'tri_rec', f32, (t, REC), dev)
+    check_records(inp.tri_rec, t, dev)
     for k in ('offs', 'counts_eff', 'n_chunks', 'bighit', 'tile_order'):
         _check(ints[k], k, i32, (nt,), dev)
     _check(ints['vals_s'], 'vals_s', i32, ints['vals_s'].shape, dev)

@@ -33,7 +33,18 @@ from toyrenderer_tpu_torch.ops.raster import (
 
 REC = 16
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fill_resolve.cu"
-TILE_WALK = SOURCE.with_name("tile_walk.cuh")   # shared with fill_peel.cu
+# the tile walks, shared with fill_peel.cu and fill_dense.cu
+TILE_WALK = SOURCE.with_name("tile_walk.cuh")
+# the warp walk (tile_walk.cuh): a 16x128 tile is REGIONS regions of
+# REGION_W x REGION_H pixels, one per warp; a record is rejected for a
+# region by the corner test below, with tile_walk.cuh's margin constants
+# (their derivation is there)
+REGIONS = 8
+REGION_W, REGION_H = 32, 8
+WALK_WARPS = 4                  # warps per block (kWalkWarps)
+MARGIN_SCALE = 3.6e-7
+MARGIN_FLOOR = 1e-37
+MARGIN_CAP = 1e30
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -149,6 +160,100 @@ def big_boxes(setup: dict, big_list: torch.Tensor, cfg: RasterConfig):
     return box.to(torch.int32).contiguous(), big_tests
 
 
+def dealt_units(tile_order: torch.Tensor):
+    """(tile, region), each (B, WALK_WARPS) i64: the unit warp w of
+    block b of the warp walk renders (tile_walk.cuh `region_pixels`).
+    Warp w of block b takes unit w * B + b of the units ordered heaviest
+    tile first (tile tile_order[u // REGIONS], region u % REGIONS),
+    B = tiles * REGIONS / WALK_WARPS, so the densest tile's regions go to
+    the first REGIONS blocks."""
+    b = tile_order.shape[0] * REGIONS // WALK_WARPS
+    dev = tile_order.device
+    unit = (torch.arange(WALK_WARPS, device=dev)[None, :] * b
+            + torch.arange(b, device=dev)[:, None])
+    return tile_order.long()[unit // REGIONS], unit % REGIONS
+
+
+def region_corners(cfg: RasterConfig, tiles: torch.Tensor,
+                   regions: torch.Tensor):
+    """(x0, x1, y0, y1): the corner pixel centres of region `regions` of
+    tiles `tiles` (region q: columns REGION_W (q % 4) .. + REGION_W - 1,
+    rows REGION_H (q // 4) .. + REGION_H - 1 of the tile), rounded as
+    raster.tile_pixel_coords rounds every centre."""
+    tx = (tiles % cfg.tiles_x).to(torch.float32)
+    ty = (tiles // cfg.tiles_x).to(torch.float32)
+    c0 = ((regions % 4) * REGION_W).to(torch.float32)
+    r0 = ((regions // 4) * REGION_H).to(torch.float32)
+
+    def centre(t, size, c, n):
+        return (t * size + (c + 0.5)) * (1.0 / n)
+    return (centre(tx, cfg.tile_w, c0, cfg.width),
+            centre(tx, cfg.tile_w, c0 + (REGION_W - 1), cfg.width),
+            centre(ty, cfg.tile_h, r0, cfg.height),
+            centre(ty, cfg.tile_h, r0 + (REGION_H - 1), cfg.height))
+
+
+def region_rejects(rec: torch.Tensor, corners) -> torch.Tensor:
+    """The warp walk's reject in plain PyTorch (tile_walk.cuh
+    `region_rejects`, the same f32 operations in the same order): (N,)
+    bool, True where record rec[i] (N, 16) fails one edge function (all
+    four corner values below -margin) or the depth denominator (all at or
+    below -margin) at the corners of region i, `corners` as
+    region_corners returns them.  margin = S * MARGIN_SCALE +
+    MARGIN_FLOOR, S = |a| max|x| + |b| max|y| + |c|, bounds the rounding
+    of the corner and the pixel evaluations, so a rejected record covers
+    no pixel of the region; a function with S above MARGIN_CAP, or with
+    a NaN, rejects nothing.  Used by the tests and chip_smoke.py's
+    census, not by the fills."""
+    x0, x1, y0, y1 = corners
+    mx = torch.maximum(x0.abs(), x1.abs())
+    my = torch.maximum(y0.abs(), y1.abs())
+    out = torch.zeros(rec.shape[0], dtype=torch.bool, device=rec.device)
+    for f, den in ((0, False), (3, False), (6, False), (12, True)):
+        a, b, c = rec[:, f], rec[:, f + 1], rec[:, f + 2]
+        s = (a.abs() * mx + b.abs() * my) + c.abs()
+        m = -(s * MARGIN_SCALE + MARGIN_FLOOR)
+        hit = s <= MARGIN_CAP
+        for x, y in ((x0, y0), (x1, y0), (x0, y1), (x1, y1)):
+            v = a * x + b * y + c
+            hit = hit & ((v <= m) if den else (v < m))
+        out = out | hit
+    return out
+
+
+def walked_pairs_by_tile(inp) -> tuple[torch.Tensor, torch.Tensor]:
+    """(tile, triangle) i64 of every record a streamed fill walks
+    (`walk_tables`: each visited tile's own pairs in stream order, then
+    the big triangles whose tile bbox holds it)."""
+    table, big_table = walk_tables(inp.bins, inp.lay, inp.cfg)
+    both = torch.cat([table, big_table], dim=1)
+    tile, col = torch.nonzero(both >= 0, as_tuple=True)
+    return tile, both[tile, col].long()
+
+
+def region_census(inp) -> dict:
+    """What the warp walk's reject leaves of one streamed fill's input
+    (FillInputs or PeelInputs), by the plain predicate: `regions_walked`
+    (every walked (record, region) pair), `regions_kept` (those not
+    rejected: each is tested at the region's 256 pixels),
+    `densest_unit_walked` / `densest_unit_kept` (the most records one
+    (tile, region) unit walks / keeps)."""
+    tile, tri = walked_pairs_by_tile(inp)
+    rec = inp.tri_rec[tri]
+    nt = inp.cfg.num_tiles
+    kept = torch.zeros((REGIONS, nt), dtype=torch.int64,
+                       device=rec.device)
+    for q in range(REGIONS):
+        region = torch.full_like(tile, q)
+        keep = ~region_rejects(rec, region_corners(inp.cfg, tile, region))
+        kept[q] = torch.bincount(tile[keep], minlength=nt)
+    walked = torch.bincount(tile, minlength=nt)
+    return dict(regions_walked=int(tile.numel()) * REGIONS,
+                regions_kept=int(kept.sum()),
+                densest_unit_walked=int(walked.max()) if nt else 0,
+                densest_unit_kept=int(kept.max()) if nt else 0)
+
+
 def bin_pairs_with_budget(setup: dict, cfg: RasterConfig) -> dict:
     """raster.bin_pairs_stream, its drop counters joined by the pairs the
     chunk budget of the streamed fills leaves unwalked
@@ -258,6 +363,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous on {device}")
 
 
+def check_records(tri_rec: torch.Tensor, t: int, device):
+    """The raster records as the warp walk reads them: (T, 16) f32,
+    contiguous, 16-byte aligned (four 16-byte loads a record)."""
+    _check(tri_rec, 'tri_rec', torch.float32, (t, REC), device)
+    if tri_rec.data_ptr() % 16:
+        raise ValueError("tri_rec: must be 16-byte aligned")
+
+
 def launch(inp: FillInputs):
     """One launch of the CUDA kernel on the current stream; returns
     padded (depth, tri_id, planes)."""
@@ -275,7 +388,7 @@ def launch(inp: FillInputs):
         counts_eff=inp.lay['counts_eff'], n_chunks=inp.lay['n_chunks'],
         bighit=inp.lay['bighit'], big_list=inp.bins['big_list'],
         big_box=inp.lay['big_box'], tile_order=inp.lay['tile_order']).items()}
-    _check(inp.tri_rec, 'tri_rec', f32, (t, REC), dev)
+    check_records(inp.tri_rec, t, dev)
     _check(inp.res_rec, 'resolve_records', f32, (t, RESOLVE_REC), dev)
     for k in ('offs', 'counts_eff', 'n_chunks', 'bighit', 'tile_order'):
         _check(ints[k], k, i32, (nt,), dev)

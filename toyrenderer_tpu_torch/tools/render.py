@@ -5,8 +5,9 @@ flag names for what the port renders.  It runs on the card unless
 --device says otherwise (`--device cpu` runs the plain versions).  The
 main RT tree is the complete tree of `bvh.build_rt_static` (the
 reference's default), built once at load for shadows or GI and refit
-every frame; GI traces its own LOD-reduced SAH tree
-(`bvh_sah.build_rt_static_gi`).  Raster capacities are sized from the
+every frame (TR_RT_SAH=1, the reference's SAH main tree, raises); GI
+traces its own LOD-reduced SAH tree (`bvh_sah.build_rt_static_gi`; the
+complete tree with TR_GI_SAH=0).  Raster capacities are sized from the
 first view's content (engine/capacity.py).  Flags of passes the port
 does not have yet raise NotImplementedError naming their ROADMAP item.
 
@@ -95,6 +96,13 @@ def parse_args(argv=None):
     if args.scene == "stress":
         raise NotImplementedError("--scene stress: not ported yet (ROADMAP "
                                   "queue 1 item 13: scene/procedural.py)")
+    # the reference's switches that the port has no path for
+    if args.shadows or args.gi:
+        from toyrenderer_tpu_torch.ops.bvh import check_main_tree_switch
+        check_main_tree_switch()
+    if args.gi:
+        from toyrenderer_tpu_torch.ops.ddgi import check_cone_layout
+        check_cone_layout()
     return args
 
 
@@ -185,15 +193,19 @@ def main(argv=None) -> int:
               f"{kw['rt_static'].payload.shape[0]} tri slots "
               f"({time.time() - t0:.2f}s)")
     if args.gi:
-        from toyrenderer_tpu_torch.ops.bvh_sah import build_rt_static_gi
+        from toyrenderer_tpu_torch.ops.bvh_sah import (
+            build_rt_static_gi, gi_sah_wanted)
         t0 = time.time()
+        gi_sah = gi_sah_wanted()
         gi_static, g_pi, g_pm, gi_lod = build_rt_static_gi(
             host, 'not_mask' if has_mask else 'all',
             mask_pair_inst=mk_i if has_mask else None,
-            mask_pair_meshlet=mk_m if has_mask else None, device=dev)
+            mask_pair_meshlet=mk_m if has_mask else None, sah=gi_sah,
+            device=dev)
         kw.update(rt_static_gi=gi_static, gi_pair_inst=g_pi,
                   gi_pair_meshlet=g_pm)
-        print(f"[rt] GI topology (sah, LOD{gi_lod}): "
+        print(f"[rt] GI topology ({'sah' if gi_sah else 'complete'}, "
+              f"LOD{gi_lod}): "
               f"{gi_static.payload.shape[0]} tri slots "
               f"({time.time() - t0:.2f}s)")
 

@@ -44,7 +44,8 @@ from toyrenderer_tpu_torch.ops import geometry as G
 from toyrenderer_tpu_torch.ops.bvh import build_rt_static, refit_bvh
 from toyrenderer_tpu_torch.ops.bvh_sah import build_rt_static_sah, refit_sah
 from toyrenderer_tpu_torch.ops.ddgi import (
-    CONE_BRICK, CONE_DIRS, GDIR_BRICK, GDIR_DIRS, _cone_block, _cone_order)
+    CONE_BRICK, CONE_DIRS, GDIR_BRICK, GDIR_DIRS, _cone_block, _cone_order,
+    check_cone_layout)
 from toyrenderer_tpu_torch.scene import load_scene
 
 COURTYARD = (Path(__file__).resolve().parent.parent.parent / "resources"
@@ -61,6 +62,7 @@ def ray_sets(n_rays, aabb_lo, aabb_hi, sun_dir):
     """Shadow-style and probe-style ray sets over the scene bounds, as
     numpy arrays: ((sh_o, sh_d), (pr_o, pr_d), (gd_o, gd_d, gd_g)) --
     the reference's, element for element."""
+    check_cone_layout()
     ext = aabb_hi - aabb_lo
     side = int(np.sqrt(n_rays))
 
