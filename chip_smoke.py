@@ -56,11 +56,20 @@ both main paths through the port's entry points at 1920x1080:
   gated, the courtyard printed); the port's render CLI in its own
   process.
 
+Each K6 line gives its even split's census (pairs_cuda.census: ray
+blocks with pairs, their largest and mean walk, work items and the grid,
+runs, and the runs' warps that skip the arithmetic for want of a live
+ray); each traversal line (K3, K3-SAH, K5, K3-seeded) gives its
+persistent schedule's (the live share of the slots, the warps launched,
+the ray slots the warps took, the last, empty fetch of each included).
+
 Each K1, K2 and K7 line also gives the bound counted at the pixels of
 each tested triangle's bbox (bound_ms) beside the count at every pixel
 of the tile that PERF.md's earlier rows used (bound_all_px_ms); each K1
-and K2 line gives its kernel's time from its profiler events
-(kernel_ms) and from CUDA events over the launches (events_ms) and the
+and K2 line gives its walk kernel's time from its profiler events
+(kernel_ms) and the whole launch's from CUDA events (events_ms: K1's
+launch also runs a check of the records for NaN depths, and each its
+exact pass, csrc/tile_walk.cuh) and the
 census of the warp walk's corner reject (raster_cuda.region_census:
 (pair, region) tests walked and kept, the densest unit's records).  In
 the `kernels` line, K1's and K2's `ms` is kernel_ms, the measure of
@@ -129,7 +138,8 @@ VEC3_BYTES = 12
 # and v_num 3 on d and the 6 off-diagonal o (x) d; t_num 4 on 1 and o)
 # and the epilogue (the |det| test, the reciprocal, three multiplies,
 # u + v, six compares, the inv_det test)
-OPS_PER_PAIR_TEST = (3 + 9 + 9 + 4) * 2 + 13
+PAIR_USED_ROWS = 3 + 9 + 9 + 4
+OPS_PER_PAIR_TEST = PAIR_USED_ROWS * 2 + 13
 # bytes of one pair-fold ray slot: read [o, d, t_max, live], write
 # (t, ordinal)
 PAIR_SLOT_BYTES = 8 * 4 + 2 * 4
@@ -773,7 +783,9 @@ def hold_trace(label, args) -> dict:
     seeded = (dict(seeds=args[7], packet=args[8])
               if len(args) > 7 and args[7] is not None else {})
     mode = "any-hit" if any_hit else "closest-hit"
-    got = bvh_cuda.launch(*args)
+    schedule = {}
+    got = bvh_cuda.launch(*args, schedule=schedule)
+    schedule['fetched'] = int(schedule['fetched'])
     t = time.time()
     want = bvh_cuda.traverse_plain(bvh, o, d, t_max, any_hit, live,
                                    census=True, group_dirs=gd, **seeded)
@@ -806,10 +818,16 @@ def hold_trace(label, args) -> dict:
                   gd is not None,
                   4 * seeded['seeds'].numel() if seeded else 0),
               visits_mean=float(steps.mean()), visits_max=int(steps.max()),
-              ray_slots=o.shape[0], live_rays=n_live)
+              ray_slots=o.shape[0], live_rays=n_live,
+              live_share=n_live / o.shape[0],
+              warps_launched=schedule['warps'],
+              slots_fetched=schedule['fetched'])
     st['mrays_s'] = n_live / st['ms'] / 1e3
     phase(label + " vs plain", mode=mode, ray_slots=o.shape[0],
-          live_rays=n_live, stack_entries=bvh_cuda.stack_entries(bvh),
+          live_rays=n_live, live_share=f"{st['live_share']:.4f}",
+          warps_launched=schedule['warps'],
+          slots_fetched=schedule['fetched'],
+          stack_entries=bvh_cuda.stack_entries(bvh),
           group_dirs=0 if gd is None else gd.shape[0],
           seeded_packets=(f"{int((seeded['seeds'] >= 0).sum())}"
                           f"/{seeded['seeds'].numel()}" if seeded else 0),
@@ -834,9 +852,9 @@ def pair_bound_ms(args) -> tuple[float, str]:
     """Least time the card could take for one pair fold (K6) on these
     inputs: operations, every (walked pair, live ray of its block,
     triangle) test; bytes, the used coefficients of each distinct chunk
-    walked (16 x 4 forms x 96 triangles f32), the walked pair-list
-    entries, each block's start and count, and every ray slot read and
-    its result written once."""
+    walked (PAIR_USED_ROWS rows of 96 triangles f32), the walked
+    pair-list entries, each block's start and count, and every ray slot
+    read and its result written once."""
     import torch
     from toyrenderer_tpu_torch.ops import rt_pairs
     rays, feat, pchk, starts, n_walk = args
@@ -850,8 +868,7 @@ def pair_bound_ms(args) -> tuple[float, str]:
     rank = torch.arange(total, device=rays.device) - (
         torch.cumsum(n_walk, 0) - n_walk)[blk]
     chunks = torch.unique(pchk[starts.long()[blk] + rank]).numel()
-    bytes_ = (chunks * rt_pairs.NFEAT * rt_pairs.NSLAB
-              * rt_pairs.CHUNK_TRIS * 4 + total * 4
+    bytes_ = (chunks * PAIR_USED_ROWS * rt_pairs.CHUNK_TRIS * 4 + total * 4
               + rays.shape[0] * 8 + rays.shape[0] * rays.shape[1]
               * PAIR_SLOT_BYTES)
     return bound(ops, bytes_)
@@ -873,7 +890,10 @@ def hold_k6(label, args) -> dict:
         if not torch.equal(a, b):
             raise AssertionError(f"K6 ({label}): output {k} differs on "
                                  f"{int((a != b).sum())} rays")
+    rays, _, pchk, starts, n_walk = args
+    census = pairs_cuda.census(rays, starts, n_walk, pchk.shape[0])
     st = dict(err=float((got[0] - want[0]).abs().nan_to_num(0.0).max()),
+              census=census,
               ms=kernel_ms(lambda: pairs_cuda.launch(*args), KERNEL_REPS,
                            "pairs_kernel"),
               events_ms=cuda_ms(lambda: pairs_cuda.launch(*args),
@@ -882,6 +902,7 @@ def hold_k6(label, args) -> dict:
               bound=pair_bound_ms(args))
     phase("K6 vs plain", input=json.dumps(label),
           blocks=args[0].shape[0], pairs_walked=int(args[4].sum()),
+          census=json.dumps(census),
           rays_with_hit=int(torch.isfinite(got[0]).sum()),
           t_ordinal="bit-equal", kernel_ms=f"{st['ms']:.4f}",
           kernel_events_ms=f"{st['events_ms']:.4f}",
@@ -2297,7 +2318,9 @@ def main() -> int:
     #     launch; fill_dense: the mean over rasterize's two launches (the
     #     opaque set, the masked set continuing it)
     def row(name, st, main):
-        extra = {k: st[k] for k in ('events_ms', 'census') if k in st}
+        extra = {k: st[k] for k in ('events_ms', 'census', 'live_share',
+                                    'warps_launched', 'slots_fetched')
+                 if k in st}
         if 'bound_all_px' in st:
             extra['bound_all_px_ms'] = st['bound_all_px']
         return dict(input=name, main_path=main, ms=st['ms'],

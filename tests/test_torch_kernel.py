@@ -16,8 +16,13 @@ and PyTorch's elementwise kernels round each operation once; planes to
 1e-5, for the same sums with sqrt / divide rounding.  K3's, K3-SAH's,
 K5's and K3-seeded's hit, t, tri and visit counts and K4's output
 bit-equal, for the same reason (each ray walks the tree in the plain
-version's order); K6's best t and ordinal bit-equal (each form summed
-in the plain version's order).
+version's order, whichever warp runs it); K6's best t and ordinal
+bit-equal (each form summed in the plain version's order; the 39
+coefficients mt_tables zeroes add nothing to a ray with finite
+features, and a ray without them sums all 16 terms).  The K1 and K2
+inputs include ones off the frames' domain (init or occluder depths
+below -1, NaN depths), where the kernels walk exactly as the plain
+versions do.
 """
 
 import dataclasses
@@ -41,6 +46,8 @@ from toyrenderer_tpu_torch.ops import warp_cuda as WC
 from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
 from toyrenderer_tpu_torch.scene import load_scene
 from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
+
+from test_torch_pair_split import PAIR_LISTS, pair_list
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -189,11 +196,12 @@ def _adversarial(dev, variant, t=3000, seed=11):
     some vertices behind the camera; `centres`, an edge of every 5th
     record moved onto a row or column of pixel centres; SCALES, every
     function scaled; `nan`, a NaN in an edge or denominator coefficient
-    of every 7th record (the record then covers no pixel; a NaN depth,
-    which no frame makes, is left out: the plain fill's chunk max takes
-    it, the kernels skip it).  The resolve records are benign (the base
-    records' edges, unit scales, random attributes).  Returns (setup,
-    res_rec, bins, cfg, tri_rec)."""
+    of every 7th record (the record then covers no pixel) and a NaN in a
+    depth-numerator coefficient of every 7th record from the 4th (its
+    depth is NaN wherever it covers a centre: the plain fill's chunk
+    maximum takes the NaN, and the chunk loses at that pixel).  The
+    resolve records are benign (the base records' edges, unit scales,
+    random attributes).  Returns (setup, res_rec, bins, cfg, tri_rec)."""
     cfg = R.RasterConfig(width=1000, height=600, max_tris_per_tile=512,
                          max_big_tris=256, pair_capacity=1 << 16,
                          compact_frac=1.0, short_frac=1.0, rest_frac=1.0)
@@ -231,6 +239,8 @@ def _adversarial(dev, variant, t=3000, seed=11):
         i = torch.arange(0, t, 7, device=dev)
         coeff = torch.tensor([*range(9), 12, 13, 14], device=dev)
         rec[i, coeff[i % coeff.numel()]] = float('nan')
+        j = torch.arange(3, t, 7, device=dev)
+        rec[j, 9 + j % 3] = float('nan')
     return setup, res.contiguous(), bins, cfg, rec.contiguous()
 
 
@@ -239,14 +249,16 @@ def _adversarial(dev, variant, t=3000, seed=11):
                                      "small", "huge", "nan"])
 def test_fills_match_plain_on_adversarial_records(cuda_device, variant):
     """K1 (a first layer; a continuation from init planes, part of them
-    at depth -1, the floor of the fills' domain, where a failed test
-    ties; a peeled layer) and K2 (L = 1..4, without an occluder, with
-    one, and with one partly at depth -1) on records made to sit on the
-    reject's edge cases: ids and depth bit-equal to the plain versions,
-    which test every record at every pixel, and the planes of pixels no
-    fragment won bit-equal (the planes of won pixels are held on real
-    records by test_kernel_matches_plain_version: these resolve records
-    are random)."""
+    at depth -2, below the floor of the frames' domain, where a missed
+    centre or an empty slot of the plain fill's chunks wins with -1; a
+    peeled layer) and K2 (L = 1..4, without an occluder, with one, and
+    with one partly at -2, where the plain version's misses and empty
+    slots take layers at -1) on records made to sit on the reject's edge
+    cases, NaN depths included: ids and depth bit-equal to the plain
+    versions on every input, and the planes of pixels no fragment won
+    bit-equal (the planes of won pixels are held on real records by
+    test_kernel_matches_plain_version: these resolve records are
+    random)."""
     setup, res, bins, cfg, rec = _adversarial(cuda_device, variant)
 
     def held(inp, won_id_floor):
@@ -264,7 +276,8 @@ def test_fills_match_plain_on_adversarial_records(cuda_device, variant):
     torch.cuda.synchronize()
     assert bool((id0 >= 0).any())
     low = torch.where(torch.arange(z0.shape[1], device=cuda_device) < 300,
-                      -1.0, z0 * 0.5)
+                      -2.0, z0 * 0.5)
+    assert bool((low < -1).any())
     for kw, floor in ((dict(init_depth=low, init_tri_id=id0,
                             init_rec=planes0, emit_base=5000), 5000),
                       (dict(peel_depth=z0), 0)):
@@ -466,7 +479,7 @@ def test_sah_stack_guard_refuses_deep_trees(cuda_device):
         tree.leaf_rows.data_ptr(), tree.leaf_rows.shape[0], 1,
         (ctypes.c_int * 1)(0), o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
         live.data_ptr(), None, 1, *(x.data_ptr() for x in outs), 256, 0,
-        23, 0,
+        23, 0, outs[1].data_ptr(), ctypes.byref(ctypes.c_int(0)),
         torch.cuda.current_stream(cuda_device).cuda_stream)
     assert err != 0
     # the deepest tree the guard admits runs
@@ -589,3 +602,115 @@ def test_seeded_kernel_matches_plain_version(cuda_device, any_hit):
     with pytest.raises(ValueError):            # and per-ray directions
         BC.traverse(bvh, o, d, 1e4, any_hit, live,
                     group_dirs=d[::BC.GROUP].contiguous(), seeds=seed_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PAIR_LISTS))
+def test_pair_fold_edge_cases(cuda_device, case):
+    """K6's even split on hand-made pair lists (PAIR_LISTS: empty blocks,
+    lists that straddle work items, a list that ends before, at and past
+    its capacity) over a soup whose every triangle appears twice, so
+    equal t ties to the least ordinal: best t and ordinal bit-equal to
+    pair_fold_plain, with dead rays, all-dead warps, and live rays with
+    a non-finite origin or direction (which take the full 16-term sums)
+    in the blocks."""
+    rng = np.random.default_rng(9)
+    n = 4000                    # 8,000 triangles: 84 chunks of 96
+    v0 = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    v1 = v0 + rng.normal(0, 0.9, (n, 3)).astype(np.float32)
+    v2 = v0 + rng.normal(0, 0.9, (n, 3)).astype(np.float32)
+    tris = [torch.from_numpy(np.concatenate([v, v])).to(cuda_device)
+            for v in (v0, v1, v2)]
+    bvh = B.build_bvh(*tris, torch.ones(2 * n, dtype=torch.bool,
+                                        device=cuda_device))
+    _, feat, _ = RP.mt_tables(bvh)
+    counts, cap = PAIR_LISTS[case]
+    pchk, starts, n_walk = (x.to(cuda_device) for x in pair_list(
+        counts, cap, feat.shape[0] - 1, seed=len(case)))
+    nb = len(counts)
+    g = torch.Generator(device='cpu').manual_seed(3)
+    o = torch.rand(nb, RP.BLOCK, 3, generator=g) * 8 - 4
+    d = torch.randn(nb, RP.BLOCK, 3, generator=g)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    t_max = torch.where(torch.rand(nb, RP.BLOCK, 1, generator=g) < 0.2,
+                        2.0, 1e4)
+    live = (torch.rand(nb, RP.BLOCK, 1, generator=g) > 0.15).float()
+    live[0, 64:96] = 0.0                          # an all-dead warp
+    o[0, 5, 1] = float('inf')                     # live, non-finite
+    d[nb - 1, 40, 2] = float('nan')
+    live[0, 5] = live[nb - 1, 40] = 1.0
+    rays = torch.cat([o, d, t_max, live], -1).to(cuda_device).contiguous()
+    before = dict(BC.launches_by_kernel)
+    got = PRC.launch(rays, feat, pchk, starts, n_walk)
+    torch.cuda.synchronize()
+    assert BC.launches_by_kernel == dict(before, K6=before['K6'] + 1)
+    want = RP.pair_fold_plain(rays, feat, pchk, starts, n_walk)
+    assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
+    assert torch.equal(got[1], want[1]), int((got[1] != want[1]).sum())
+    if int(n_walk.sum()):
+        assert bool(torch.isfinite(got[0]).any())
+
+
+# the traversal kernel's ten instances: (tree, any_hit, grouped, seeded)
+TRAVERSE_INSTANCES = [(tree, any_hit, grouped, False)
+                      for tree in ("complete", "sah")
+                      for any_hit in (True, False)
+                      for grouped in (False, True)] + [
+    ("complete", any_hit, False, True) for any_hit in (True, False)]
+
+
+@pytest.fixture(scope="module")
+def traverse_trees():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel only runs on the card)")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return (_tree_and_rays(dev, n=4224), _gi_tree_and_rays(dev, n=4224))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree,any_hit,grouped,seeded", TRAVERSE_INSTANCES)
+def test_traverse_instances_on_ragged_counts(traverse_trees, tree, any_hit,
+                                             grouped, seeded):
+    """Each of the ten kernel instances on ray counts the persistent warps'
+    pool must handle -- fewer than a warp, not a multiple of 32 or 128
+    (grouped directions: whole groups of 128), all slots dead, seeded
+    packets one of which has seed -1 -- bit-equal to traverse_plain in
+    hit, t, tri and steps, each wrapper call one launch of its kernel."""
+    (bvh, o, d, live), (sah, so, gd, slive) = traverse_trees
+    if tree == "sah":
+        bvh, o, live = sah, so, slive
+        d = gd.repeat_interleave(BC.GROUP, 0).contiguous()
+    key = ('K3-seeded' if seeded else 'K5' if grouped
+           else 'K3-SAH' if tree == "sah" else 'K3')
+    counts = (128, 384, 4224) if grouped else (1, 17, 1000, 4099)
+    for n in counts:
+        for dead in (False, True):
+            kw = {}
+            lv = torch.zeros(n, device=o.device) if dead else live[:n]
+            if grouped:
+                kw['group_dirs'] = gd[:n // BC.GROUP].contiguous()
+            if seeded:
+                _, seeds, _ = BC._entry_nodes_complete(bvh)
+                packet = 8 if n < 64 else 256
+                p = -(-n // packet)
+                seed_p = seeds[torch.arange(p, device=o.device)
+                               % seeds.shape[0]].clone()
+                seed_p[p // 2] = -1
+                kw.update(seeds=seed_p, packet=packet)
+            args = (bvh, o[:n].contiguous(), d[:n].contiguous(), 1e4,
+                    any_hit, lv)
+            before = dict(BC.launches_by_kernel)
+            schedule = {}
+            got = BC.launch(*args, **kw, schedule=schedule)
+            torch.cuda.synchronize()
+            assert BC.launches_by_kernel == dict(before,
+                                                 **{key: before[key] + 1})
+            want = BC.traverse_plain(*args, **kw)
+            for k in ('hit', 't', 'tri', 'steps'):
+                assert torch.equal(got[k], want[k]), (
+                    n, dead, k, int((got[k] != want[k]).sum()))
+            if dead:
+                assert not bool(got['hit'].any())
+                assert not bool(got['steps'].any())
+            assert 0 < schedule['warps'] <= 4 * -(-n // 128)
+            assert int(schedule['fetched']) >= n

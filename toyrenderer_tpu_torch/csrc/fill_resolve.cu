@@ -27,8 +27,21 @@
 // record fails the coverage test at every pixel of the region, so the
 // winners and depth are those of the full walk -- for an init depth of
 // at least -1, as every frame's is (a failed test, d = -1, would win
-// below it).  A tile tests only the big triangles whose tile bbox holds
-// it (a lane per list entry and a ballot, stream order kept).
+// below it), and where no kept record's depth can be NaN.  A tile tests
+// only the big triangles whose tile bbox holds it (a lane per list entry
+// and a ballot, stream order kept).
+// Off that domain a second kernel of the same launch walks the region
+// exactly as the plain fill does (fill_resolve_exact_kernel): every
+// record in stream order, no reject, each chunk's first maximum
+// committed at the chunk's end only when no score in it is NaN and it is
+// strictly nearer, the batch's empty slots scored -1 (tile_walk.cuh,
+// "The fills' domain").  The walk leaves a region to it when an init
+// depth there is below -1, and every region when a check before the
+// walk (nan_check_kernel) finds a record whose depth may be NaN (a
+// depth coefficient not a number or past kMarginCap).  No frame's input
+// is either, and the walk keeps its registers, occupancy and code: the
+// frames pay the check's read of the records' depth coefficients and an
+// exact pass that finds no unit to walk.
 // The epilogue is per warp: each resolves its own 256 pixels, and where
 // no fragment won copies the init planes, a pixel's 32 plane loads
 // issued before its stores (on a still view the late culled launch walks
@@ -66,6 +79,8 @@ struct Params {
   float* __restrict__ z_out;
   int* __restrict__ id_out;
   float* __restrict__ planes_out;      // (32, Hp, Wp)
+  int* __restrict__ exact_list;        // tile_walk.cuh, kListHead
+  int n_records;
   int hp, emit_base;
   float peel_bound;
 };
@@ -191,10 +206,151 @@ __device__ __forceinline__ void keep_init(const Params& p, size_t pix,
   for (int c = 0; c < kPlanes; ++c) out[c * plane + pix] = v[c];
 }
 
+// The epilogue: depth, ids, and each won pixel's planes resolved from its
+// winner's record (the init planes where no fragment won).
+__device__ __forceinline__ void resolve_unit(const Params& p,
+                                             const tile_walk::Pixels& px,
+                                             const float* bz, const int* bw,
+                                             const int* iid) {
+  const size_t plane = (size_t)p.hp * p.s.wp;
+  const float dx = p.s.inv_w, dy = p.s.inv_h;
+  const float pxr = ((float)px.x + 0.5f) * p.s.inv_w;
+  float out[kPlanes];
+#pragma unroll 1
+  for (int i = 0; i < kRows; ++i) {
+    const size_t pix = px.pix[i];
+    const int y = px.ty * tile_walk::kTileH + px.row0 + i;
+    p.z_out[pix] = bz[i];
+    if (bw[i] >= 0) {
+      p.id_out[pix] = bw[i] + p.emit_base;
+      const float pyr = ((float)y + 0.5f) * p.s.inv_h;
+      resolve_pixel(p.res_rec + (size_t)bw[i] * kRes, pxr, pyr, dx, dy, out);
+#pragma unroll
+      for (int c = 0; c < kPlanes; ++c)
+        p.planes_out[c * plane + pix] = out[c];
+    } else {
+      p.id_out[pix] = iid[i];
+      keep_init(p, pix, plane);
+    }
+  }
+}
+
+// This warp's unit as the plain fill renders it (raster.fill_tiles), off
+// the fills' domain: from the init, each chunk of cfg.chunk stream
+// positions -- the records of a visited tile (walk_region without the
+// reject), then the empty slots up to its batch's longest list --
+// scores a missed centre or an empty slot -1 (a peeled one too), keeps
+// its first maximum per pixel, and commits it where it is strictly
+// nearer and no score of the chunk was NaN; then the epilogue.
+__device__ __forceinline__ void exact_unit(const Params& p,
+                                           tile_walk::Slot& slot, int unit) {
+  const tile_walk::Pixels px = tile_walk::region_pixels(p.s, unit);
+  const tile_walk::Stream& s = p.s;
+  const bool has_peel = p.peel != nullptr;
+  const float cx = px.centre_x(s);
+  float bz[kRows], cy[kRows], pk[kRows], cz[kRows];
+  int bw[kRows], iid[kRows], cw[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    bz[i] = p.init_z ? __ldg(p.init_z + px.pix[i]) : 0.0f;
+    iid[i] = p.init_id ? __ldg(p.init_id + px.pix[i]) : -1;
+    bw[i] = -1;
+    cy[i] = px.centre_y(s, i);
+    pk[i] = has_peel ? __ldg(p.peel + px.pix[i]) * p.peel_bound : 0.0f;
+  }
+  const int c = s.chunk;
+  unsigned nan = 0u;          // pixels whose open chunk met a NaN
+  int pos = 0;                // stream positions fed
+  auto commit = [&]() {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      if (!((nan >> i) & 1u) && cz[i] > bz[i]) {
+        bz[i] = cz[i];
+        bw[i] = cw[i];
+      }
+  };
+  // one position: record e (null: an empty slot, id -1)
+  auto feed = [&](const float* e, int id) {
+    const bool first = pos % c == 0;
+    if (first) {
+      if (pos > 0) commit();
+      nan = 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float d = -1.0f;
+      if (e != nullptr) {
+        float l0 = e[0] * cx + e[1] * cy[i] + e[2];
+        float l1 = e[3] * cx + e[4] * cy[i] + e[5];
+        float l2 = e[6] * cx + e[7] * cy[i] + e[8];
+        float num = e[9] * cx + e[10] * cy[i] + e[11];
+        float den = e[12] * cx + e[13] * cy[i] + e[14];
+        if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && den > 0.0f)
+          d = num / den;
+        if (has_peel && !(d < pk[i])) d = -1.0f;
+      }
+      if (d != d) nan |= 1u << i;
+      if (first || d > cz[i]) {
+        cz[i] = d;
+        cw[i] = id;
+      }
+    }
+    ++pos;
+  };
+  if (s.n_chunks[px.tile] > 0)
+    tile_walk::walk_region<false>(
+        s, px, slot, [&](float (*rec)[kRec], const int* tri, int n) {
+          for (int r = 0; r < n; ++r) feed(rec[r], tri[r]);
+        });
+  // the empty slots: the rest of the open chunk (its first one decides),
+  // then whole chunks of them (the first decides for all)
+  const int slots = tile_walk::batch_slots(s, px.tile);
+  if (pos < slots && pos % c != 0) {
+    feed(nullptr, -1);
+    pos = (pos + c - 1) / c * c;
+  }
+  if (pos < slots) {
+    feed(nullptr, -1);
+    pos = slots;
+  }
+  if (pos > 0) commit();
+  resolve_unit(p, px, bz, bw, iid);
+}
+
+// Whether record i's depth numerator or denominator coefficient is not
+// a number or above kMarginCap: below it no sum overflows (a pixel
+// centre's magnitude is at most 128, the padded grid being less than a
+// tile wider and taller than the screen), so no covered pixel's depth is
+// NaN.
+__device__ __forceinline__ bool maybe_nan(const float* tri_rec, int i) {
+  const float4* r = reinterpret_cast<const float4*>(tri_rec) + 4 * i;
+  const float4 a = __ldg(r + 2), b = __ldg(r + 3);
+  constexpr float cap = tile_walk::kMarginCap;
+  return !(fabsf(a.y) <= cap && fabsf(a.z) <= cap && fabsf(a.w) <= cap
+           && fabsf(b.x) <= cap && fabsf(b.y) <= cap && fabsf(b.z) <= cap);
+}
+
+// The record check, before the walk: block b sets the exact pass's
+// check flag b where its share of the records holds one whose depth may
+// be NaN, and block 0 zeroes the pass's count.
+__global__ void __launch_bounds__(256) nan_check_kernel(const Params p) {
+  bool risky = false;
+#pragma unroll 4
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < p.n_records;
+       i += tile_walk::kChecks * 256)
+    risky |= maybe_nan(p.s.tri_rec, i);
+  risky = __syncthreads_or(risky) != 0;
+  if (threadIdx.x == 0) {
+    p.exact_list[1 + blockIdx.x] = risky;
+    if (blockIdx.x == 0) p.exact_list[0] = 0;
+  }
+}
+
 __global__ void __launch_bounds__(tile_walk::kWalkThreads)
-fill_resolve_kernel(Params p) {
+fill_resolve_kernel(const __grid_constant__ Params p) {
   __shared__ tile_walk::Slot slots[tile_walk::kWalkWarps];
-  const tile_walk::Pixels px = tile_walk::region_pixels(p.s);
+  const tile_walk::Pixels px =
+      tile_walk::region_pixels(p.s, tile_walk::region_unit());
   const size_t plane = (size_t)p.hp * p.s.wp;
   const size_t* pix = px.pix;
 
@@ -204,6 +360,13 @@ fill_resolve_kernel(Params p) {
   for (int i = 0; i < kRows; ++i) {
     bz[i] = p.init_z ? __ldg(p.init_z + pix[i]) : 0.0f;
     iid[i] = p.init_id ? __ldg(p.init_id + pix[i]) : -1;
+  }
+  // off the fills' domain (no frame's init is below -1): the exact pass
+  const bool low = p.init_z != nullptr && tile_walk::below_floor(bz);
+  if (low) {
+    if (threadIdx.x % 32 == 0)
+      tile_walk::leave_unit(p.exact_list, tile_walk::region_unit());
+    return;
   }
   if (p.s.n_chunks[px.tile] == 0) {        // not visited: init stays
 #pragma unroll
@@ -226,32 +389,23 @@ fill_resolve_kernel(Params p) {
     pk[i] = has_peel ? __ldg(p.peel + pix[i]) * p.peel_bound : 0.0f;
     bw[i] = -1;
   }
-  tile_walk::walk_region(
+  tile_walk::walk_region<true>(
       p.s, px, slots[threadIdx.x / 32],
       [&](float (*rec)[kRec], const int* tri, int n) {
         raster_batch(rec, tri, n, cx, cy, pk, has_peel, bz, bw);
       });
+  resolve_unit(p, px, bz, bw, iid);
+}
 
-  // epilogue: resolve each won pixel from its winner's record
-  const float dx = p.s.inv_w, dy = p.s.inv_h;
-  const float pxr = ((float)px.x + 0.5f) * p.s.inv_w;
-  float out[kPlanes];
-#pragma unroll 1
-  for (int i = 0; i < kRows; ++i) {
-    const int y = px.ty * tile_walk::kTileH + px.row0 + i;
-    p.z_out[pix[i]] = bz[i];
-    if (bw[i] >= 0) {
-      p.id_out[pix[i]] = bw[i] + p.emit_base;
-      const float pyr = ((float)y + 0.5f) * p.s.inv_h;
-      resolve_pixel(p.res_rec + (size_t)bw[i] * kRes, pxr, pyr, dx, dy, out);
-#pragma unroll
-      for (int c = 0; c < kPlanes; ++c)
-        p.planes_out[c * plane + pix[i]] = out[c];
-    } else {
-      p.id_out[pix[i]] = iid[i];
-      keep_init(p, pix[i], plane);
-    }
-  }
+// The exact pass: the units fill_resolve_kernel left to it, or every
+// unit where a warp found a record whose depth may be NaN, walked as the
+// plain fill walks them (exact_unit).
+__global__ void __launch_bounds__(tile_walk::kWalkThreads)
+fill_resolve_exact_kernel(const __grid_constant__ Params p, int units) {
+  __shared__ tile_walk::Slot slots[tile_walk::kWalkWarps];
+  tile_walk::for_exact_units(p.exact_list, units, [&](int unit) {
+    exact_unit(p, slots[threadIdx.x / 32], unit);
+  });
 }
 
 }  // namespace
@@ -260,16 +414,20 @@ extern "C" int fill_resolve_launch(
     const void* tri_rec, const void* res_rec, const void* vals_s,
     const void* offs, const void* counts_eff, const void* n_chunks,
     const void* bighit, const void* big_list, const void* big_box,
-    const void* tile_order, int big_cap,
+    const void* tile_order, const void* tile_len, int big_cap,
     const void* init_z, const void* init_id, const void* init_rec,
     const void* peel, void* z_out, void* id_out, void* planes_out,
-    int num_tiles, int tiles_x, int wp, int hp, int emit_base,
-    float inv_w, float inv_h, float peel_bound,
+    void* exact_list, int n_records, int num_tiles, int tiles_x, int wp,
+    int hp, int emit_base, int chunk,
+    int tile_batch, float inv_w, float inv_h, float peel_bound,
     void* stream) {
+  if (chunk < 1 || tile_batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.s = tile_walk::make_stream(tri_rec, vals_s, offs, counts_eff, n_chunks,
                                bighit, big_list, big_box, tile_order,
                                big_cap, tiles_x, wp, inv_w, inv_h);
+  tile_walk::set_chunk_grid(p.s, tile_len, num_tiles, chunk, tile_batch);
   p.res_rec = static_cast<const float*>(res_rec);
   p.init_z = static_cast<const float*>(init_z);
   p.init_id = static_cast<const int*>(init_id);
@@ -278,11 +436,20 @@ extern "C" int fill_resolve_launch(
   p.z_out = static_cast<float*>(z_out);
   p.id_out = static_cast<int*>(id_out);
   p.planes_out = static_cast<float*>(planes_out);
+  p.exact_list = static_cast<int*>(exact_list);
+  const int units = num_tiles * tile_walk::kWarps;
+  p.n_records = n_records;
   p.hp = hp;
   p.emit_base = emit_base;
   p.peel_bound = peel_bound;
-  fill_resolve_kernel<<<tile_walk::walk_blocks(num_tiles),
-                        tile_walk::kWalkThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  const int blocks = tile_walk::walk_blocks(num_tiles);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  nan_check_kernel<<<tile_walk::kChecks, 256, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fill_resolve_kernel<<<blocks, tile_walk::kWalkThreads, 0, s>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  fill_resolve_exact_kernel<<<tile_walk::exact_blocks(num_tiles),
+                              tile_walk::kWalkThreads, 0, s>>>(p, units);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,21 @@
 // below) and a ballot keeps the rest, which are staged in the warp's own
 // 2 KB slot of shared memory in stream order and handed to the body.
 // Only __syncwarp orders the slot: no warp waits for another.
+//
+// The fills' domain, and the exact walk.  The plain fills
+// (raster.fill_tiles, peel_cuda.peel_tiles) walk each tile's compacted
+// stream -- its pairs, then its big triangles -- in chunks of `chunk`
+// positions, padded with empty slots to the longest list of its batch of
+// `tile_batch` tiles, and score a missed centre or an empty slot at -1.
+// Neither a skipped record nor a missing slot changes a pixel whose init
+// depth (K1) or occluder (K2) is at least -1, as every frame's is, and
+// the kernels' fast walks rely on that.  A warp whose region holds a
+// pixel below -1 leaves it to the launch's exact pass, which walks it
+// with walk_region<false>: every record in stream order, no reject, the
+// position counted, then the batch's empty slots (batch_slots).  K1's
+// exact pass takes every region when a check of the records finds one
+// whose depth may be NaN at a covered pixel: the plain fill's chunk
+// maximum takes a NaN, and the whole chunk loses at that pixel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,6 +70,8 @@ struct Stream {
   const int* big_list;       // (B,) big triangle ids, -1 after the last
   const int4* big_box;       // (B,) their tile bbox: tx0, tx1, ty0, ty1
   const int* tile_order;     // (tiles,) the tile each block renders
+  const int* tile_len;       // (tiles,) stream positions (exact walk)
+  int num_tiles, chunk, tile_batch;   // the plain fills' chunk grid
   int big_cap;
   int tiles_x, wp;
   float inv_w, inv_h;
@@ -246,18 +263,54 @@ __device__ __forceinline__ bool region_rejects(const float4* r,
 }
 
 // This lane's pixels in the warp walk.  Warp w of block b takes unit
-// u = w * gridDim.x + b of the units ordered heaviest tile first: tile
-// tile_order[u / 8], region q = u % 8, whose pixels are columns
-// 32 (q % 4) .. + 31 and rows 8 (q / 4) .. + 7 of the tile -- the pixels
-// the block walk gives warp q.  The launch has walk_blocks(tiles) blocks
-// of kWalkWarps warps, so every unit is dealt once, and the blocks that
-// start first hold the heaviest units (raster_cuda.dealt_units).
-__device__ __forceinline__ Pixels region_pixels(const Stream& s) {
+// u = w * gridDim.x + b (region_unit) of the units ordered heaviest tile
+// first: tile tile_order[u / 8], region q = u % 8, whose pixels are
+// columns 32 (q % 4) .. + 31 and rows 8 (q / 4) .. + 7 of the tile -- the
+// pixels the block walk gives warp q.  The launch has walk_blocks(tiles)
+// blocks of kWalkWarps warps, so every unit is dealt once, and the blocks
+// that start first hold the heaviest units (raster_cuda.dealt_units).
+__device__ __forceinline__ int region_unit() {
+  return (threadIdx.x / 32) * gridDim.x + blockIdx.x;
+}
+
+__device__ __forceinline__ Pixels region_pixels(const Stream& s, int unit) {
   const int lane = threadIdx.x % 32;
-  const int unit = (threadIdx.x / 32) * gridDim.x + blockIdx.x;
   const int q = unit % kWarps;
   return Pixels(s, s.tile_order[unit / kWarps], kRegionW * (q % 4) + lane,
                 kRows * (q / 4));
+}
+
+// The exact pass's list: [0] the units the walk left to it; then a flag
+// for each of kChecks blocks of K1's record check, 1 where the block
+// found a record whose depth may be NaN (every unit then goes to the
+// exact pass); then the left units' numbers, in no order.  K1's check
+// writes the head; K2's launch zeroes it.
+constexpr int kChecks = kWalkThreads;
+constexpr int kListHead = 1 + kChecks;
+
+// Leave this warp's unit to the exact pass (lane 0 calls it).
+__device__ __forceinline__ void leave_unit(int* list, int unit) {
+  list[kListHead + atomicAdd(list, 1)] = unit;
+}
+
+// The exact pass's launch: a block an SM of the H100, each warp taking
+// listed units in turn (for_exact_units); a frame's launch has none.
+inline int exact_blocks(int num_tiles) {
+  const int blocks = walk_blocks(num_tiles);
+  return blocks < 132 ? blocks : 132;
+}
+
+// body(unit) for each unit of the exact pass's list (every one of the
+// `units` where a check flag is set), the warps of the launch taking
+// them in turn.  Every thread of the block calls it.
+template <class Body>
+__device__ __forceinline__ void for_exact_units(const int* list, int units,
+                                                Body body) {
+  const bool all = __syncthreads_or(__ldg(list + 1 + threadIdx.x)) != 0;
+  const int n = all ? units : __ldg(list);
+  for (int k = blockIdx.x * kWalkWarps + (int)(threadIdx.x / 32); k < n;
+       k += gridDim.x * kWalkWarps)
+    body(all ? k : __ldg(list + kListHead + k));
 }
 
 // A warp's staging slot: up to 32 kept records in stream order.
@@ -276,10 +329,11 @@ struct Entry {
 
 // Walk a visited tile for this warp's region: body(rec, tri, n) for each
 // batch's kept records, in stream order -- the tile's own pairs, then the
-// big triangles whose tile bbox holds the tile.  A record region_rejects
-// is dropped before the body sees it.  Every lane of the warp calls it;
-// the body runs on all of them.
-template <class Body>
+// big triangles whose tile bbox holds the tile.  kReject: a record
+// region_rejects is dropped before the body sees it (without it, the
+// body sees every position of the tile's stream).  Every lane of the
+// warp calls it; the body runs on all of them.
+template <bool kReject, class Body>
 __device__ __forceinline__ void walk_region(const Stream& s,
                                             const Pixels& px, Slot& slot,
                                             Body body) {
@@ -341,7 +395,7 @@ __device__ __forceinline__ void walk_region(const Stream& s,
       cur = nxt;
       nxt = entry(b + 2);
     }
-    const bool keep = e.ok && !region_rejects(r, k);
+    const bool keep = e.ok && !(kReject && region_rejects(r, k));
     const unsigned m = __ballot_sync(0xffffffffu, keep);
     if (m != 0u) {
       if (keep) {
@@ -357,6 +411,31 @@ __device__ __forceinline__ void walk_region(const Stream& s,
     }
     if (ended) break;
   }
+}
+
+// The stream positions the plain fills walk for `tile`: the longest
+// list of its batch of tile_batch tiles, rounded up to whole chunks
+// (tile_len: each tile's pairs and big triangles, 0 unvisited).  Every
+// lane of the warp calls it.
+__device__ __forceinline__ int batch_slots(const Stream& s, int tile) {
+  const int b0 = tile / s.tile_batch * s.tile_batch;
+  const int b1 = min(b0 + s.tile_batch, s.num_tiles);
+  int m = 0;
+  for (int t = b0 + (int)(threadIdx.x % 32); t < b1; t += 32)
+    m = max(m, s.tile_len[t]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return (m + s.chunk - 1) / s.chunk * s.chunk;
+}
+
+// A warp-uniform test: some pixel of this lane's kRows is below -1 (the
+// floor of the fills' domain; NaN is not below).
+__device__ __forceinline__ bool below_floor(const float* z) {
+  bool low = false;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) low |= z[i] < -1.0f;
+  return __any_sync(0xffffffffu, low);
 }
 
 // The Stream of a launch's plain C arguments.
@@ -376,12 +455,25 @@ inline Stream make_stream(const void* tri_rec, const void* vals_s,
   s.big_list = static_cast<const int*>(big_list);
   s.big_box = static_cast<const int4*>(big_box);
   s.tile_order = static_cast<const int*>(tile_order);
+  s.tile_len = nullptr;
+  s.num_tiles = 0;
+  s.chunk = 1;
+  s.tile_batch = 1;
   s.big_cap = big_cap;
   s.tiles_x = tiles_x;
   s.wp = wp;
   s.inv_w = inv_w;
   s.inv_h = inv_h;
   return s;
+}
+
+// The exact walk's chunk grid on `s` (the streamed fills' launches).
+inline void set_chunk_grid(Stream& s, const void* tile_len, int num_tiles,
+                           int chunk, int tile_batch) {
+  s.tile_len = static_cast<const int*>(tile_len);
+  s.num_tiles = num_tiles;
+  s.chunk = chunk;
+  s.tile_batch = tile_batch;
 }
 
 }  // namespace tile_walk

@@ -21,7 +21,10 @@ i32 -- nodes the ray visited).  Every node a ray needs is visited: there
 is no step budget.  Any-hit rays stop at the first leaf that gives a hit,
 so their `t` / `tri` are that leaf's nearest, not the scene's.
 
-The kernel walks each ray depth-first with its own stack, the nearest
+The kernel runs persistent warps that take ray slots 32 at a time into
+a pool of the live ones (a dead slot writes its miss at once) and
+refill a lane from it whenever its ray ends; each ray is walked
+depth-first with its own stack, the nearest
 child popping first (the complete tree: children pushed far-to-near by
 the ray's direction signs; the SAH tree: in split-axis order, reversed
 when the ray runs negative on the node's axis); `traverse_plain` walks
@@ -294,7 +297,8 @@ def kernel_library() -> ctypes.CDLL:
                    + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                      ctypes.c_void_p])
     return lib
 
 
@@ -308,12 +312,16 @@ def _check_seeds(bvh, seeds, n: int, packet: int, group_dirs):
 
 
 def launch(bvh, origins, directions, t_max, any_hit=False, live=None,
-           group_dirs=None, seeds=None, packet: int = BIN_PACKET) -> dict:
+           group_dirs=None, seeds=None, packet: int = BIN_PACKET,
+           schedule: dict | None = None) -> dict:
     """One launch of the CUDA kernel on the current stream, on either
     tree; with `group_dirs` (N / 128, 3) the grouped-direction kernel
     (K5), which reads them in place of `directions`; with `seeds` (P,)
     i32 the seeded kernel (K3-seeded, see traverse_plain).  Returns the
-    contract's dict."""
+    contract's dict.  With `schedule` (a dict), it also receives the
+    persistent warps launched (`warps`) and the ray slots they took
+    (`fetched`, a device tensor: each warp's own 32, then 32 at a time
+    from the launch's counter, the last, empty fetch included)."""
     _check_depth(bvh)
     dev = origins.device
     n = origins.shape[0]
@@ -344,6 +352,8 @@ def launch(bvh, origins, directions, t_max, any_hit=False, live=None,
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     steps = torch.empty(n, dtype=torch.int32, device=dev)
     offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    warps = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if seeds is not None:
         _check_seeds(bvh, seeds, n, packet, group_dirs)
@@ -355,9 +365,12 @@ def launch(bvh, origins, directions, t_max, any_hit=False, live=None,
         live.data_ptr(), None if seeds is None else seeds.data_ptr(),
         packet, t.data_ptr(), tri.data_ptr(), steps.data_ptr(), n,
         int(any_hit), bvh.depth if sah else 0, int(group_dirs is not None),
-        stream)
+        counter.data_ptr(), ctypes.byref(warps), stream)
     if err != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {err}")
+    if schedule is not None:
+        schedule.update(warps=warps.value,
+                        fetched=counter[0] + 32 * warps.value)
     launches_by_kernel['K3-seeded' if seeds is not None
                        else 'K5' if group_dirs is not None
                        else 'K3-SAH' if sah else 'K3'] += 1

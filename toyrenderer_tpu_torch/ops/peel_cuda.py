@@ -31,9 +31,9 @@ from toyrenderer_tpu_torch._build import shared_library
 from toyrenderer_tpu_torch.ops.raster import (
     PEEL_BOUND, RasterConfig, coverage_depth, tile_pixel_coords)
 from toyrenderer_tpu_torch.ops.raster_cuda import (
-    NVCC_FLAGS, TILE_WALK, _check, check_records, crop_image,
-    image_to_tiles, nvcc_path, pack_tri_records, pad_image, stream_layout,
-    tiles_to_image, walk_tables)
+    EXACT_LIST_HEAD, NVCC_FLAGS, REGIONS, TILE_WALK, _check, check_records,
+    crop_image, image_to_tiles, nvcc_path, pack_tri_records, pad_image,
+    stream_layout, tiles_to_image, walk_tables)
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fill_peel.cu"
 MAX_LAYERS = 4                   # the kernel's register cascade depth
@@ -174,15 +174,17 @@ def kernel_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.fill_peel_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     return lib
 
 
 def launch(inp: PeelInputs):
-    """One launch of the CUDA kernel on the current stream; returns
-    padded (depth (L, Hp, Wp), tri_id (L, Hp, Wp))."""
+    """One launch of the CUDA kernel on the current stream -- the warp
+    walk, then its exact pass over the units the walk left to it (an
+    occluder below -1: csrc/tile_walk.cuh) -- returns padded (depth (L,
+    Hp, Wp), tri_id (L, Hp, Wp))."""
     global launches
     dev = inp.tri_rec.device
     cfg = inp.cfg
@@ -196,9 +198,11 @@ def launch(inp: PeelInputs):
         vals_s=inp.bins['vals_s'], offs=inp.bins['offs'][:-1],
         counts_eff=inp.lay['counts_eff'], n_chunks=inp.lay['n_chunks'],
         bighit=inp.lay['bighit'], big_list=inp.bins['big_list'],
-        big_box=inp.lay['big_box'], tile_order=inp.lay['tile_order']).items()}
+        big_box=inp.lay['big_box'], tile_order=inp.lay['tile_order'],
+        tile_len=inp.lay['tile_len']).items()}
     check_records(inp.tri_rec, t, dev)
-    for k in ('offs', 'counts_eff', 'n_chunks', 'bighit', 'tile_order'):
+    for k in ('offs', 'counts_eff', 'n_chunks', 'bighit', 'tile_order',
+              'tile_len'):
         _check(ints[k], k, i32, (nt,), dev)
     _check(ints['vals_s'], 'vals_s', i32, ints['vals_s'].shape, dev)
     _check(ints['big_list'], 'big_list', i32, (cfg.max_big_tris,), dev)
@@ -207,15 +211,20 @@ def launch(inp: PeelInputs):
         _check(inp.occluder, 'occluder_depth', f32, (hp, wp), dev)
     z = torch.empty((inp.layers, hp, wp), dtype=f32, device=dev)
     tid = torch.empty((inp.layers, hp, wp), dtype=i32, device=dev)
+    # the exact pass's list (csrc/tile_walk.cuh, kListHead)
+    exact_list = torch.empty(nt * REGIONS + EXACT_LIST_HEAD, dtype=i32,
+                             device=dev)
     err = kernel_library().fill_peel_launch(
         inp.tri_rec.data_ptr(), ints['vals_s'].data_ptr(),
         ints['offs'].data_ptr(), ints['counts_eff'].data_ptr(),
         ints['n_chunks'].data_ptr(), ints['bighit'].data_ptr(),
         ints['big_list'].data_ptr(), ints['big_box'].data_ptr(),
-        ints['tile_order'].data_ptr(), cfg.max_big_tris,
+        ints['tile_order'].data_ptr(), ints['tile_len'].data_ptr(),
+        cfg.max_big_tris,
         None if inp.occluder is None else inp.occluder.data_ptr(),
-        z.data_ptr(), tid.data_ptr(),
-        nt, cfg.tiles_x, wp, hp, inp.emit_base, inp.layers,
+        z.data_ptr(), tid.data_ptr(), exact_list.data_ptr(),
+        nt, cfg.tiles_x, wp, hp, inp.emit_base, inp.layers, cfg.chunk,
+        cfg.tile_batch,
         1.0 / cfg.width, 1.0 / cfg.height, PEEL_BOUND,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

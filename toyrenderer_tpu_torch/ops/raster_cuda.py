@@ -42,6 +42,9 @@ TILE_WALK = SOURCE.with_name("tile_walk.cuh")
 REGIONS = 8
 REGION_W, REGION_H = 32, 8
 WALK_WARPS = 4                  # warps per block (kWalkWarps)
+# the exact pass's list head (tile_walk.cuh kListHead): the count of
+# units left to it, and a flag for each block of K1's record check
+EXACT_LIST_HEAD = 1 + 32 * WALK_WARPS
 MARGIN_SCALE = 3.6e-7
 MARGIN_FLOOR = 1e-37
 MARGIN_CAP = 1e30
@@ -111,9 +114,12 @@ def stream_layout(setup: dict, bins: dict, cfg: RasterConfig,
     counts_clamped (the binned counts before the budget), bighit, and
     big_box (B, 4) each big-list entry's tile bbox (tx0, tx1, ty0, ty1):
     a triangle covers no pixel outside it, so a tile tests only the big
-    triangles whose bbox holds it; and tile_order (tiles,), the tiles by
+    triangles whose bbox holds it; tile_order (tiles,), the tiles by
     falling (pair + big-triangle) tests, the order in which the kernel
-    starts them, so that the densest tiles do not set a launch's tail.
+    starts them, so that the densest tiles do not set a launch's tail;
+    and tile_len (tiles,) those tests, 0 on an unvisited tile: the
+    length of each tile's list in the plain fills' walk (walk_tables),
+    which the kernels' exact walk reads for the chunk grid.
     """
     t = setup['valid'].shape[0]
     c = chunk
@@ -137,7 +143,8 @@ def stream_layout(setup: dict, bins: dict, cfg: RasterConfig,
     return dict(ch_cap=ch_cap, n_chunks=n_chunks, chunk_base=chunk_base,
                 total_chunks=chunk_base[-1], counts_eff=counts_eff,
                 counts_clamped=counts, bighit=bighit,
-                big_box=big_box, tile_order=tile_order.to(i32))
+                big_box=big_box, tile_order=tile_order.to(i32),
+                tile_len=work.to(i32))
 
 
 def big_boxes(setup: dict, big_list: torch.Tensor, cfg: RasterConfig):
@@ -284,8 +291,8 @@ def kernel_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     fn = lib.fill_resolve_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     return lib
 
@@ -372,8 +379,10 @@ def check_records(tri_rec: torch.Tensor, t: int, device):
 
 
 def launch(inp: FillInputs):
-    """One launch of the CUDA kernel on the current stream; returns
-    padded (depth, tri_id, planes)."""
+    """One launch of the CUDA kernel on the current stream -- a check of
+    the records for NaN depths, the warp walk, then its exact pass over
+    the units the walk left to it (off the frames' domain:
+    csrc/fill_resolve.cu) -- returns padded (depth, tri_id, planes)."""
     global launches
     dev = inp.tri_rec.device
     cfg = inp.cfg
@@ -387,10 +396,12 @@ def launch(inp: FillInputs):
         vals_s=inp.bins['vals_s'], offs=inp.bins['offs'][:-1],
         counts_eff=inp.lay['counts_eff'], n_chunks=inp.lay['n_chunks'],
         bighit=inp.lay['bighit'], big_list=inp.bins['big_list'],
-        big_box=inp.lay['big_box'], tile_order=inp.lay['tile_order']).items()}
+        big_box=inp.lay['big_box'], tile_order=inp.lay['tile_order'],
+        tile_len=inp.lay['tile_len']).items()}
     check_records(inp.tri_rec, t, dev)
     _check(inp.res_rec, 'resolve_records', f32, (t, RESOLVE_REC), dev)
-    for k in ('offs', 'counts_eff', 'n_chunks', 'bighit', 'tile_order'):
+    for k in ('offs', 'counts_eff', 'n_chunks', 'bighit', 'tile_order',
+              'tile_len'):
         _check(ints[k], k, i32, (nt,), dev)
     _check(ints['vals_s'], 'vals_s', i32, ints['vals_s'].shape, dev)
     _check(ints['big_list'], 'big_list', i32, (cfg.max_big_tris,), dev)
@@ -408,16 +419,19 @@ def launch(inp: FillInputs):
     z = torch.empty((hp, wp), dtype=f32, device=dev)
     tid = torch.empty((hp, wp), dtype=i32, device=dev)
     planes = torch.empty((INTERP_C, hp, wp), dtype=f32, device=dev)
+    # the exact pass's list (csrc/tile_walk.cuh, kListHead)
+    exact_list = torch.empty(nt * REGIONS + EXACT_LIST_HEAD, dtype=i32,
+                             device=dev)
     err = kernel_library().fill_resolve_launch(
         inp.tri_rec.data_ptr(), inp.res_rec.data_ptr(),
         ints['vals_s'].data_ptr(), ints['offs'].data_ptr(),
         ints['counts_eff'].data_ptr(), ints['n_chunks'].data_ptr(),
         ints['bighit'].data_ptr(), ints['big_list'].data_ptr(),
         ints['big_box'].data_ptr(), ints['tile_order'].data_ptr(),
-        cfg.max_big_tris, ptr(inp.init_z),
+        ints['tile_len'].data_ptr(), cfg.max_big_tris, ptr(inp.init_z),
         ptr(inp.init_id), ptr(inp.init_rec), ptr(inp.peel), z.data_ptr(),
-        tid.data_ptr(), planes.data_ptr(),
-        nt, cfg.tiles_x, wp, hp, inp.emit_base,
+        tid.data_ptr(), planes.data_ptr(), exact_list.data_ptr(), t,
+        nt, cfg.tiles_x, wp, hp, inp.emit_base, cfg.chunk, cfg.tile_batch,
         1.0 / cfg.width, 1.0 / cfg.height, PEEL_BOUND,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

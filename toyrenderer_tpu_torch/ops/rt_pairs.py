@@ -55,6 +55,9 @@ BLOCK = 128                             # rays per block
 _EPS_DIR = 1e-12
 _BOX_ELEMS = 1 << 24                    # (rays, chunks) box-phase tile
 _FOLD_ELEMS = 1 << 22                   # (pairs, rays, tris) plain tile
+# the fold's key (float bits of t << 32) | ordinal before any hit: an
+# accepted t is positive, so the keys order like (t, ordinal)
+INF_KEY = (0x7F800000 << 32) | 0x7FFFFFFF
 
 
 def _cross(a, b):
@@ -152,8 +155,7 @@ def pair_fold_plain(rays, feat, pchk, starts, n_walk):
     f = torch.cat([torch.ones_like(o[..., :1]), o, d,
                    (o[..., :, None] * d[..., None, :]).flatten(-2)], -1)
     lanes = torch.arange(CHUNK_TRIS, device=dev)
-    inf_key = (0x7F800000 << 32) | 0x7FFFFFFF
-    best = torch.full((b * BLOCK,), inf_key, dtype=torch.int64, device=dev)
+    best = torch.full((b * BLOCK,), INF_KEY, dtype=torch.int64, device=dev)
     step = max(1, _FOLD_ELEMS // (BLOCK * CHUNK_TRIS))
     for s in range(0, total, step):
         bb, cc = blk[s:s + step], chunk[s:s + step]
@@ -178,9 +180,15 @@ def pair_fold_plain(rays, feat, pchk, starts, n_walk):
         idx = (bb[:, None] * BLOCK
                + torch.arange(BLOCK, device=dev)).reshape(-1)
         best.scatter_reduce_(0, idx, key.amin(-1).reshape(-1), 'amin')
-    best_t = (best >> 32).to(torch.int32).view(torch.float32)
+    return unpack_keys(best)
+
+
+def unpack_keys(keys):
+    """(best_t f32, best_ord i32) of the fold's int64 keys: inf and -1
+    where no triangle was accepted."""
+    best_t = (keys >> 32).to(torch.int32).view(torch.float32)
     best_ord = torch.where(torch.isinf(best_t), -1,
-                           (best & 0x7FFFFFFF).to(torch.int32))
+                           (keys & 0x7FFFFFFF).to(torch.int32))
     return best_t, best_ord.to(torch.int32)
 
 
