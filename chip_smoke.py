@@ -66,16 +66,14 @@ the ray slots the warps took, the last, empty fetch of each included).
 Each K1, K2 and K7 line also gives the bound counted at the pixels of
 each tested triangle's bbox (bound_ms) beside the count at every pixel
 of the tile that PERF.md's earlier rows used (bound_all_px_ms); each K1
-and K2 line gives its walk kernel's time from its profiler events
-(kernel_ms) and the whole launch's from CUDA events (events_ms: K1's
-launch also runs a check of the records for NaN depths, and each its
-exact pass, csrc/tile_walk.cuh) and the
-census of the warp walk's corner reject (raster_cuda.region_census:
-(pair, region) tests walked and kept, the densest unit's records).  In
-the `kernels` line, K1's and K2's `ms` is kernel_ms, the measure of
-every other kernel there; PERF.md's K1 and K2 rows from before the warp
-walk took CUDA events over the launches, which events_ms still gives
-beside it.
+and K2 line gives the whole wrapper call's time from CUDA events (ms:
+K1's call runs a check of the records for NaN depths, the walk and the
+exact pass, K2's the walk and the exact pass, csrc/tile_walk.cuh) and
+each of those kernels' own from its profiler events (walk_ms, check_ms,
+exact_ms), and the census of the warp walk's corner reject
+(raster_cuda.region_census: (pair, region) tests walked and kept, the
+densest unit's records).  In the `kernels` line, K1's and K2's `ms` is
+the whole call's, the parts beside it.
 
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
@@ -181,7 +179,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 # each hand-written kernel's symbol, and the positions in launch_counts()
 # of the wrappers that launch it
-KERNEL_SYMBOLS = (("fill_resolve_kernel", (0,)), ("fill_peel_kernel", (1,)),
+KERNEL_SYMBOLS = (("fill_resolve_kernel", (0,)), ("nan_check_kernel", (0,)),
+                  ("fill_resolve_exact_kernel", (0,)),
+                  ("fill_peel_kernel", (1,)), ("fill_peel_exact_kernel", (1,)),
                   ("traverse_kernel", (2, 4, 5, 6)), ("warp_kernel", (3,)),
                   ("pairs_kernel", (7,)), ("fill_dense_kernel", (8,)))
 
@@ -519,11 +519,13 @@ def hold_k1(name, inp) -> dict:
     if not (torch.equal(id_all, got[1]) and torch.equal(z_all, got[0])):
         raise AssertionError(f"K1 ({name}): the big-list bbox filter "
                              "changed the fill")
-    st = dict(err=err,
-              ms=kernel_ms(lambda: raster_cuda.launch(inp), KERNEL_REPS,
-                           "fill_resolve_kernel"),
-              events_ms=cuda_ms(lambda: raster_cuda.launch(inp),
-                                KERNEL_REPS),
+    st = dict(err=err, ms=cuda_ms(lambda: raster_cuda.launch(inp),
+                                  KERNEL_REPS),
+              **{f"{part}_ms": kernel_ms(lambda: raster_cuda.launch(inp),
+                                         KERNEL_REPS, symbol)
+                 for part, symbol in (("walk", "fill_resolve_kernel"),
+                                      ("check", "nan_check_kernel"),
+                                      ("exact", "fill_resolve_exact_kernel"))},
               plain_ms=cuda_ms(lambda: raster_cuda.fill_resolve_plain(inp),
                                1),
               bound=fill_bound_ms(inp, want[1], won),
@@ -536,7 +538,8 @@ def hold_k1(name, inp) -> dict:
           big_tests_in_box=f"{int(big_box_tests(inp).sum())}"
           f"/{int(big_box_tests(every_box(inp)).sum())}",
           census=json.dumps(st['census']),
-          kernel_ms=f"{st['ms']:.4f}", events_ms=f"{st['events_ms']:.4f}",
+          ms=f"{st['ms']:.4f}", walk_ms=f"{st['walk_ms']:.4f}",
+          check_ms=f"{st['check_ms']:.4f}", exact_ms=f"{st['exact_ms']:.4f}",
           plain_ms=f"{st['plain_ms']:.1f}",
           plain_first_wall_s=f"{plain_wall:.1f}",
           bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1],
@@ -545,15 +548,17 @@ def hold_k1(name, inp) -> dict:
 
 
 def hold_k2_times(inp, plain_inp) -> dict:
-    """K2's numbers on one input (held bit-equal by the caller): its
-    time from its kernel events and from CUDA events, the plain
-    version's, the bound and the all-pixel bound, and the reject's
-    census."""
+    """K2's numbers on one input (held bit-equal by the caller): the
+    whole call's time from CUDA events, its walk's and its exact pass's
+    from their kernel events, the plain version's, the bound and the
+    all-pixel bound, and the reject's census."""
     from toyrenderer_tpu_torch.ops import peel_cuda, raster_cuda
     return dict(
-        ms=kernel_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS,
-                     "fill_peel_kernel"),
-        events_ms=cuda_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS),
+        ms=cuda_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS),
+        walk_ms=kernel_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS,
+                          "fill_peel_kernel"),
+        exact_ms=kernel_ms(lambda: peel_cuda.launch(inp), KERNEL_REPS,
+                           "fill_peel_exact_kernel"),
         plain_ms=cuda_ms(lambda: peel_cuda.fill_peel_plain(plain_inp), 1),
         bound=peel_bound_ms(inp), bound_all_px=peel_bound_ms(inp, True)[0],
         census=raster_cuda.region_census(inp))
@@ -562,8 +567,8 @@ def hold_k2_times(inp, plain_inp) -> dict:
 def k2_fields(st) -> dict:
     """hold_k2_times' numbers as phase fields."""
     return dict(census=json.dumps(st['census']),
-                kernel_ms=f"{st['ms']:.4f}",
-                events_ms=f"{st['events_ms']:.4f}",
+                ms=f"{st['ms']:.4f}", walk_ms=f"{st['walk_ms']:.4f}",
+                exact_ms=f"{st['exact_ms']:.4f}",
                 plain_ms=f"{st['plain_ms']:.1f}",
                 bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1],
                 bound_all_px_ms=f"{st['bound_all_px']:.4f}")
@@ -2318,7 +2323,8 @@ def main() -> int:
     #     launch; fill_dense: the mean over rasterize's two launches (the
     #     opaque set, the masked set continuing it)
     def row(name, st, main):
-        extra = {k: st[k] for k in ('events_ms', 'census', 'live_share',
+        extra = {k: st[k] for k in ('events_ms', 'walk_ms', 'check_ms',
+                                    'exact_ms', 'census', 'live_share',
                                     'warps_launched', 'slots_fetched')
                  if k in st}
         if 'bound_all_px' in st:

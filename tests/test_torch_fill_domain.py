@@ -1,20 +1,15 @@
-"""The streamed fills off the frames' domain, on the CPU.
+"""The streamed fills' chunk grid, on the CPU.
 
 K1 and K2 (csrc/fill_resolve.cu, csrc/fill_peel.cu) walk a warp's region
 exactly as the plain fills do where an init depth or occluder there is
 below -1, or (K1) where a record's depth may be NaN: every record of the
 tile in stream order, chunks of `cfg.chunk` positions, empty slots up to
-the longest list of the tile's batch of `cfg.tile_batch` tiles
-(`raster_cuda.stream_layout`'s `tile_len`).  These tests hold that rule,
-written here per tile in plain PyTorch, against the plain fills
-(`raster_cuda.fill_resolve_plain`, `peel_cuda.fill_peel_plain`) on the
-inputs that need it -- init and occluder depths at -2, NaN depth
-numerators -- and `tile_len` against the plain walk's list lengths.  The
-card tests (tests/test_torch_kernel.py) hold the kernels against the
-same plain fills.
+the longest list of the tile's batch of `cfg.tile_batch` tiles.  The
+kernels read each tile's list length from `raster_cuda.stream_layout`'s
+`tile_len`; this test holds it against the plain walk's list lengths.
+The card tests (tests/test_torch_kernel.py) hold the kernels' exact pass
+against the plain fills.
 """
-
-import dataclasses
 
 import numpy as np
 import pytest
@@ -28,8 +23,7 @@ from toyrenderer_tpu_torch.ops import raster_cuda as RC
 
 def _inputs(tile_batch, pair_capacity=1 << 16, t=300, seed=11):
     """Random triangles at 500x100 (ragged tiles) left of column 350, so
-    the last tile of each row holds none, every 7th record's depth
-    numerator NaN; (setup, bins, cfg, tri_rec)."""
+    the last tile of each row holds none; (setup, bins, cfg, tri_rec)."""
     rng = np.random.default_rng(seed)
     tris = np.zeros((t, 3, 4), np.float32)
     size = np.where(rng.uniform(size=(t, 1, 1)) < 0.02, 0.8, 0.06)
@@ -50,129 +44,23 @@ def _inputs(tile_batch, pair_capacity=1 << 16, t=300, seed=11):
                          tile_batch=tile_batch)
     setup = R.setup_triangles(geo, cfg)
     bins = R.bin_pairs_stream(setup, cfg)
-    rec = RC.pack_tri_records(setup)
-    i = torch.arange(0, t, 7)
-    rec[i, 9 + i % 3] = float('nan')
-    return setup, bins, cfg, rec
+    return setup, bins, cfg, RC.pack_tri_records(setup)
 
 
-def _low_band(hp, wp):
-    """(hp, wp) bool: where the init or occluder is put at -2 -- the
-    first 300 columns and the first tile row, whose last tile holds no
-    triangle (the plain fill's empty slots decide it)."""
-    return ((torch.arange(wp) < 300)[None, :]
-            | (torch.arange(hp) < 16)[:, None])
-
-
-def _walks(inp):
-    """Per tile: its records in stream order, and the positions the
-    plain fill walks (its batch's longest list in whole chunks)."""
-    cfg = inp.cfg
-    table, big_table = RC.walk_tables(inp.bins, inp.lay, cfg)
-    tl = inp.lay['tile_len']
-    for tile in range(cfg.num_tiles):
-        ents = [int(v) for v in torch.cat([table[tile], big_table[tile]])
-                if v >= 0]
-        b0 = tile // cfg.tile_batch * cfg.tile_batch
-        longest = int(tl[b0:b0 + cfg.tile_batch].max())
-        yield tile, ents, -(-longest // cfg.chunk) * cfg.chunk
+def _list_lengths(inp):
+    """Per tile: the length of its list in the plain fills' walk (its
+    own pairs and the big triangles whose bbox holds it)."""
+    table, big_table = RC.walk_tables(inp.bins, inp.lay, inp.cfg)
+    return [int((table[tile] >= 0).sum() + (big_table[tile] >= 0).sum())
+            for tile in range(inp.cfg.num_tiles)]
 
 
 @pytest.mark.parametrize("pair_capacity", [1 << 16, 64])
 def test_tile_len_is_the_plain_walk_length(pair_capacity):
     setup, bins, cfg, rec = _inputs(32, pair_capacity, t=3000)
     inp = PC.peel_inputs(setup, bins, cfg, 1)
-    lens = [len(ents) for _, ents, _ in _walks(inp)]
-    assert inp.lay['tile_len'].tolist() == lens
+    assert inp.lay['tile_len'].tolist() == _list_lengths(inp)
     visited = inp.lay['n_chunks'] > 0
     assert not bool(inp.lay['tile_len'][~visited].any())
     if pair_capacity == 64:
         assert not bool(visited.all())
-
-
-@pytest.mark.parametrize("tile_batch", [4, 32])
-def test_exact_walk_reproduces_plain_fill(tile_batch):
-    """K1's exact walk: each chunk's first maximum per pixel (a miss or an
-    empty slot scores -1, id -1 for an empty slot), committed where no
-    score of the chunk is NaN and it is strictly nearer."""
-    setup, bins, cfg, rec = _inputs(tile_batch)
-    res = torch.rand(rec.shape[0], 64, generator=torch.Generator()
-                     .manual_seed(0))
-    first = dataclasses.replace(RC.fill_inputs(setup, res, bins, cfg),
-                                tri_rec=rec)
-    z0, id0, pl0 = RC.fill_resolve_plain(first)
-    hp, wp = first.padded_shape
-    low = torch.where(_low_band(hp, wp), -2.0, z0 * 0.5)
-    inp = dataclasses.replace(
-        RC.fill_inputs(setup, res, bins, cfg, init_depth=low,
-                       init_tri_id=id0, init_rec=pl0, emit_base=5000,
-                       padded_io=True), tri_rec=rec)
-    z_p, id_p, _ = RC.fill_resolve_plain(inp)
-
-    init = RC.image_to_tiles(low, cfg)
-    pxn, pyn = R.tile_pixel_coords(cfg, torch.arange(cfg.num_tiles))
-    c = cfg.chunk
-    z_t = torch.empty_like(init)
-    w_t = torch.empty(init.shape, dtype=torch.int32)
-    for tile, ents, slots in _walks(inp):
-        bz = init[tile].clone()
-        bw = torch.full(bz.shape, -1, dtype=torch.int32)
-        feed = ents + [-1] * (slots - len(ents))
-        for k0 in range(0, slots, c):
-            cz = cw = None
-            nan = torch.zeros(bz.shape, dtype=torch.bool)
-            for e in feed[k0:k0 + c]:
-                d = (torch.full_like(bz, -1.0) if e < 0 else
-                     R.coverage_depth(rec[e], pxn[tile], pyn[tile]))
-                nan |= torch.isnan(d)
-                if cz is None:
-                    cz, cw = d, torch.full_like(bw, e)
-                else:
-                    nearer = d > cz
-                    cz = torch.where(nearer, d, cz)
-                    cw = torch.where(nearer, e, cw)
-            upd = ~nan & (cz > bz)
-            bz, bw = torch.where(upd, cz, bz), torch.where(upd, cw, bw)
-        z_t[tile], w_t[tile] = bz, bw
-    z_t, w_t = RC.tiles_to_image(z_t, cfg), RC.tiles_to_image(w_t, cfg)
-    assert torch.equal(z_t, z_p)
-    assert torch.equal(torch.where(w_t >= 0, w_t + 5000, inp.init_id), id_p)
-    # the inputs reach both kinds of -1: a missed centre's (its id) and
-    # an empty slot's (the init id)
-    assert bool(((z_p == -1.0) & (id_p >= 5000)).any())
-    assert bool(((z_p == -1.0) & (id_p < 5000)).any())
-
-
-@pytest.mark.parametrize("layers", [1, 2])
-def test_exact_walk_reproduces_plain_peel(layers):
-    """K2's exact walk: every record inserted in stream order, at -1
-    where it misses the centre, then up to L empty slots (depth -1, id
-    emit_base - 1)."""
-    setup, bins, cfg, rec = _inputs(4)
-    z0, _ = PC.fill_peel_plain(dataclasses.replace(
-        PC.peel_inputs(setup, bins, cfg, 1), tri_rec=rec))
-    occ = RC.crop_image(torch.where(_low_band(*z0.shape[-2:]), -2.0,
-                                    z0[0] * 0.5), cfg)
-    inp = dataclasses.replace(PC.peel_inputs(setup, bins, cfg, layers, 3,
-                                             occ), tri_rec=rec)
-    z_p, id_p = PC.fill_peel_plain(inp)
-    occ_t = RC.image_to_tiles(inp.occluder, cfg)
-    pxn, pyn = R.tile_pixel_coords(cfg, torch.arange(cfg.num_tiles))
-    z_t = torch.empty((layers,) + occ_t.shape)
-    id_t = torch.empty(z_t.shape, dtype=torch.int32)
-    for tile, ents, slots in _walks(inp):
-        z = [occ_t[tile].clone() for _ in range(layers)]
-        ids = [torch.full(z[0].shape, -1, dtype=torch.int32)
-               for _ in range(layers)]
-        for e in ents:
-            PC.cascade(z, ids, R.coverage_depth(rec[e], pxn[tile],
-                                                pyn[tile]),
-                       torch.tensor(e + 3, dtype=torch.int32))
-        for _ in range(min(slots - len(ents), layers)):
-            PC.cascade(z, ids, torch.full_like(z[0], -1.0),
-                       torch.tensor(3 - 1, dtype=torch.int32))
-        for layer in range(layers):
-            z_t[layer, tile], id_t[layer, tile] = z[layer], ids[layer]
-    assert torch.equal(RC.tiles_to_image(z_t, cfg), z_p)
-    assert torch.equal(RC.tiles_to_image(id_t, cfg), id_p)
-    assert bool((id_p == 2).any())          # an empty slot took a layer

@@ -185,7 +185,8 @@ def test_dense_kernel_matches_plain_version(cuda_device):
 
 
 # the scaled variants: subnormal products, small, past the margin's cap
-SCALES = dict(tiny=1e-40, small=1e-30, huge=1e36)
+# (huge_edges: the edge functions only)
+SCALES = dict(tiny=1e-40, small=1e-30, huge=1e36, huge_edges=1e36)
 
 
 def _adversarial(dev, variant, t=3000, seed=11):
@@ -195,13 +196,17 @@ def _adversarial(dev, variant, t=3000, seed=11):
     holds the plain predicate on the same kinds of record): `behind`,
     some vertices behind the camera; `centres`, an edge of every 5th
     record moved onto a row or column of pixel centres; SCALES, every
-    function scaled; `nan`, a NaN in an edge or denominator coefficient
-    of every 7th record (the record then covers no pixel) and a NaN in a
-    depth-numerator coefficient of every 7th record from the 4th (its
-    depth is NaN wherever it covers a centre: the plain fill's chunk
-    maximum takes the NaN, and the chunk loses at that pixel).  The
-    resolve records are benign (the base records' edges, unit scales,
-    random attributes).  Returns (setup, res_rec, bins, cfg, tri_rec)."""
+    function scaled (`huge_edges`: the edge functions only, so K1's
+    record check passes); `nan_edges`, a NaN in an edge coefficient of
+    every 7th record (the record then covers no pixel, and K1's record
+    check passes: the fast walk and its reject see them); `nan`, a NaN
+    in an edge or denominator coefficient of every 7th record and a NaN
+    in a depth-numerator coefficient of every 7th record from the 4th
+    (its depth is NaN wherever it covers a centre: the plain fill's
+    chunk maximum takes the NaN, and the chunk loses at that pixel).
+    The resolve records are benign (the base records' edges, unit
+    scales, random attributes).  Returns (setup, res_rec, bins, cfg,
+    tri_rec)."""
     cfg = R.RasterConfig(width=1000, height=600, max_tris_per_tile=512,
                          max_big_tris=256, pair_capacity=1 << 16,
                          compact_frac=1.0, short_frac=1.0, rest_frac=1.0)
@@ -234,66 +239,96 @@ def _adversarial(dev, variant, t=3000, seed=11):
             for c in range(3):
                 rec[i[pick], k[pick] + c] = line[pick, c]
     elif variant in SCALES:
-        rec[:, :15] = (rec[:, :15].double() * SCALES[variant]).float()
-    elif variant == "nan":
+        k = 9 if variant == "huge_edges" else 15
+        rec[:, :k] = (rec[:, :k].double() * SCALES[variant]).float()
+    elif variant in ("nan", "nan_edges"):
         i = torch.arange(0, t, 7, device=dev)
-        coeff = torch.tensor([*range(9), 12, 13, 14], device=dev)
+        coeff = torch.tensor([*range(9)] + [12, 13, 14] * (variant == "nan"),
+                             device=dev)
         rec[i, coeff[i % coeff.numel()]] = float('nan')
-        j = torch.arange(3, t, 7, device=dev)
-        rec[j, 9 + j % 3] = float('nan')
+        if variant == "nan":
+            j = torch.arange(3, t, 7, device=dev)
+            rec[j, 9 + j % 3] = float('nan')
     return setup, res.contiguous(), bins, cfg, rec.contiguous()
+
+
+def _units_below_floor(depth):
+    """The (tile, region) units of a padded (Hp, Wp) depth image that
+    hold a pixel below -1: the units the warp walks leave to the exact
+    pass."""
+    hp, wp = depth.shape
+    low = (depth < -1).reshape(hp // RC.REGION_H, RC.REGION_H,
+                               wp // RC.REGION_W, RC.REGION_W)
+    return int(low.any(3).any(1).sum())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["base", "behind", "centres", "tiny",
-                                     "small", "huge", "nan"])
+                                     "small", "huge", "huge_edges",
+                                     "nan_edges", "nan"])
 def test_fills_match_plain_on_adversarial_records(cuda_device, variant):
     """K1 (a first layer; a continuation from init planes, part of them
-    at depth -2, below the floor of the frames' domain, where a missed
+    at depth -1, the floor of the frames' domain, where a failed test
+    ties and must not win, and part at -2, below it, where a missed
     centre or an empty slot of the plain fill's chunks wins with -1; a
     peeled layer) and K2 (L = 1..4, without an occluder, with one, and
-    with one partly at -2, where the plain version's misses and empty
-    slots take layers at -1) on records made to sit on the reject's edge
-    cases, NaN depths included: ids and depth bit-equal to the plain
-    versions on every input, and the planes of pixels no fragment won
-    bit-equal (the planes of won pixels are held on real records by
-    test_kernel_matches_plain_version: these resolve records are
-    random)."""
+    with one partly at -1 and partly at -2, where the plain version's
+    misses and empty slots take layers at -1) on records made to sit on
+    the reject's edge cases, NaN edges and NaN depths included: ids and
+    depth bit-equal to the plain versions on every input, and the planes
+    of pixels no fragment won bit-equal (the planes of won pixels are
+    held on real records by test_kernel_matches_plain_version: these
+    resolve records are random).  Each launch's exact pass walks exactly
+    the units it should: those holding a pixel below -1, or every unit
+    of K1 when a record's depth may be NaN (a depth coefficient not a
+    number or past the margin's cap: `nan`, `huge`), none on the rest --
+    so the fast walks run at -1, on NaN edges and on edges past the
+    cap."""
     setup, res, bins, cfg, rec = _adversarial(cuda_device, variant)
+    every = cfg.num_tiles * RC.REGIONS
+    checked = bool((rec[:, 9:15].abs() <= RC.MARGIN_CAP).all())
+    assert checked == (variant not in ("nan", "huge"))
 
-    def held(inp, won_id_floor):
+    def held(inp, won_id_floor, want_exact):
+        exact = {}
         (z_k, id_k, pl_k), (z_p, id_p, pl_p) = (
-            RC.launch(inp), RC.fill_resolve_plain(inp))
+            RC.launch(inp, exact=exact), RC.fill_resolve_plain(inp))
         assert torch.equal(id_k, id_p), int((id_k != id_p).sum())
         assert torch.equal(z_k, z_p)
         kept = id_p < won_id_floor
         assert torch.equal(pl_k[:, kept], pl_p[:, kept])
+        assert int(exact['units']) == (want_exact if checked else every)
         return z_k, id_k, pl_k
 
     first = dataclasses.replace(RC.fill_inputs(setup, res, bins, cfg),
                                 tri_rec=rec)
-    z0, id0, planes0 = held(first, 0)
+    z0, id0, planes0 = held(first, 0, 0)
     torch.cuda.synchronize()
     assert bool((id0 >= 0).any())
-    low = torch.where(torch.arange(z0.shape[1], device=cuda_device) < 300,
-                      -2.0, z0 * 0.5)
-    assert bool((low < -1).any())
-    for kw, floor in ((dict(init_depth=low, init_tri_id=id0,
-                            init_rec=planes0, emit_base=5000), 5000),
-                      (dict(peel_depth=z0), 0)):
+    col = torch.arange(z0.shape[1], device=cuda_device)
+    low = torch.where(col < 128, -1.0, torch.where(col < 300, -2.0,
+                                                   z0 * 0.5))
+    assert 0 < _units_below_floor(low) < every
+    for kw, floor, want in ((dict(init_depth=low, init_tri_id=id0,
+                                  init_rec=planes0, emit_base=5000), 5000,
+                             _units_below_floor(low)),
+                            (dict(peel_depth=z0), 0, 0)):
         held(dataclasses.replace(
             RC.fill_inputs(setup, res, bins, cfg, padded_io=True, **kw),
-            tri_rec=rec), floor)
+            tri_rec=rec), floor, want)
     for layers in (1, 2, 3, 4):
         for occ in (None, RC.crop_image(z0, cfg) * 0.5,
                     RC.crop_image(low, cfg)):
             inp = dataclasses.replace(
                 PC.peel_inputs(setup, bins, cfg, layers, 3, occ),
                 tri_rec=rec)
-            z_k, id_k = PC.launch(inp)
+            exact = {}
+            z_k, id_k = PC.launch(inp, exact=exact)
             z_p, id_p = PC.fill_peel_plain(inp)
             assert torch.equal(id_k, id_p), (layers, occ is None)
             assert torch.equal(z_k, z_p), (layers, occ is None)
+            assert int(exact['units']) == (
+                0 if occ is None else _units_below_floor(inp.occluder))
 
 
 @pytest.mark.cuda

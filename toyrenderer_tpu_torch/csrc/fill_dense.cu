@@ -74,17 +74,10 @@ fill_dense_kernel(Params p) {
       const float* e = rec[r];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        float l0 = e[0] * cx + e[1] * cy[i] + e[2];
-        float l1 = e[3] * cx + e[4] * cy[i] + e[5];
-        float l2 = e[6] * cx + e[7] * cy[i] + e[8];
-        float num = e[9] * cx + e[10] * cy[i] + e[11];
-        float den = e[12] * cx + e[13] * cy[i] + e[14];
-        if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && den > 0.0f) {
-          const float d = num / den;
-          if (d > z[i]) {
-            z[i] = d;
-            win[i] = tri[r];
-          }
+        float d;
+        if (tile_walk::covers(e, cx, cy[i], d) && d > z[i]) {
+          z[i] = d;
+          win[i] = tri[r];
         }
       }
     }

@@ -90,13 +90,9 @@ __device__ __forceinline__ void peel_batch(
     const int ci = tri[r] + emit_base;
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      float l0 = e[0] * px + e[1] * py[i] + e[2];
-      float l1 = e[3] * px + e[4] * py[i] + e[5];
-      float l2 = e[6] * px + e[7] * py[i] + e[8];
-      float num = e[9] * px + e[10] * py[i] + e[11];
-      float den = e[12] * px + e[13] * py[i] + e[14];
-      if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && den > 0.0f)
-        insert<L>(num / den, ci, z[i], id[i], peel_bound);
+      float d;
+      if (tile_walk::covers(e, px, py[i], d))
+        insert<L>(d, ci, z[i], id[i], peel_bound);
     }
   }
 }
@@ -147,14 +143,8 @@ __device__ __forceinline__ void exact_unit(const Params& p,
             const float* e = rec[r];
 #pragma unroll
             for (int i = 0; i < kRows; ++i) {
-              float l0 = e[0] * cx + e[1] * cy[i] + e[2];
-              float l1 = e[3] * cx + e[4] * cy[i] + e[5];
-              float l2 = e[6] * cx + e[7] * cy[i] + e[8];
-              float num = e[9] * cx + e[10] * cy[i] + e[11];
-              float den = e[12] * cx + e[13] * cy[i] + e[14];
               float d = -1.0f;
-              if (l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && den > 0.0f)
-                d = num / den;
+              tile_walk::covers(e, cx, cy[i], d);
               insert<L>(d, tri[r] + p.emit_base, z[i], id[i], p.peel_bound);
             }
           }

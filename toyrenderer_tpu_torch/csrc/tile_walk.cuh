@@ -117,6 +117,24 @@ struct Pixels {
   }
 };
 
+// Whether raster record e (edges [0:9], depth numerator [9:12],
+// denominator [12:15]) covers the pixel centre (x, y) -- all three edge
+// functions >= 0 and the denominator > 0 -- and then, in d, its depth
+// num / den: each affine function summed ((a * x) + (b * y)) + c, as the
+// plain fills do (raster.coverage_depth), which the kernels' bit-equality
+// with them relies on under -fmad=false.  A missed centre leaves d.
+__device__ __forceinline__ bool covers(const float* e, float x, float y,
+                                       float& d) {
+  const float l0 = e[0] * x + e[1] * y + e[2];
+  const float l1 = e[3] * x + e[4] * y + e[5];
+  const float l2 = e[6] * x + e[7] * y + e[8];
+  const float num = e[9] * x + e[10] * y + e[11];
+  const float den = e[12] * x + e[13] * y + e[14];
+  const bool in = l0 >= 0.0f && l1 >= 0.0f && l2 >= 0.0f && den > 0.0f;
+  if (in) d = num / den;
+  return in;
+}
+
 // Stage records of the n triangles tri[0..n) into shared memory.
 __device__ __forceinline__ void stage(const float* tri_rec,
                                       float (*rec)[kRec], const int* tri,

@@ -32,8 +32,8 @@ from toyrenderer_tpu_torch.ops.raster import (
     PEEL_BOUND, RasterConfig, coverage_depth, tile_pixel_coords)
 from toyrenderer_tpu_torch.ops.raster_cuda import (
     EXACT_LIST_HEAD, NVCC_FLAGS, REGIONS, TILE_WALK, _check, check_records,
-    crop_image, image_to_tiles, nvcc_path, pack_tri_records, pad_image,
-    stream_layout, tiles_to_image, walk_tables)
+    crop_image, exact_units, image_to_tiles, nvcc_path, pack_tri_records,
+    pad_image, stream_layout, tiles_to_image, walk_tables)
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fill_peel.cu"
 MAX_LAYERS = 4                   # the kernel's register cascade depth
@@ -180,11 +180,12 @@ def kernel_library() -> ctypes.CDLL:
     return lib
 
 
-def launch(inp: PeelInputs):
+def launch(inp: PeelInputs, exact: dict | None = None):
     """One launch of the CUDA kernel on the current stream -- the warp
     walk, then its exact pass over the units the walk left to it (an
     occluder below -1: csrc/tile_walk.cuh) -- returns padded (depth (L,
-    Hp, Wp), tri_id (L, Hp, Wp))."""
+    Hp, Wp), tri_id (L, Hp, Wp)).  With `exact` (a dict), it also
+    receives `units`, as raster_cuda.launch's does."""
     global launches
     dev = inp.tri_rec.device
     cfg = inp.cfg
@@ -229,6 +230,8 @@ def launch(inp: PeelInputs):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fill_peel kernel launch failed: CUDA error {err}")
+    if exact is not None:
+        exact['units'] = exact_units(exact_list, nt)
     launches += 1
     return z, tid
 

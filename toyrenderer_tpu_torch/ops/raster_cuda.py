@@ -378,11 +378,21 @@ def check_records(tri_rec: torch.Tensor, t: int, device):
         raise ValueError("tri_rec: must be 16-byte aligned")
 
 
-def launch(inp: FillInputs):
+def exact_units(exact_list: torch.Tensor, num_tiles: int):
+    """The (tile, region) units a launch's exact pass walked, from its
+    list (csrc/tile_walk.cuh, kListHead), as a device tensor: every unit
+    where a check flag is set, else the units the walk left to it."""
+    return torch.where(exact_list[1:EXACT_LIST_HEAD].any(),
+                       num_tiles * REGIONS, exact_list[0])
+
+
+def launch(inp: FillInputs, exact: dict | None = None):
     """One launch of the CUDA kernel on the current stream -- a check of
     the records for NaN depths, the warp walk, then its exact pass over
     the units the walk left to it (off the frames' domain:
-    csrc/fill_resolve.cu) -- returns padded (depth, tri_id, planes)."""
+    csrc/fill_resolve.cu) -- returns padded (depth, tri_id, planes).
+    With `exact` (a dict), it also receives `units`, the units the exact
+    pass walked (exact_units) of the launch's tiles x 8."""
     global launches
     dev = inp.tri_rec.device
     cfg = inp.cfg
@@ -437,6 +447,8 @@ def launch(inp: FillInputs):
     if err != 0:
         raise RuntimeError(f"fill_resolve kernel launch failed: CUDA "
                            f"error {err}")
+    if exact is not None:
+        exact['units'] = exact_units(exact_list, nt)
     launches += 1
     return z, tid, planes
 
