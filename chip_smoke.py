@@ -47,8 +47,9 @@ both main paths through the port's entry points at 1920x1080:
   against K3's root walk on the same rays;
 * slice 6: `raster.rasterize` over the default view's dense (tiles, K)
   table, its fill (K7) held against its plain version on both of its
-  launches (the opaque set, the masked set continuing its planes), and
-  against the bruteforce oracle on Cornell; the all-on update frame
+  launches (the opaque set, the masked set continuing its planes) and on
+  the masked launch with part of its init depth at -2 (its exact pass),
+  and against the bruteforce oracle on Cornell; the all-on update frame
   rendered again with its probe hits' sun taps read from the sun map;
   the bench's map-shadowed frame (the sun map's one-layer K2 launch
   held against its plain version, 1 + 5 frames, a profile); the stored
@@ -65,15 +66,15 @@ the ray slots the warps took, the last, empty fetch of each included).
 
 Each K1, K2 and K7 line also gives the bound counted at the pixels of
 each tested triangle's bbox (bound_ms) beside the count at every pixel
-of the tile that PERF.md's earlier rows used (bound_all_px_ms); each K1
-and K2 line gives the whole wrapper call's time from CUDA events (ms:
+of the tile that PERF.md's earlier rows used (bound_all_px_ms); each
+line gives the whole wrapper call's time from CUDA events (ms:
 K1's call runs a check of the records for NaN depths, the walk and the
-exact pass, K2's the walk and the exact pass, csrc/tile_walk.cuh) and
-each of those kernels' own from its profiler events (walk_ms, check_ms,
-exact_ms), and the census of the warp walk's corner reject
-(raster_cuda.region_census: (pair, region) tests walked and kept, the
-densest unit's records).  In the `kernels` line, K1's and K2's `ms` is
-the whole call's, the parts beside it.
+exact pass, K2's the walk and the exact pass, csrc/tile_walk.cuh; K7's
+the same three) and each of those kernels' own from its profiler events
+(walk_ms, check_ms, exact_ms), and the census of the warp walk's corner
+reject (raster_cuda.pairs_census: (pair, region) tests walked and kept,
+the densest unit's records).  In the `kernels` line, K1's, K2's and
+K7's `ms` is the whole call's, the parts beside it.
 
 It prints one line per phase, then a `kernels` JSON line and, last, an
 `ok` JSON line.  Any failed phase raises: the script then exits nonzero
@@ -179,11 +180,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 # each hand-written kernel's symbol, and the positions in launch_counts()
 # of the wrappers that launch it
-KERNEL_SYMBOLS = (("fill_resolve_kernel", (0,)), ("nan_check_kernel", (0,)),
+KERNEL_SYMBOLS = (("fill_resolve_kernel", (0,)),
+                  ("nan_check_kernel", (0, 8)),
                   ("fill_resolve_exact_kernel", (0,)),
                   ("fill_peel_kernel", (1,)), ("fill_peel_exact_kernel", (1,)),
                   ("traverse_kernel", (2, 4, 5, 6)), ("warp_kernel", (3,)),
-                  ("pairs_kernel", (7,)), ("fill_dense_kernel", (8,)))
+                  ("pairs_kernel", (7,)), ("fill_dense_kernel", (8,)),
+                  ("fill_dense_exact_kernel", (8,)))
 
 
 def trace(fn):
@@ -402,40 +405,42 @@ def peel_bound_ms(inp, all_px=False) -> tuple[float, str]:
     return bound(ops, bytes_)
 
 
-def dense_bound_ms(args, all_px=False) -> tuple[float, str]:
+def dense_bound_ms(setup, inp, all_px=False) -> tuple[float, str]:
     """Least time the card could take for one dense-table fill (K7) on
-    the arguments of one launch: operations, the edge and depth tests,
-    at the pixels box_pixels counts (or, all_px, at every pixel of the
-    tile), of every table entry a tile walks and of each big triangle
-    whose tile bbox holds the tile (a triangle covers no pixel outside
-    it); bytes, the records of the triangles tested read once, the
-    walked table entries, the big list, the per-tile tables, the init
-    planes given, and the depth and id planes written once."""
+    one launch's inputs (dense_cuda.DenseInputs): operations, the edge
+    and depth tests of every record the kernel's walk tests
+    (dense_cuda.walked_pairs_by_tile: each tile's table entries, then
+    the big triangles whose tile bbox holds it) at the pixels box_pixels
+    counts (none outside a bounded triangle's pixel bbox) or, all_px, at
+    every pixel of the tile; bytes, the records of the triangles tested
+    read once, the walked table entries, the big list and its boxes, the
+    per-tile tables (row start, count, big hit, order), the init planes
+    given, and the depth and id planes written once."""
     import torch
-    from toyrenderer_tpu_torch.ops.raster_cuda import big_boxes
-    setup, table, count, big_list, cfg, init_z, init_id, _ = args
-    k = torch.arange(cfg.max_tris_per_tile, device=table.device)
-    own = k[None, :] < count[:, None]
-    walked = table[own]
-    nb = int((big_list >= 0).sum())
-    box = big_boxes(setup, big_list, cfg)[0][:nb]
-    tiles = torch.arange(cfg.num_tiles, device=table.device)
-    tx, ty = (tiles % cfg.tiles_x)[:, None], (tiles // cfg.tiles_x)[:, None]
-    in_box = ((tx >= box[None, :, 0]) & (tx <= box[None, :, 1])
-              & (ty >= box[None, :, 2]) & (ty <= box[None, :, 3]))
-    big_tile, big_j = torch.nonzero(in_box, as_tuple=True)
-    tile = torch.cat([torch.nonzero(own, as_tuple=True)[0], big_tile])
-    tri = torch.cat([walked, big_list[big_j]]).long()
-    tests = tile.numel()
-    px = (tests * cfg.tile_h * cfg.tile_w if all_px else
+    from toyrenderer_tpu_torch.ops.dense_cuda import walked_pairs_by_tile
+    cfg = inp.cfg
+    tile, tri = walked_pairs_by_tile(inp)
+    px = (tile.numel() * cfg.tile_h * cfg.tile_w if all_px else
           box_pixels(setup['edges'][tri], tile, cfg))
     hp, wp = cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w
-    given = [x for x in (init_z, init_id) if x is not None]
-    tested = torch.unique(torch.cat([walked, big_list[:nb]])).numel()
-    bytes_ = (tested * 16 * 4 + walked.numel() * 4 + nb * 5 * 4
-              + cfg.num_tiles * 4 * 4 + len(given) * hp * wp * 4
-              + 2 * hp * wp * 4)
+    given = [x for x in (inp.init_z, inp.init_id) if x is not None]
+    bytes_ = (torch.unique(tri).numel() * 16 * 4 + int(inp.count.sum()) * 4
+              + int((inp.big_list >= 0).sum()) * 5 * 4
+              + cfg.num_tiles * 4 * 4
+              + len(given) * hp * wp * 4 + 2 * hp * wp * 4)
     return bound(px * OPS_PER_TEST, bytes_)
+
+
+def units_below_floor(depth, cfg) -> int:
+    """The (tile, region) units of an (H, W) init depth that hold a pixel
+    below -1: the units a K1 or K7 walk leaves to its exact pass."""
+    from toyrenderer_tpu_torch.ops.raster_cuda import (
+        REGION_H, REGION_W, pad_image)
+    d = pad_image(depth, cfg)
+    hp, wp = d.shape
+    low = (d < -1).reshape(hp // REGION_H, REGION_H, wp // REGION_W,
+                           REGION_W)
+    return int(low.any(3).any(1).sum())
 
 
 def perceptual_diff(a_u8, b_u8) -> tuple[float, float]:
@@ -491,11 +496,18 @@ def compare_fill(got, want, won_mask) -> float:
 
 
 def every_box(inp):
-    """inp with every big bbox widened to the whole tile grid."""
+    """inp with every big bbox widened to the whole tile grid (K7's
+    DenseInputs: and every tile marked as one a big bbox holds, so every
+    region walks the whole big list)."""
     import torch
-    cfg, box = inp.cfg, inp.lay['big_box']
+    cfg = inp.cfg
+    box = inp.lay['big_box'] if hasattr(inp, 'lay') else inp.big_box
     grid = torch.tensor([0, cfg.tiles_x - 1, 0, cfg.tiles_y - 1],
                         dtype=torch.int32, device=box.device)
+    if not hasattr(inp, 'lay'):
+        return dataclasses.replace(
+            inp, big_box=grid.expand_as(box).contiguous(),
+            bighit=torch.ones_like(inp.bighit))
     return dataclasses.replace(inp, lay=dict(inp.lay,
                                              big_box=grid.expand_as(box)))
 
@@ -572,6 +584,89 @@ def k2_fields(st) -> dict:
                 plain_ms=f"{st['plain_ms']:.1f}",
                 bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1],
                 bound_all_px_ms=f"{st['bound_all_px']:.4f}")
+
+
+def hold_k7(name, args) -> dict:
+    """K7 against its plain version on one launch's arguments: ids and
+    depth bit-equal to raster.fill_visibility at tile_batch 128 (its
+    result does not depend on the batch: tests/test_torch_dense_domain.py),
+    and the exact pass walking the units that hold an init depth below
+    -1 (none on a frame's planes).  Then the whole call's time from CUDA
+    events (ms: dense_cuda.launch_inputs on the prepared inputs, as K1's
+    launch is timed -- the record check, the walk, the exact pass), each
+    of those kernels' own from its profiler events, the plain version's,
+    the bound and the all-pixel bound, and the corner reject's census.
+    Beside them the same call with the big-list bbox filter off (every
+    big bbox the whole grid, every_box): its result bit-equal, its time
+    and its walk's (every_box_ms, every_box_walk_ms), and its census's
+    regions walked.  Prints the phase line; returns those numbers."""
+    import torch
+    from toyrenderer_tpu_torch.ops import dense_cuda, raster_cuda
+    setup, table, count, big, cfg, init_z, _, base = args
+    inp = dense_cuda.dense_inputs(*args)
+    plain = dataclasses.replace(
+        inp, cfg=dataclasses.replace(cfg, tile_batch=128))
+    exact = {}
+    got = dense_cuda.launch_inputs(inp, exact=exact)
+    t = time.time()
+    want = dense_cuda.fill_dense_plain(plain)
+    torch.cuda.synchronize()
+    plain_wall = time.time() - t
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"K7 ({name}): ids differ at "
+                             f"{int((got[1] != want[1]).sum())} pixels")
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"K7 ({name}): depth is not bit-equal")
+    low = 0 if init_z is None else units_below_floor(init_z, cfg)
+    if int(exact['units']) != low:
+        raise AssertionError(f"K7 ({name}): the exact pass walked "
+                             f"{int(exact['units'])} units, want {low}")
+
+    every = every_box(inp)
+    got_every = dense_cuda.launch_inputs(every)
+    if not (torch.equal(got_every[0], got[0])
+            and torch.equal(got_every[1], got[1])):
+        raise AssertionError(f"K7 ({name}): the big-list bbox filter "
+                             "changes the result")
+
+    def call(inp=inp):
+        return dense_cuda.launch_inputs(inp)
+    st = dict(err=float((got[0] - want[0]).abs().max()),
+              ms=cuda_ms(call, KERNEL_REPS),
+              **{f"{part}_ms": kernel_ms(call, KERNEL_REPS, symbol)
+                 for part, symbol in (("walk", "fill_dense_kernel"),
+                                      ("check", "nan_check_kernel"),
+                                      ("exact", "fill_dense_exact_kernel"))},
+              plain_ms=cuda_ms(lambda: dense_cuda.fill_dense_plain(plain),
+                               1),
+              bound=dense_bound_ms(setup, inp),
+              bound_all_px=dense_bound_ms(setup, inp, True)[0],
+              census=raster_cuda.pairs_census(
+                  *dense_cuda.walked_pairs_by_tile(inp), inp.tri_rec, cfg),
+              every_box_ms=cuda_ms(lambda: call(every), KERNEL_REPS),
+              every_box_walk_ms=kernel_ms(lambda: call(every), KERNEL_REPS,
+                                          "fill_dense_kernel"),
+              every_box_regions_walked=len(
+                  dense_cuda.walked_pairs_by_tile(every)[0])
+              * raster_cuda.REGIONS,
+              exact_units=low)
+    phase("K7 vs plain", input=json.dumps(name), K=cfg.max_tris_per_tile,
+          B=cfg.max_big_tris, binned_pairs=int(count.sum()),
+          max_tile_pairs=int(count.max()), big_tris=int((big >= 0).sum()),
+          init_planes=init_z is not None, emit_base=base,
+          won_px=int((got[1] >= base).sum()), ids="equal",
+          depth="bit-equal", exact_units=low,
+          census=json.dumps(st['census']), ms=f"{st['ms']:.4f}",
+          walk_ms=f"{st['walk_ms']:.4f}", check_ms=f"{st['check_ms']:.4f}",
+          exact_ms=f"{st['exact_ms']:.4f}",
+          every_box_ms=f"{st['every_box_ms']:.4f}",
+          every_box_walk_ms=f"{st['every_box_walk_ms']:.4f}",
+          every_box_regions_walked=st['every_box_regions_walked'],
+          plain_ms=f"{st['plain_ms']:.1f}",
+          plain_first_wall_s=f"{plain_wall:.1f}",
+          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1],
+          bound_all_px_ms=f"{st['bound_all_px']:.4f}")
+    return st
 
 
 @contextlib.contextmanager
@@ -1997,45 +2092,17 @@ def main() -> int:
             ("masked", setup_m, cfgs["masked"]))}
     if any(k7_drops.values()):
         raise AssertionError(f"rasterize: drops {k7_drops}")
-    k7 = {}
-    for name, args in zip(("opaque", "masked set continuing the opaque "
-                           "planes"), dense_in):
-        got = dense_cuda.launch(*args)
-        setup, table, count, big, cfg_d, init_z, init_id, base = args
-        # the plain version at a larger tile batch: batching does not
-        # change a tile's arithmetic
-        plain = (setup, table, big,
-                 dataclasses.replace(cfg_d, tile_batch=128), init_z,
-                 init_id, base)
-        t = time.time()
-        want = raster_mod.fill_visibility(*plain)
-        torch.cuda.synchronize()
-        plain_wall = time.time() - t
-        if not torch.equal(got[1], want[1]):
-            raise AssertionError(f"K7 ({name}): ids differ at "
-                                 f"{int((got[1] != want[1]).sum())} pixels")
-        if not torch.equal(got[0], want[0]):
-            raise AssertionError(f"K7 ({name}): depth is not bit-equal")
-        k7[name] = dict(
-            err=float((got[0] - want[0]).abs().max()),
-            ms=kernel_ms(lambda: dense_cuda.launch(*args), KERNEL_REPS,
-                         "fill_dense_kernel"),
-            plain_ms=cuda_ms(lambda: raster_mod.fill_visibility(*plain), 1),
-            bound=dense_bound_ms(args),
-            bound_all_px=dense_bound_ms(args, True)[0])
-        phase("K7 vs plain", input=json.dumps(name), K=cfg_d.
-              max_tris_per_tile, B=cfg_d.max_big_tris,
-              binned_pairs=int(count.sum()), max_tile_pairs=int(count.max()),
-              big_tris=int((big >= 0).sum()), init_planes=init_z is not None,
-              emit_base=base, won_px=int((got[1] >= base).sum()),
-              ids="equal", depth="bit-equal",
-              kernel_ms=f"{k7[name]['ms']:.4f}",
-              plain_ms=f"{k7[name]['plain_ms']:.1f}",
-              plain_first_wall_s=f"{plain_wall:.1f}",
-              bound_ms=f"{k7[name]['bound'][0]:.4f}",
-              bound_by=k7[name]['bound'][1],
-              bound_all_px_ms=f"{k7[name]['bound_all_px']:.4f}")
-    del dense_in, args, setup, table, plain, got, want
+    k7 = {name: hold_k7(name, args) for name, args in zip(
+        ("opaque", "masked set continuing the opaque planes"), dense_in)}
+    # one call off the frames' domain: the masked set's, its init depth
+    # at -2 left of column 640, where the plain fill's missed centres and
+    # empty slots win with id -1 (the exact pass's units)
+    setup, table, count, big, cfg_d, init_z, init_id, base = dense_in[1]
+    col = torch.arange(init_z.shape[1], device=dev)
+    k7_low = hold_k7("masked set, init depth -2 left of x = 640",
+                     (setup, table, count, big, cfg_d,
+                      torch.where(col < 640, -2.0, init_z), init_id, base))
+    del dense_in, setup, table, init_z, init_id
     raster_ms = cuda_ms(lambda: raster_mod.rasterize(geo_o, cfgs["opaque"]),
                         3)
     phase("rasterize", size=f"{WIDTH}x{HEIGHT}",
@@ -2321,7 +2388,8 @@ def main() -> int:
     #     first-round launches of rtbench's two binned rows (its launches
     #     are the whole rtbench run's); fill_peel also lists the sun map's
     #     launch; fill_dense: the mean over rasterize's two launches (the
-    #     opaque set, the masked set continuing it)
+    #     opaque set, the masked set continuing it), the call off the
+    #     frames' domain listed beside them
     def row(name, st, main):
         extra = {k: st[k] for k in ('events_ms', 'walk_ms', 'check_ms',
                                     'exact_ms', 'census', 'live_share',
@@ -2387,7 +2455,7 @@ def main() -> int:
              source="toyrenderer_tpu_torch/csrc/fill_dense.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:66",
              launches=k7_launches[8],
-             max_abs_err=max(v['err'] for v in k7.values()),
+             max_abs_err=max(v['err'] for v in [*k7.values(), k7_low]),
              ms=statistics.mean(v['ms'] for v in k7.values()),
              plain_ms=statistics.mean(v['plain_ms'] for v in k7.values()),
              bound_ms=statistics.mean(v['bound'][0] for v in k7.values()),
@@ -2396,7 +2464,10 @@ def main() -> int:
              bound_all_px_ms=statistics.mean(v['bound_all_px']
                                              for v in k7.values()),
              library_ms=None,
-             inputs=[row(k, v, True) for k, v in k7.items()])]
+             inputs=[row(k, v, True) for k, v in k7.items()]
+             + [dict(row("masked set, init depth -2 left of x = 640",
+                         k7_low, False), exact_units=k7_low['exact_units'])]
+             )]
     for name, line, st, n, path in (
             ("traverse_sah", 250, k3s, a_launches[4], "all-on"),
             ("traverse_gdir", 595, k5, k5_launches,

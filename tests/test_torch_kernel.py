@@ -19,8 +19,8 @@ bit-equal, for the same reason (each ray walks the tree in the plain
 version's order, whichever warp runs it); K6's best t and ordinal
 bit-equal (each form summed in the plain version's order; the 39
 coefficients mt_tables zeroes add nothing to a ray with finite
-features, and a ray without them sums all 16 terms).  The K1 and K2
-inputs include ones off the frames' domain (init or occluder depths
+features, and a ray without them sums all 16 terms).  The K1, K2 and
+K7 inputs include ones off the frames' domain (init or occluder depths
 below -1, NaN depths), where the kernels walk exactly as the plain
 versions do.
 """
@@ -329,6 +329,66 @@ def test_fills_match_plain_on_adversarial_records(cuda_device, variant):
             assert torch.equal(z_k, z_p), (layers, occ is None)
             assert int(exact['units']) == (
                 0 if occ is None else _units_below_floor(inp.occluder))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["base", "behind", "centres", "tiny",
+                                     "small", "huge", "huge_edges",
+                                     "nan_edges", "nan"])
+def test_dense_fill_matches_plain_on_adversarial_records(cuda_device,
+                                                         variant):
+    """K7 on the records of test_fills_match_plain_on_adversarial_records
+    over bin_triangles' dense table: a first fill, then a continuation
+    from init planes part at depth -1 (a failed test ties and must not
+    win) and part at -2 (the plain fill's missed centres and empty slots
+    win there with id -1) with an id offset, and that continuation again
+    with every third tile's own list and the big list emptied (their -2
+    pixels go to an empty slot).  Ids and depth bit-equal to the plain
+    version, raster.fill_dense as raster.fill_visibility runs it, on the
+    same records.  The `centres` records cover tiles outside their
+    triangles' bbox, so their big triangles' boxes are the whole grid;
+    every other variant's records cover no pixel outside them, and the
+    walk's big-list bbox filter runs on the setup's boxes.  Each call's
+    exact pass walks exactly the units holding a pixel below -1, or
+    every unit when a record's depth may be NaN (`nan`, `huge`)."""
+    from toyrenderer_tpu_torch.ops import dense_cuda as DC
+    setup, _, _, cfg, rec = _adversarial(cuda_device, variant)
+    table, count, big, _ = R.bin_triangles(setup, cfg)
+    every = cfg.num_tiles * RC.REGIONS
+    checked = bool((rec[:, 9:15].abs() <= RC.MARGIN_CAP).all())
+    assert checked == (variant not in ("nan", "huge"))
+
+    def held(want_exact, table=table, count=count, big=big, **kw):
+        inp = dataclasses.replace(
+            DC.dense_inputs(setup, table, count, big, cfg, **kw),
+            tri_rec=rec)
+        if variant == "centres":
+            grid = torch.tensor([0, cfg.tiles_x - 1, 0, cfg.tiles_y - 1],
+                                dtype=torch.int32, device=cuda_device)
+            inp = dataclasses.replace(
+                inp, big_box=grid.expand_as(inp.big_box).contiguous(),
+                bighit=torch.ones_like(inp.bighit))
+        exact = {}
+        z_k, id_k = DC.launch_inputs(inp, exact=exact)
+        z_p, id_p = DC.fill_dense_plain(inp)
+        assert torch.equal(id_k, id_p), int((id_k != id_p).sum())
+        assert torch.equal(z_k, z_p)
+        assert int(exact['units']) == (want_exact if checked else every)
+        return z_k, id_k
+
+    z0, id0 = held(0)
+    assert bool((id0 >= 0).any())
+    col = torch.arange(z0.shape[1], device=cuda_device)
+    low = torch.where(col < 128, -1.0, torch.where(col < 300, -2.0,
+                                                   z0 * 0.5))
+    want = _units_below_floor(RC.pad_image(low, cfg))
+    assert 0 < want < every
+    cont = dict(init_depth=low, init_tri_id=id0, emit_base=5000)
+    held(want, **cont)
+    bare, bare_count = table.clone(), count.clone()
+    bare[::3], bare_count[::3] = -1, 0
+    _, id2 = held(want, bare, bare_count, torch.full_like(big, -1), **cont)
+    assert bool((id2[low < -1] == -1).any())
 
 
 @pytest.mark.cuda

@@ -154,3 +154,39 @@ def test_binned_matches_bruteforce(case):
     _, zf, idf = TR.rasterize_bruteforce(case['tgeo'], case['tcfg'])
     np.testing.assert_allclose(zb.numpy(), zf.numpy(), atol=1e-5)
     assert (idb != idf).float().mean() < 0.001
+
+
+def test_dense_kernel_inputs_on_cpu(case):
+    """The dense-table kernel's prepared inputs on CPU tensors: its plain
+    version on them (the reference the kernel is held against on the
+    card) is raster.fill_visibility bit for bit, continuation included;
+    the records its walk tests are each tile's first tile_count table
+    entries and the big triangles whose tile bbox holds the tile; and no
+    big triangle's record covers a pixel centre of a tile outside its
+    bbox (what lets the walk skip them there)."""
+    cfg = case['tcfg']
+    setup = TR.setup_triangles(case['tgeo'], cfg)
+    table, count, big, _ = TR.bin_triangles(setup, cfg)
+    z0, id0 = TR.fill_visibility(setup, table, big, cfg)
+    init_z = torch.where(torch.arange(z0.shape[1]) < 64, -2.0, z0 * 0.5)
+    for kw in ({}, dict(init_depth=init_z, init_tri_id=id0, emit_base=99)):
+        inp = dense_cuda.dense_inputs(setup, table, count, big, cfg, **kw)
+        z, tid = dense_cuda.fill_dense_plain(inp)
+        zw, idw = TR.fill_visibility(setup, table, big, cfg, **kw)
+        assert torch.equal(tid, idw) and torch.equal(z, zw)
+    tile, tri = dense_cuda.walked_pairs_by_tile(inp)
+    tiles = torch.arange(cfg.num_tiles)
+    tx, ty = tiles % cfg.tiles_x, tiles // cfg.tiles_x
+    box = inp.big_box.long()
+    nb = int((big >= 0).sum())          # 10 on Cornell, none at random
+    inside = ((tx[:, None] >= box[None, :nb, 0])
+              & (tx[:, None] <= box[None, :nb, 1])
+              & (ty[:, None] >= box[None, :nb, 2])
+              & (ty[:, None] <= box[None, :nb, 3]))        # (tiles, nb)
+    assert tile.numel() == int(count.sum()) + int(inside.sum())
+    assert torch.equal(inp.bighit, inside.any(1).to(torch.int32))
+    pxn, pyn = TR.tile_pixel_coords(cfg, tiles)
+    depth = TR.coverage_depth(inp.tri_rec[big[:nb].long()][None],
+                              pxn[:, None], pyn[:, None])  # (tiles, nb, ..)
+    assert bool((depth[~inside] == -1.0).all())
+    assert nb == 0 or bool((depth[inside] != -1.0).any())

@@ -37,8 +37,9 @@
 // strictly nearer, the batch's empty slots scored -1 (tile_walk.cuh,
 // "The fills' domain").  The walk leaves a region to it when an init
 // depth there is below -1, and every region when a check before the
-// walk (nan_check_kernel) finds a record whose depth may be NaN (a
-// depth coefficient not a number or past kMarginCap).  No frame's input
+// walk (tile_walk::nan_check_kernel, shared with K7) finds a record whose
+// depth may be NaN (a depth coefficient not a number or past
+// kMarginCap).  No frame's input
 // is either, and the walk keeps its registers, occupancy and code: the
 // frames pay the check's read of the records' depth coefficients and an
 // exact pass that finds no unit to walk.
@@ -80,7 +81,6 @@ struct Params {
   int* __restrict__ id_out;
   float* __restrict__ planes_out;      // (32, Hp, Wp)
   int* __restrict__ exact_list;        // tile_walk.cuh, kListHead
-  int n_records;
   int hp, emit_base;
   float peel_bound;
 };
@@ -305,35 +305,6 @@ __device__ __forceinline__ void exact_unit(const Params& p,
   resolve_unit(p, px, bz, bw, iid);
 }
 
-// Whether record i's depth numerator or denominator coefficient is not
-// a number or above kMarginCap: below it no sum overflows (a pixel
-// centre's magnitude is at most 128, the padded grid being less than a
-// tile wider and taller than the screen), so no covered pixel's depth is
-// NaN.
-__device__ __forceinline__ bool maybe_nan(const float* tri_rec, int i) {
-  const float4* r = reinterpret_cast<const float4*>(tri_rec) + 4 * i;
-  const float4 a = __ldg(r + 2), b = __ldg(r + 3);
-  constexpr float cap = tile_walk::kMarginCap;
-  return !(fabsf(a.y) <= cap && fabsf(a.z) <= cap && fabsf(a.w) <= cap
-           && fabsf(b.x) <= cap && fabsf(b.y) <= cap && fabsf(b.z) <= cap);
-}
-
-// The record check, before the walk: block b sets the exact pass's
-// check flag b where its share of the records holds one whose depth may
-// be NaN, and block 0 zeroes the pass's count.
-__global__ void __launch_bounds__(256) nan_check_kernel(const Params p) {
-  bool risky = false;
-#pragma unroll 4
-  for (int i = blockIdx.x * 256 + threadIdx.x; i < p.n_records;
-       i += tile_walk::kChecks * 256)
-    risky |= maybe_nan(p.s.tri_rec, i);
-  risky = __syncthreads_or(risky) != 0;
-  if (threadIdx.x == 0) {
-    p.exact_list[1 + blockIdx.x] = risky;
-    if (blockIdx.x == 0) p.exact_list[0] = 0;
-  }
-}
-
 __global__ void __launch_bounds__(tile_walk::kWalkThreads)
 fill_resolve_kernel(const __grid_constant__ Params p) {
   __shared__ tile_walk::Slot slots[tile_walk::kWalkWarps];
@@ -426,13 +397,14 @@ extern "C" int fill_resolve_launch(
   p.planes_out = static_cast<float*>(planes_out);
   p.exact_list = static_cast<int*>(exact_list);
   const int units = num_tiles * tile_walk::kWarps;
-  p.n_records = n_records;
   p.hp = hp;
   p.emit_base = emit_base;
   p.peel_bound = peel_bound;
   const int blocks = tile_walk::walk_blocks(num_tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nan_check_kernel<<<tile_walk::kChecks, 256, 0, s>>>(p);
+  tile_walk::nan_check_kernel<<<tile_walk::kChecks,
+                               tile_walk::kCheckThreads, 0, s>>>(
+      p.s.tri_rec, n_records, p.exact_list);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fill_resolve_kernel<<<blocks, tile_walk::kWalkThreads, 0, s>>>(p);

@@ -1,49 +1,45 @@
-// The tile walks of the fill kernels: the block walk of the dense-table
-// fill (K7, fill_dense.cu) and the warp walk of the streamed fills (K1,
-// fill_resolve.cu; K2, fill_peel.cu).
+// The warp walk of the fill kernels: the streamed fills (K1,
+// fill_resolve.cu; K2, fill_peel.cu) and the dense-table fill (K7,
+// fill_dense.cu, whose table rows it reads as a pair stream of stride K).
 //
 // The pixels: a 16x128 screen tile is eight 32x8 regions, each one
 // warp's; a lane owns 8 pixels of one column of its region.  The plain
-// PyTorch versions walk the same tables (raster_cuda.walk_tables) and
-// round the pixel centres the same way, which the kernels' bit-equality
-// with them relies on.
+// PyTorch versions walk the same tables (raster_cuda.walk_tables,
+// raster.fill_dense) and round the pixel centres the same way, which the
+// kernels' bit-equality with them relies on.
 //
-// walk (K7): one 256-thread block renders one tile, the tiles taken
-// heaviest first (tile_order).  A visited tile walks its own (tile,
-// triangle) pairs in stream order, then the big triangles whose tile
-// bbox holds it: warp 0 keeps those, in list order, by a ballot over 32
-// list entries at a time (a triangle covers no pixel outside its bbox,
-// so the filter changes no pixel).  Each batch of up to 32 raster
-// records is staged in shared memory and handed to the kernel's
-// per-pixel body, with a __syncthreads per batch.
+// walk_region: the warp is the unit of work.  The units -- the (tile,
+// region) pairs, the tiles heaviest first -- are dealt so that warp w of
+// block b takes unit w * B + b of B blocks: the eight regions of the
+// densest tile run on eight blocks (eight SMs), not one.  A warp walks
+// its tile's pairs, then the big list (each lane testing one entry
+// against the tile bbox), by itself: lane r loads
+// record r of a batch of up to 32 with 16-byte loads, the next batch's
+// records and the batch after's ids in flight while this one runs; each
+// lane then tests its record against the region's four corner pixel
+// centres (region_rejects, below) and a ballot keeps the rest, which are
+// staged in the warp's own 2 KB slot of shared memory in stream order
+// and handed to the body.  Only __syncwarp orders the slot: no warp
+// waits for another.
 //
-// walk_region (K1, K2): the warp is the unit of work.  The units -- the
-// (tile, region) pairs, the tiles heaviest first -- are dealt so that
-// warp w of block b takes unit w * B + b of B blocks: the eight regions
-// of the densest tile run on eight blocks (eight SMs), not one.  A warp
-// walks its tile's pairs, then the big list (each lane testing one entry
-// against the tile bbox), by itself: lane r loads record r of a batch of
-// up to 32 with 16-byte loads, the next batch's records and the batch
-// after's ids in flight while this one runs; each lane then tests its
-// record against the region's four corner pixel centres (region_rejects,
-// below) and a ballot keeps the rest, which are staged in the warp's own
-// 2 KB slot of shared memory in stream order and handed to the body.
-// Only __syncwarp orders the slot: no warp waits for another.
-//
-// The fills' domain, and the exact walk.  The plain fills
-// (raster.fill_tiles, peel_cuda.peel_tiles) walk each tile's compacted
-// stream -- its pairs, then its big triangles -- in chunks of `chunk`
-// positions, padded with empty slots to the longest list of its batch of
-// `tile_batch` tiles, and score a missed centre or an empty slot at -1.
-// Neither a skipped record nor a missing slot changes a pixel whose init
-// depth (K1) or occluder (K2) is at least -1, as every frame's is, and
-// the kernels' fast walks rely on that.  A warp whose region holds a
-// pixel below -1 leaves it to the launch's exact pass, which walks it
-// with walk_region<false>: every record in stream order, no reject, the
-// position counted, then the batch's empty slots (batch_slots).  K1's
-// exact pass takes every region when a check of the records finds one
-// whose depth may be NaN at a covered pixel: the plain fill's chunk
-// maximum takes a NaN, and the whole chunk loses at that pixel.
+// The fills' domain, and the exact walk.  The plain fills score a missed
+// centre or an empty slot at -1 and take each chunk's first maximum:
+// the streamed fills' (raster.fill_tiles, peel_cuda.peel_tiles) over
+// each tile's compacted stream -- its pairs, then its big triangles --
+// in chunks of `chunk` positions, padded with empty slots to the longest
+// list of its batch of `tile_batch` tiles; the dense fill's
+// (raster.fill_dense, the reference's XLA fill) over the whole table row
+// and then the whole big list.  Neither a skipped record nor a missing
+// slot changes a pixel whose init depth (K1, K7) or occluder (K2) is at
+// least -1, as every frame's is, and the kernels' fast walks rely on
+// that.  A warp whose region holds a pixel below -1 leaves it to the
+// launch's exact pass, which walks it on its plain fill's grid: K1 and
+// K2 with walk_region<false> (every record in stream order, no reject,
+// the position counted, then the batch's empty slots, batch_slots), K7
+// slot by slot.  K1's and K7's exact pass takes every region when the
+// record check (nan_check_kernel) finds a record whose depth may be NaN
+// at a covered pixel: the plain fill's chunk maximum takes a NaN, and
+// the whole chunk loses at that pixel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,8 +49,7 @@ namespace tile_walk {
 
 constexpr int kTileH = 16;
 constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kRows = kTileH * kTileW / kThreads;   // pixels per thread
+constexpr int kRows = 8;                            // pixels per lane
 constexpr int kBatch = 32;                          // records per stage
 static_assert(kBatch == 32, "the big-list filter is one warp ballot");
 constexpr int kRec = 16;                            // raster record floats
@@ -69,7 +64,7 @@ struct Stream {
   const int* bighit;         // (tiles,) 1 = a big triangle's bbox touches
   const int* big_list;       // (B,) big triangle ids, -1 after the last
   const int4* big_box;       // (B,) their tile bbox: tx0, tx1, ty0, ty1
-  const int* tile_order;     // (tiles,) the tile each block renders
+  const int* tile_order;     // (tiles,) the tiles, heaviest first
   const int* tile_len;       // (tiles,) stream positions (exact walk)
   int num_tiles, chunk, tile_batch;   // the plain fills' chunk grid
   int big_cap;
@@ -77,22 +72,11 @@ struct Stream {
   float inv_w, inv_h;
 };
 
-struct Shared {
-  float rec[kBatch][kRec];
-  int tri[kBatch];
-  int n_hit, list_end;
-};
-
 // This thread's tile and pixels: the tile, its coordinates, the column,
 // the first of the thread's rows, and the flat index of each pixel.
 struct Pixels {
   int tile, tx, ty, col, row0, x;
   size_t pix[kRows];
-
-  // the block walk's: block b renders tile tile_order[b]
-  __device__ __forceinline__ explicit Pixels(const Stream& s)
-      : Pixels(s, s.tile_order[blockIdx.x], threadIdx.x % kTileW,
-               (threadIdx.x / kTileW) * kRows) {}
 
   __device__ __forceinline__ Pixels(const Stream& s, int tile_, int col_,
                                     int row0_) {
@@ -135,66 +119,9 @@ __device__ __forceinline__ bool covers(const float* e, float x, float y,
   return in;
 }
 
-// Stage records of the n triangles tri[0..n) into shared memory.
-__device__ __forceinline__ void stage(const float* tri_rec,
-                                      float (*rec)[kRec], const int* tri,
-                                      int n) {
-  for (int j = threadIdx.x; j < n * kRec; j += kThreads)
-    rec[j / kRec][j % kRec] = tri_rec[(size_t)tri[j / kRec] * kRec
-                                      + j % kRec];
-}
+// ---- the warp walk ---------------------------------------------------------
 
-// Walk a visited tile: body(rec, tri, n) for each staged batch of its
-// own pairs, then of the big triangles whose tile bbox holds it.  Every
-// thread of the block calls it.
-template <class Body>
-__device__ __forceinline__ void walk(const Stream& s, const Pixels& px,
-                                     Shared& sh, Body body) {
-  const int first = s.offs[px.tile];
-  const int count = s.counts_eff[px.tile];
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    const int n = min(kBatch, count - b0);
-    if (threadIdx.x < n)
-      sh.tri[threadIdx.x] = s.vals_s[first + b0 + threadIdx.x];
-    __syncthreads();
-    stage(s.tri_rec, sh.rec, sh.tri, n);
-    __syncthreads();
-    body(sh.rec, sh.tri, n);
-    __syncthreads();
-  }
-
-  if (s.bighit[px.tile] <= 0) return;
-  for (int b0 = 0; b0 < s.big_cap; b0 += kBatch) {
-    if (threadIdx.x < kBatch) {
-      const int j = b0 + threadIdx.x;
-      const int t = j < s.big_cap ? s.big_list[j] : -1;
-      bool hit = false;
-      if (t >= 0) {
-        const int4 b = s.big_box[j];
-        hit = px.tx >= b.x && px.tx <= b.y && px.ty >= b.z && px.ty <= b.w;
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, hit);
-      const unsigned ended = __ballot_sync(0xffffffffu, t < 0);
-      if (hit) sh.tri[__popc(m & ((1u << threadIdx.x) - 1u))] = t;
-      if (threadIdx.x == 0) {
-        sh.n_hit = __popc(m);
-        sh.list_end = ended != 0u;
-      }
-    }
-    __syncthreads();
-    const int n = sh.n_hit;
-    const bool done = sh.list_end;
-    stage(s.tri_rec, sh.rec, sh.tri, n);
-    __syncthreads();
-    body(sh.rec, sh.tri, n);
-    __syncthreads();
-    if (done) break;
-  }
-}
-
-// ---- the warp walk (K1, K2) ---------------------------------------------
-
-constexpr int kWarps = kThreads / 32;               // regions per tile
+constexpr int kWarps = kTileH * kTileW / (32 * kRows);  // regions a tile
 constexpr int kRegionW = kTileW / 4;                // columns per region
 static_assert(kWarps == 8 && kRegionW == 32 && 2 * kRows == kTileH,
               "a tile is 4 x 2 regions of 32 x 8 pixels, one per warp");
@@ -283,8 +210,8 @@ __device__ __forceinline__ bool region_rejects(const float4* r,
 // This lane's pixels in the warp walk.  Warp w of block b takes unit
 // u = w * gridDim.x + b (region_unit) of the units ordered heaviest tile
 // first: tile tile_order[u / 8], region q = u % 8, whose pixels are
-// columns 32 (q % 4) .. + 31 and rows 8 (q / 4) .. + 7 of the tile -- the
-// pixels the block walk gives warp q.  The launch has walk_blocks(tiles)
+// columns 32 (q % 4) .. + 31 and rows 8 (q / 4) .. + 7 of the tile.  The
+// launch has walk_blocks(tiles)
 // blocks of kWalkWarps warps, so every unit is dealt once, and the blocks
 // that start first hold the heaviest units (raster_cuda.dealt_units).
 __device__ __forceinline__ int region_unit() {
@@ -299,16 +226,49 @@ __device__ __forceinline__ Pixels region_pixels(const Stream& s, int unit) {
 }
 
 // The exact pass's list: [0] the units the walk left to it; then a flag
-// for each of kChecks blocks of K1's record check, 1 where the block
-// found a record whose depth may be NaN (every unit then goes to the
-// exact pass); then the left units' numbers, in no order.  K1's check
+// for each of kChecks blocks of the record check (K1, K7), 1 where the
+// block found a record whose depth may be NaN (every unit then goes to
+// the exact pass); then the left units' numbers, in no order.  The check
 // writes the head; K2's launch zeroes it.
 constexpr int kChecks = kWalkThreads;
 constexpr int kListHead = 1 + kChecks;
+constexpr int kCheckThreads = 256;
 
 // Leave this warp's unit to the exact pass (lane 0 calls it).
 __device__ __forceinline__ void leave_unit(int* list, int unit) {
   list[kListHead + atomicAdd(list, 1)] = unit;
+}
+
+// Whether record i's depth numerator or denominator coefficient is not
+// a number or above kMarginCap: below it no sum overflows (a pixel
+// centre's magnitude is at most 128, the padded grid being less than a
+// tile wider and taller than the screen), so no covered pixel's depth is
+// NaN.
+__device__ __forceinline__ bool maybe_nan(const float* tri_rec, int i) {
+  const float4* r = reinterpret_cast<const float4*>(tri_rec) + 4 * i;
+  const float4 a = __ldg(r + 2), b = __ldg(r + 3);
+  return !(fabsf(a.y) <= kMarginCap && fabsf(a.z) <= kMarginCap
+           && fabsf(a.w) <= kMarginCap && fabsf(b.x) <= kMarginCap
+           && fabsf(b.y) <= kMarginCap && fabsf(b.z) <= kMarginCap);
+}
+
+// The record check, before the walk (K1, K7; kChecks blocks of
+// kCheckThreads): block b sets the exact pass's check flag b where its
+// share of the n records holds one whose depth may be NaN, and block 0
+// zeroes the pass's count.
+static __global__ void __launch_bounds__(kCheckThreads)
+nan_check_kernel(const float* __restrict__ tri_rec, int n,
+                 int* __restrict__ list) {
+  bool risky = false;
+#pragma unroll 4
+  for (int i = blockIdx.x * kCheckThreads + threadIdx.x; i < n;
+       i += kChecks * kCheckThreads)
+    risky |= maybe_nan(tri_rec, i);
+  risky = __syncthreads_or(risky) != 0;
+  if (threadIdx.x == 0) {
+    list[1 + blockIdx.x] = risky;
+    if (blockIdx.x == 0) list[0] = 0;
+  }
 }
 
 // The exact pass's launch: a block an SM of the H100, each warp taking
@@ -348,9 +308,10 @@ struct Entry {
 // Walk a visited tile for this warp's region: body(rec, tri, n) for each
 // batch's kept records, in stream order -- the tile's own pairs, then the
 // big triangles whose tile bbox holds the tile.  kReject: a record
-// region_rejects is dropped before the body sees it (without it, the
-// body sees every position of the tile's stream).  Every lane of the
-// warp calls it; the body runs on all of them.
+// region_rejects is dropped
+// before the body sees it (without it, the body sees every position of
+// the tile's stream).  Every lane of the warp calls it; the body runs on
+// all of them.
 template <bool kReject, class Body>
 __device__ __forceinline__ void walk_region(const Stream& s,
                                             const Pixels& px, Slot& slot,

@@ -15,6 +15,8 @@ Stages:
                            than the grid go to the big list
   3. `fill_visibility`  -- per tile, walk its triangle list in chunks
                            and keep the nearest fragment per pixel
+                           (`fill_dense`: the reference's XLA fill,
+                           step for step, on every input)
 
 `rasterize` runs the three over the dense (tiles, K) table of
 `bin_triangles`, its fill the dense-table kernel (ops/dense_cuda.py) on
@@ -336,7 +338,10 @@ def coverage_depth(rec: torch.Tensor, pxn: torch.Tensor,
 def fill_tiles(tri_rec: torch.Tensor, table: torch.Tensor,
                big_table: torch.Tensor, cfg: RasterConfig,
                init_z: torch.Tensor, peel: torch.Tensor | None = None):
-    """The plain chunked fill over whole tiles.
+    """The streamed fills' plain chunked walk over whole tiles (K1's and
+    K2's plain versions, raster_cuda.fill_resolve_plain and
+    peel_cuda.peel_tiles, on the Pallas stream kernels' grid; the dense
+    fill has its own, `fill_dense`).
 
     tri_rec: (T, 16) from pack_tri_records.  table: (tiles, K) triangle
     ids in stream order, -1 padded; big_table: (tiles, B) the big list
@@ -388,19 +393,125 @@ def fill_tiles(tri_rec: torch.Tensor, table: torch.Tensor,
     return z_out, win_out
 
 
+def chunk_starts(n: int, c: int) -> list[int]:
+    """The first slot of each chunk of `c` slots over `n`: 0, c, 2c, ...,
+    the last moved back to end at slot n, as the reference's
+    `dynamic_slice` clamps it (c <= n)."""
+    return [min(s, n - c) for s in range(0, n, c)]
+
+
+def occupied_chunks(ids: torch.Tensor, starts: list[int],
+                    c: int) -> torch.Tensor:
+    """(rows, chunks) bool on the host: whether row r of ids (rows, n)
+    holds an entry (id >= 0) in the chunk of `c` slots from starts[j]."""
+    hits = torch.cumsum((ids >= 0).to(torch.int32), 1)
+    hits = torch.cat([hits.new_zeros(hits.shape[0], 1), hits], 1)
+    at = torch.tensor(starts, device=ids.device)
+    return (hits[:, at + c] - hits[:, at] > 0).cpu()
+
+
+def fill_dense(tri_rec: torch.Tensor, table: torch.Tensor,
+               big_list: torch.Tensor, cfg: RasterConfig,
+               init_z: torch.Tensor, init_id: torch.Tensor,
+               emit_base: int = 0, peel: torch.Tensor | None = None):
+    """The dense-table fill over whole tiles: the reference package's
+    XLA fill (raster.py `fill_visibility`), step for step, on every
+    input.
+
+    tri_rec: (T, 16) raster records (`dense_records`).  table: (tiles,
+    K) triangle ids, -1 for an empty slot; big_list: (B,).  init_z /
+    init_id / peel: (tiles, TH, TW).  Each tile walks its table row from
+    slot 0 in chunks of min(chunk, K) slots (`chunk_starts`), then the
+    whole big list in chunks of min(chunk, B).  An empty slot (id < 0)
+    scores -1 and emits its id; a triangle emits its id + emit_base.  A
+    chunk's first maximum wins inside it and commits where it is
+    strictly nearer than the depth so far (a NaN maximum never is).
+    Returns (z, tid) (tiles, TH, TW): pixels no chunk won keep init_id.
+
+    A chunk of empty slots scores -1 at every pixel, with its first
+    slot's id: the chunk's tests run only on the rows that hold an entry
+    in it, the others take that score.  Such a chunk lifts the pixels
+    below -1 to -1 and changes no other; no chunk lowers a depth.  So of
+    the chunks empty on every tile of a batch only the batch's first
+    runs, and the result does not depend on cfg.tile_batch."""
+    n_tiles, k = table.shape
+    nb = big_list.shape[0]
+    c, cb = min(cfg.chunk, k), min(cfg.chunk, nb)
+    starts, big_starts = chunk_starts(k, c), chunk_starts(nb, cb)
+    big_occupied = occupied_chunks(big_list[None, :], big_starts, cb)[0]
+    z_out = torch.empty_like(init_z)
+    id_out = torch.empty_like(init_id)
+    for b0 in range(0, n_tiles, cfg.tile_batch):
+        b1 = min(b0 + cfg.tile_batch, n_tiles)
+        tiles = torch.arange(b0, b1, device=table.device)
+        pxn, pyn = tile_pixel_coords(cfg, tiles)
+        best_z = init_z[b0:b1].clone()
+        best_id = init_id[b0:b1].clone()
+        pk = None if peel is None else peel[b0:b1] * PEEL_BOUND
+        rows = table[b0:b1]
+        big = big_list[None, :].expand(b1 - b0, -1)
+        grid = ([(rows, s, c) for s in starts]
+                + [(big, s, cb) for s in big_starts])
+        occupied = torch.cat([
+            occupied_chunks(rows, starts, c),
+            big_occupied[None, :].expand(b1 - b0, -1)], 1).T
+        lifted = False
+        for (src, s, n), occ in zip(grid, occupied):
+            empty = src[:, s:s + 1, None]                # (TB, 1, 1)
+            if not bool(occ.any()):
+                if not lifted:
+                    low = best_z < -1.0
+                    best_z = torch.where(low, -1.0, best_z)
+                    best_id = torch.where(low, empty, best_id)
+                    lifted = True
+                continue
+            sel = (slice(None) if bool(occ.all())
+                   else torch.nonzero(occ).squeeze(1).to(table.device))
+            ids = src[sel, s:s + n]                      # (rows, C)
+            r = tri_rec[torch.clamp(ids, min=0).long()]  # (rows, C, 16)
+            depth = torch.where((ids >= 0)[..., None, None],
+                                coverage_depth(r, pxn[sel, None],
+                                               pyn[sel, None]), -1.0)
+            if pk is not None:
+                depth = torch.where(depth < pk[sel, None], depth, -1.0)
+            cz, carg = torch.max(depth, dim=1)           # first max
+            emit = torch.where(ids >= 0, ids + emit_base, ids)
+            cid = torch.gather(emit, 1, carg.reshape(carg.shape[0], -1)
+                               ).reshape(carg.shape)
+            if not isinstance(sel, slice):
+                cz = torch.full_like(best_z, -1.0).index_copy_(0, sel, cz)
+                cid = (empty.expand_as(best_id).clone()
+                       .index_copy_(0, sel, cid))
+            upd = cz > best_z
+            best_z = torch.where(upd, cz, best_z)
+            best_id = torch.where(upd, cid, best_id)
+        z_out[b0:b1] = best_z
+        id_out[b0:b1] = best_id
+    return z_out, id_out
+
+
+def dense_records(setup: dict) -> torch.Tensor:
+    """The dense fill's (T, 16) raster records: pack_tri_records, each
+    triangle the setup does not keep zeroed.  A zero record covers no
+    pixel (its denominator is 0), as the reference scores such a
+    triangle -1 (raster.py `_coverage_depth`)."""
+    from toyrenderer_tpu_torch.ops.raster_cuda import pack_tri_records
+    return torch.where(setup['valid'][:, None], pack_tri_records(setup),
+                       0.0).contiguous()
+
+
 def fill_visibility(setup: dict, table, big_list, cfg: RasterConfig,
                     init_depth=None, init_tri_id=None, emit_base: int = 0,
                     peel_depth=None):
     """Rasterize per-tile lists -> (depth (H,W) f32, tri_id (H,W) i32).
 
-    The reference package's XLA fill (its CPU path), on the shared plain
-    core `fill_tiles`.  depth is reverse-Z (0 == background); tri_id is
-    -1 where nothing was drawn.  init planes continue a previous fill;
-    peel_depth is an EXCLUSIVE near bound (depth peeling).
+    The reference package's XLA fill (its CPU path), `fill_dense`.
+    depth is reverse-Z (0 == background); tri_id is -1 where nothing was
+    drawn.  init planes continue a previous fill; peel_depth is an
+    EXCLUSIVE near bound (depth peeling).
     """
     from toyrenderer_tpu_torch.ops.raster_cuda import (
-        crop_image, image_to_tiles, pack_tri_records, pad_image,
-        tiles_to_image)
+        crop_image, image_to_tiles, pad_image, tiles_to_image)
     dev = table.device
     hp, wp = cfg.tiles_y * cfg.tile_h, cfg.tiles_x * cfg.tile_w
     if init_depth is None:
@@ -412,13 +523,11 @@ def fill_visibility(setup: dict, table, big_list, cfg: RasterConfig,
     peel = None
     if peel_depth is not None:
         peel = image_to_tiles(pad_image(peel_depth, cfg), cfg)
-    big_table = big_list[None, :].expand(cfg.num_tiles, -1)
-    z, win = fill_tiles(pack_tri_records(setup), table, big_table, cfg,
-                        image_to_tiles(init_z, cfg), peel)
-    z = tiles_to_image(z, cfg)
-    win = tiles_to_image(win, cfg)
-    tid = torch.where(win >= 0, win + emit_base, init_id)
-    return crop_image(z, cfg), crop_image(tid, cfg)
+    z, tid = fill_dense(dense_records(setup), table, big_list, cfg,
+                        image_to_tiles(init_z, cfg),
+                        image_to_tiles(init_id, cfg), emit_base, peel)
+    return (crop_image(tiles_to_image(z, cfg), cfg),
+            crop_image(tiles_to_image(tid, cfg), cfg))
 
 
 def rasterize(geo: dict, cfg: RasterConfig, use_pallas: bool = False,

@@ -240,19 +240,24 @@ def walked_pairs_by_tile(inp) -> tuple[torch.Tensor, torch.Tensor]:
 
 def region_census(inp) -> dict:
     """What the warp walk's reject leaves of one streamed fill's input
-    (FillInputs or PeelInputs), by the plain predicate: `regions_walked`
-    (every walked (record, region) pair), `regions_kept` (those not
-    rejected: each is tested at the region's 256 pixels),
-    `densest_unit_walked` / `densest_unit_kept` (the most records one
-    (tile, region) unit walks / keeps)."""
-    tile, tri = walked_pairs_by_tile(inp)
-    rec = inp.tri_rec[tri]
-    nt = inp.cfg.num_tiles
+    (FillInputs or PeelInputs): pairs_census of its walked pairs."""
+    return pairs_census(*walked_pairs_by_tile(inp), inp.tri_rec, inp.cfg)
+
+
+def pairs_census(tile, tri, tri_rec, cfg: RasterConfig) -> dict:
+    """What the warp walk's reject leaves of the (tile, triangle) records
+    a fill walks, by the plain predicate: `regions_walked` (every walked
+    (record, region) pair), `regions_kept` (those not rejected: each is
+    tested at the region's 256 pixels), `densest_unit_walked` /
+    `densest_unit_kept` (the most records one (tile, region) unit walks /
+    keeps)."""
+    rec = tri_rec[tri]
+    nt = cfg.num_tiles
     kept = torch.zeros((REGIONS, nt), dtype=torch.int64,
                        device=rec.device)
     for q in range(REGIONS):
         region = torch.full_like(tile, q)
-        keep = ~region_rejects(rec, region_corners(inp.cfg, tile, region))
+        keep = ~region_rejects(rec, region_corners(cfg, tile, region))
         kept[q] = torch.bincount(tile[keep], minlength=nt)
     walked = torch.bincount(tile, minlength=nt)
     return dict(regions_walked=int(tile.numel()) * REGIONS,
