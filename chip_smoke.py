@@ -55,7 +55,23 @@ both main paths through the port's entry points at 1920x1080:
   held against its plain version, 1 + 5 frames, a profile); the stored
   goldens rendered as tests/test_goldens.py renders them (Cornell
   gated, the courtyard printed); the port's render CLI in its own
-  process.
+  process;
+* slice 7, virtual-texture streaming: the plaza (resources/plaza.glb,
+  3x3 courtyards) built with the port's loader and rendered as the
+  reference bench's plaza chain renders it (bench.py:253-296, 683-721):
+  the culled frame at 1920x1080 with content-sized capacities (printed
+  beside the reference bench's probe of the same view), a tile manager
+  of 96 tiles whose overrides ride frame_inputs, K1 (early, late) and
+  K2 held against their plain versions on a streamed frame's launches,
+  1 + 8 frames over the pan with each frame's tile feedback fed to the
+  manager before the next (gates on every frame: drops 0, K1 2 and K2
+  1, a finite image with coverage in (0, 1], the table's entries
+  resident slots or fallbacks; refinement after the first feedback),
+  the manager's host ms and bytes beside the frame's events, a
+  profile, the last frame again with full residency (printed); then
+  streamed 384x216 frames on the card against the CPU on one manager's
+  overrides: the culled courtyard near its floor (tile manager), the
+  culled textured stress scene (mip manager).
 
 Each K6 line gives its even split's census (pairs_cuda.census: ray
 blocks with pairs, their largest and mean walk, work items and the grid,
@@ -143,6 +159,16 @@ OPS_PER_PAIR_TEST = PAIR_USED_ROWS * 2 + 13
 # (t, ordinal)
 PAIR_SLOT_BYTES = 8 * 4 + 2 * 4
 SHADOW_YAW = 0.002               # rad a frame: ~2 px of pan at 1080p
+PLAZA = ROOT / "resources" / "plaza.glb"
+PLAZA_POOL = 96                  # bench.py:253-296: BENCH_VTPOOL's default
+PLAZA_FRAMES = 8                 # timed plaza frames after one warm-up
+# the reference bench's capacity probe of the same plaza view
+# (BENCH_r05.json plaza_auto_caps: densest tile, big list, binned
+# pairs; counts from the JAX package's CPU probe, not times)
+REF_PLAZA_MEASURED = (4260, 592, 243409)
+NEAR_FLOOR = (-0.6, -0.8)        # pitch (rad) and height change (units)
+#                                  of the courtyard view whose floor wants
+#                                  its tiled mips at 384x216
 # planes the kernel copies from the winner's record (material factors,
 # ids, texture statics, cutoff): bit-equal; the others are computed and
 # held to 1e-5, as tests/test_torch_kernel.py holds them
@@ -1160,6 +1186,360 @@ def rt_static_on(rts, dev):
         f.name: getattr(rts, f.name).to(dev)
         for f in dataclasses.fields(rts)
         if isinstance(getattr(rts, f.name), torch.Tensor)})
+
+
+def table_invariant(mgr) -> bool:
+    """The tile manager's table: each entry a resident slot inside the
+    pool, or a fallback with a mip delta > 0 (the reference package's
+    tests/test_streaming.py:218-223)."""
+    import numpy as np
+    res = mgr.table_slot >= 0
+    ent = mgr.table
+    ok_res = bool(np.all((ent[res] == mgr.table_slot[res])
+                         & (ent[res] >= mgr.slot0)
+                         & (ent[res] < mgr.slot0 + mgr.pool_tiles)))
+    return ok_res and bool(np.all((ent[~res] >> 24) > 0))
+
+
+def streamed_card_vs_cpu(host, scene, settings, pairs_np, mask_np, mgr,
+                         fb_key, view, frames, cfg_kw):
+    """The streamed frames on the card and on the CPU (the plain
+    versions) on the overrides of one CPU-side manager, which the CPU
+    frame's feedback drives (the card's read against it): u8 images
+    within 1 on >= 99.9% of the pixels, no drops.  Returns (share within
+    1, max difference, feedback entries finite on both, on one only,
+    the largest difference where both are finite)."""
+    import numpy as np
+    import torch
+    from toyrenderer_tpu_torch.engine import (
+        default_frame_inputs, init_carry, make_render_fn)
+    cpu = torch.device("cpu")
+    n_fb = (mgr.table_size if fb_key == 'vt_tile_feedback'
+            else host.num_textures)
+    ov = mgr.update(np.full(n_fb, np.inf))
+    runs = []
+    for sc in (scene, host.to_device(cpu)):
+        d = sc.device
+        runs.append(dict(
+            scene=sc, render=make_render_fn(settings, d, **cfg_kw),
+            carry=init_carry(sc, settings),
+            pairs=[torch.from_numpy(a).to(d) for a in pairs_np],
+            mask={k: torch.from_numpy(a).to(d)
+                  for k, a in mask_np.items()}))
+    imgs = [[], []]
+    both = one = 0
+    fb_diff = 0.0
+    drops = []
+    for _ in range(frames):
+        mats = view.matrices()
+        fbs = []
+        for i, r in enumerate(runs):
+            d = r['scene'].device
+            fi = dict(default_frame_inputs(host, mats),
+                      **{k: v.to(d) for k, v in ov.items()})
+            img, r['carry'], aux = r['render'](
+                r['scene'], *r['pairs'], fi, r['carry'], **r['mask'])
+            imgs[i].append(img.cpu().numpy().astype(int))
+            fbs.append(aux[fb_key].cpu().numpy())
+            drops.append(drops_of(aux) if r['mask'] else (sum(
+                int(v) for k, v in aux.items() if k.endswith('dropped')), 0))
+        view.advance(mats)
+        fin = [np.isfinite(f) for f in fbs]
+        both += int((fin[0] & fin[1]).sum())
+        one += int((fin[0] != fin[1]).sum())
+        if (fin[0] & fin[1]).any():
+            fb_diff = max(fb_diff, float(np.abs(
+                fbs[0][fin[0] & fin[1]] - fbs[1][fin[0] & fin[1]]).max()))
+        ov = mgr.update(fbs[1])
+    diff = np.abs(np.stack(imgs[0]) - np.stack(imgs[1])).max(-1)
+    close = float((diff <= 1).mean())
+    if close < 0.999 or any(x != (0, 0) for x in drops):
+        raise AssertionError(f"streamed {settings.width}x{settings.height} "
+                             f"frames: card vs CPU within 1 on {close:.5f} "
+                             f"of pixels, drops {drops}")
+    return close, int(diff.max()), both, one, fb_diff
+
+
+def slice7(dev, host, scene, cpairs, mpairs, cap1, k2):
+    """Slice 7's phases: the plaza's streamed culled frame at 1080p (its
+    build, capacities, K1 / K2 against their plain versions on its
+    launches, 1 + PLAZA_FRAMES frames with the tile manager, a profile,
+    the full-residency frame) and streamed 384x216 frames on the card
+    against the CPU.  host / scene: the courtyard; cpairs: its culled
+    early list, mpairs its masked pairs (numpy); cap1 the early list's
+    capacity; k2: the K2 inputs' numbers, which gains the plaza's.
+    Returns (the plaza's K1 numbers by input, its K1 and K2 launches in
+    the timed frames)."""
+    import numpy as np
+    import torch
+
+    from toyrenderer_tpu_torch._build import BUILD_DIR
+    from toyrenderer_tpu_torch.engine import (
+        RenderSettings, View, default_frame_inputs, init_carry,
+        make_render_fn, streaming)
+    from toyrenderer_tpu_torch.engine.capacity import (
+        culled_pair_counts, sized_culled_settings, sized_raster_config)
+    from toyrenderer_tpu_torch.ops import geometry as geo_mod
+    from toyrenderer_tpu_torch.ops import peel_cuda, raster_cuda
+    from toyrenderer_tpu_torch.scene import load_scene
+    from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
+    from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
+    cpi, cpm = cpairs
+    mk_i, mk_m = mpairs
+    mask_inst, mask_meshlet = (torch.from_numpy(a).to(dev) for a in mpairs)
+
+    # 26. the plaza (3x3 courtyards) built with the port's loader, and the
+    #     reference bench's plaza chain (bench.py:253-296, 683-721): the
+    #     culled deferred frame at 1920x1080 with tile streaming on, a
+    #     pool of 96 tiles, every frame's vt_tile_feedback fed to the
+    #     manager before the next frame
+    t = time.time()
+    p_host = load_scene(PLAZA, use_cache=False)
+    p_build_s = time.time() - t
+    p_scene = p_host.to_device()
+    p_mk = geo_mod.static_meshlet_pairs(p_host, 'mask')
+    p_pi, p_pm = geo_mod.static_meshlet_pairs(p_host, 'not_mask')
+    p_tris = int(p_host.meshlet_tri_count[p_pm].sum()
+                 + p_host.meshlet_tri_count[p_mk[1]].sum())
+    p_cap = max(int(len(p_pi) * OPAQUE_PAIR_FRAC), 256)
+    p_pairs = tuple(torch.from_numpy(a).to(dev)
+                    for a in (p_pi[:p_cap], p_pm[:p_cap]))
+    p_mask = tuple(torch.from_numpy(a).to(dev) for a in p_mk)
+    p_mask_kw = dict(mask_pair_inst=p_mask[0], mask_pair_meshlet=p_mask[1])
+    t = time.time()
+    mgr = streaming.TileStreamingManager(streaming.scene_atlas(p_host),
+                                         pool_tiles=PLAZA_POOL)
+    p_ov = mgr.update(np.full(mgr.table_size, np.inf))
+    torch.cuda.synchronize()
+    mgr_s = time.time() - t
+    pinned = mgr.stats['resident_tiles']
+    phase("plaza", seconds=f"{p_build_s:.2f}",
+          instances=p_host.num_instances, lod0_triangles=p_tris,
+          opaque_pairs=len(p_pi), early_list=p_cap,
+          masked_pairs=len(p_mk[0]), textures=p_host.num_textures,
+          tile_table=mgr.table_size, pool_tiles=mgr.pool_tiles,
+          pinned_tiles=pinned, pool_rows=mgr.pool.shape[0],
+          pool_mib=f"{mgr.pool.numel() * 4 / 2 ** 20:.1f}",
+          manager_build_s=f"{mgr_s:.3f}",
+          initial_upload_bytes=mgr.uploaded_bytes)
+
+    # 27. capacity (plaza): the content-sized K, B and pair budget of the
+    #     bench's view, beside the reference bench's probe of that view
+    p_view = View.from_scene(p_host, WIDTH, HEIGHT)
+    p_bench = RenderSettings(width=WIDTH, height=HEIGHT,
+                             manual_exposure=0.25, enable_culling=True,
+                             peel_merge_frac=0.10)
+    p_counts = culled_pair_counts(
+        p_scene, frame_inputs_from_numpy(default_frame_inputs(
+            p_host, dataclasses.replace(p_view).matrices()), dev),
+        p_bench, p_cap, p_mask)
+    p_set = sized_culled_settings(p_bench, p_counts)
+    p_kw = dict(raster_cfg=sized_raster_config(
+        p_set, {"opaque": p_counts["opaque"]}),
+        mask_raster_cfg=sized_raster_config(
+            p_set, {"masked": p_counts["masked"]}))
+    measured = (max(v['max_tile_pairs'] for v in p_counts.values()),
+                max(v['big_tris'] + v['drop']['drop_big']
+                    for v in p_counts.values()),
+                p_counts['opaque']['pairs'])
+    phase("capacity (plaza)", K=p_set.max_tris_per_tile,
+          B=p_set.max_big_tris, pair_capacity=p_set.pair_capacity,
+          pairs_wanted=p_counts['opaque']['pairs_wanted'],
+          densest_tile_big_pairs=json.dumps(measured),
+          reference_densest_tile_big_pairs=json.dumps(REF_PLAZA_MEASURED),
+          max_tile_pairs=json.dumps(
+              {k: v['max_tile_pairs'] for k, v in p_counts.items()}),
+          default_cap_drops=json.dumps(
+              {k: v['drop'] for k, v in p_counts.items()}))
+
+    # 28. K1 and K2 against their plain versions on the inputs of each
+    #     of a streamed plaza frame's launches (its early and late K1,
+    #     its masked set's K2 with the opaque depth as occluder), the
+    #     frame culling against the HZB of the frame before it
+    p_render = make_render_fn(p_set, **p_kw)
+    p_fi = dict(default_frame_inputs(
+        p_host, dataclasses.replace(p_view).matrices()), **p_ov)
+    _, warm_carry, _ = p_render(p_scene, *p_pairs, p_fi,
+                                init_carry(p_scene, p_set), **p_mask_kw)
+    (k1_in, k2_in), _ = launch_inputs(p_render, p_scene, p_pairs, p_fi,
+                                      warm_carry, p_mask_kw,
+                                      (raster_cuda, peel_cuda))
+    k1_in, k2_in = [a[0] for a in k1_in], [a[0] for a in k2_in]
+    if (len(k1_in), len(k2_in)) != (2, 1):
+        raise AssertionError(f"plaza frame: {len(k1_in)} K1 and "
+                             f"{len(k2_in)} K2 launches; want 2 and 1")
+    plaza_k1 = {n: hold_k1(n, inp)
+                for n, inp in zip(("plaza early", "plaza late"), k1_in)}
+    del k1_in, warm_carry
+    z_k, id_k = peel_cuda.launch(k2_in[0])
+    z_p, id_p = peel_cuda.fill_peel_plain(dataclasses.replace(
+        k2_in[0], cfg=dataclasses.replace(k2_in[0].cfg, tile_batch=256)))
+    if not (torch.equal(id_k, id_p) and torch.equal(z_k, z_p)):
+        raise AssertionError("K2 (plaza masked set): ids or depth differ "
+                             "from the plain version")
+    k2["plaza masked set"] = hold_k2_times(k2_in[0], dataclasses.replace(
+        k2_in[0], cfg=dataclasses.replace(k2_in[0].cfg, tile_batch=256)))
+    k2["plaza masked set"]['err'] = float((z_k - z_p).abs().max())
+    phase("K2 vs plain", input=json.dumps("plaza masked set"),
+          layers=k2_in[0].layers,
+          fragments_per_layer=json.dumps(
+              [int((id_k[i] >= 0).sum()) for i in range(k2_in[0].layers)]),
+          ids="equal", depth="bit-equal",
+          **k2_fields(k2["plaza masked set"]))
+    del k2_in, z_k, id_k, z_p, id_p
+
+    # 29. the streamed plaza frame at 1920x1080: one warm-up frame and
+    #     PLAZA_FRAMES timed ones over the pan, each frame's tile feedback
+    #     read back and fed to the manager before the next frame (its
+    #     host ms apart from the frame's events); gates on every frame
+    p_view = View.from_scene(p_host, WIDTH, HEIGHT)
+    p_carry = init_carry(p_scene, p_set)
+    p_rows, p_times, p_updates = [], [], []
+    p_k1 = p_k2 = 0
+    for i in range(1 + PLAZA_FRAMES):
+        mats = p_view.matrices()
+        fi = dict(default_frame_inputs(p_host, mats), **p_ov)
+        carry_in = p_carry
+        reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p_img, p_carry, p_aux = p_render(p_scene, *p_pairs, fi, p_carry,
+                                         **p_mask_kw)
+        end.record()
+        torch.cuda.synchronize()
+        launches = (raster_cuda.launches, peel_cuda.launches)
+        p_view.advance(mats)
+        p_view.rotate_yaw_pitch(SHADOW_YAW, 0.0)
+        t = time.perf_counter()
+        p_ov = mgr.update(p_aux['vt_tile_feedback'])
+        torch.cuda.synchronize()
+        upd_ms = (time.perf_counter() - t) * 1e3
+        coverage = float((p_aux['tri_id'] >= 0).float().mean())
+        dropped = drops_of(p_aux)
+        row = dict(frame=i, ms=round(start.elapsed_time(end), 3),
+                   k1=launches[0], k2=launches[1], coverage=round(
+                       coverage, 4), dropped=dropped,
+                   update_ms=round(upd_ms, 3),
+                   uploaded_bytes=mgr.last_upload_bytes,
+                   hot_tiles=int(torch.isfinite(
+                       p_aux['vt_tile_feedback']).sum()),
+                   **mgr.stats)
+        p_rows.append(row)
+        if i > 0:
+            p_times.append(row['ms'])
+            p_updates.append(upd_ms)
+            p_k1 += launches[0]
+            p_k2 += launches[1]
+        if dropped != (0, 0) or launches != (2, 1):
+            raise AssertionError(f"plaza frame {i}: drops {dropped}, "
+                                 f"K1 / K2 launches {launches}")
+        if not (0.0 < coverage <= 1.0
+                and bool(torch.isfinite(p_aux['hdr']).all())
+                and p_img.shape == (HEIGHT, WIDTH, 3)):
+            raise AssertionError(f"plaza frame {i}: coverage {coverage}, "
+                                 f"image {tuple(p_img.shape)}")
+        if not table_invariant(mgr) or not torch.equal(
+                p_ov['tex_tile_table'].cpu(), torch.from_numpy(mgr.table)):
+            raise AssertionError(f"plaza update {i}: a table entry is "
+                                 "neither a resident slot nor a fallback")
+        if p_ov['tex_texels'] is not mgr.pool:
+            raise AssertionError("plaza: the manager handed a new pool")
+        if i == 0 and mgr.stats['tile_loads'] <= pinned:
+            raise AssertionError(f"plaza: the first feedback loaded no "
+                                 f"tile ({mgr.stats})")
+    np.save(BUILD_DIR / f"chip_smoke_plaza_{WIDTH}x{HEIGHT}.npy",
+            p_img.cpu().numpy())
+    phase("frame", path="plaza streamed", size=f"{WIDTH}x{HEIGHT}",
+          frames=PLAZA_FRAMES, median_ms=f"{statistics.median(p_times):.3f}",
+          all_ms=json.dumps(p_times),
+          update_host_ms=json.dumps([round(x, 3) for x in p_updates]),
+          median_update_host_ms=f"{statistics.median(p_updates):.3f}",
+          launches_k1=p_k1, launches_k2=p_k2,
+          rows=json.dumps(p_rows))
+    busy, by_op, _ = profile_frame(p_render, p_scene, p_pairs, fi,
+                                   carry_in, p_mask_kw)
+    phase("profile", path="plaza streamed", device_busy_ms=f"{busy:.3f}",
+          busy_share_of_median_frame=(
+              f"{busy / statistics.median(p_times):.3f}" if busy
+              else "not measured"),
+          by_op_ms_calls=json.dumps(by_op[:16]))
+
+    # 30. the last plaza frame again with full residency (the scene's
+    #     analytic atlas, no overrides), from the same carry: printed,
+    #     not gated
+    full_fi = default_frame_inputs(p_host, mats)
+    full_ms = []
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        f_img, _, f_aux = p_render(p_scene, *p_pairs, full_fi, carry_in,
+                                   **p_mask_kw)
+        end.record()
+        torch.cuda.synchronize()
+        full_ms.append(round(start.elapsed_time(end), 3))
+    f_diff = (f_img.int() - p_img.int()).abs().amax(-1)
+    phase("plaza full residency", frame=PLAZA_FRAMES, ms=json.dumps(full_ms),
+          streamed_ms=p_times[-1],
+          within_1=f"{float((f_diff <= 1).float().mean()):.6f}",
+          mean_abs_diff=f"{float(f_diff.float().mean()):.4f}",
+          max_diff=int(f_diff.max()), dropped=json.dumps(drops_of(f_aux)),
+          has_tile_feedback='vt_tile_feedback' in f_aux)
+    del p_img, f_img, p_aux, f_aux, p_carry, carry_in, p_ov, mgr, p_scene
+
+    # 31. streamed frames on the card against the CPU at 384x216, on the
+    #     overrides of one manager: the culled courtyard seen from near
+    #     its floor (tile manager, 80 tiles), the culled textured stress
+    #     scene (mip manager)
+    near = View.from_scene(host, *SMALL)
+    near.rotate_yaw_pitch(0.0, NEAR_FLOOR[0])
+    near.move(up=NEAR_FLOOR[1])
+    n_fi = frame_inputs_from_numpy(default_frame_inputs(
+        host, dataclasses.replace(near).matrices()), dev)
+    n_set = RenderSettings(width=SMALL[0], height=SMALL[1],
+                           manual_exposure=0.25, enable_culling=True,
+                           peel_merge_frac=0.10)
+    n_counts = culled_pair_counts(scene, n_fi, n_set, cap1,
+                                  (mask_inst, mask_meshlet))
+    n_set = sized_culled_settings(n_set, n_counts)
+    n_cfg = {f"{'mask_' if k == 'masked' else ''}raster_cfg":
+             sized_raster_config(n_set, {k: v}) for k, v in n_counts.items()}
+    close, max_diff, fb_both, fb_one, fb_diff = streamed_card_vs_cpu(
+        host, scene, n_set, [cpi, cpm],
+        dict(mask_pair_inst=mk_i, mask_pair_meshlet=mk_m),
+        streaming.TileStreamingManager(streaming.scene_atlas(host),
+                                       pool_tiles=80, device="cpu"),
+        'vt_tile_feedback', near, 2, n_cfg)
+    phase("streamed frames card vs cpu", scene="courtyard near the floor",
+          manager="tile, 80", size=f"{SMALL[0]}x{SMALL[1]}", frames=2,
+          within_1=f"{close:.6f}", max_diff=max_diff,
+          feedback_finite_both=fb_both, feedback_finite_one=fb_one,
+          feedback_max_diff=f"{fb_diff:.3g}")
+    st_host = make_stress_scene(n_objects=64, sphere_res=16, textured=True)
+    st_scene = st_host.to_device(dev)
+    st_pairs = [np.asarray(a) for a in geo_mod.static_meshlet_pairs(
+        st_host, 'all')]
+    st_set = RenderSettings(width=SMALL[0], height=SMALL[1],
+                            manual_exposure=0.1, enable_culling=True)
+    st_counts = culled_pair_counts(st_scene, frame_inputs_from_numpy(
+        default_frame_inputs(st_host, View.from_scene(
+            st_host, *SMALL).matrices()), dev), st_set, len(st_pairs[0]))
+    st_set = sized_culled_settings(st_set, st_counts)
+    close, max_diff, fb_both, fb_one, fb_diff = streamed_card_vs_cpu(
+        st_host, st_scene, st_set, st_pairs, {},
+        streaming.TextureStreamingManager(streaming.scene_atlas(st_host),
+                                          pool_texels=1 << 18,
+                                          device="cpu"),
+        'tex_feedback', View.from_scene(st_host, *SMALL), 2,
+        dict(raster_cfg=sized_raster_config(st_set, st_counts)))
+    phase("streamed frames card vs cpu", scene="stress (textured)",
+          manager="mip, 262144 texels", size=f"{SMALL[0]}x{SMALL[1]}",
+          frames=2, within_1=f"{close:.6f}", max_diff=max_diff,
+          feedback_finite_both=fb_both, feedback_finite_one=fb_one,
+          feedback_max_diff=f"{fb_diff:.3g}")
+
+    return plaza_k1, p_k1, p_k2
 
 
 def main() -> int:
@@ -2370,7 +2750,11 @@ def main() -> int:
           frame_lines=json.dumps([ln for ln in proc.stdout.splitlines()
                                   if ln.startswith("[frame")]))
 
-    # 26. kernels -------------------------------------------------------------
+    # ============ virtual-texture streaming on the plaza (slice 7) ==========
+    plaza_k1, p_k1, p_k2 = slice7(dev, host, scene, (cpi, cpm),
+                                  (mk_i, mk_m), cap1, k2)
+
+    # 32. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
     #     fill_peel: the input the culled frame launches it with;
@@ -2406,8 +2790,9 @@ def main() -> int:
              source="toyrenderer_tpu_torch/csrc/fill_resolve.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:294",
              launches=k1_default + k1_culled + s_launches[0]
-             + a_launches[0],
-             max_abs_err=max(s['err'] for s in [*main_in, *split.values()]),
+             + a_launches[0] + p_k1,
+             max_abs_err=max(s['err'] for s in [*main_in, *split.values(),
+                                                 *plaza_k1.values()]),
              ms=statistics.mean(s['ms'] for s in main_in),
              plain_ms=statistics.mean(s['plain_ms'] for s in main_in),
              bound_ms=statistics.mean(s['bound'][0] for s in main_in),
@@ -2416,18 +2801,21 @@ def main() -> int:
                                              for s in main_in),
              library_ms=None,
              inputs=[row(k, v, True) for k, v in stats.items()]
-             + [row(k, v, False) for k, v in split.items()]),
+             + [row(k, v, False) for k, v in split.items()]
+             + [dict(row(k, v, True), path="plaza streamed")
+                for k, v in plaza_k1.items()]),
         dict(name="fill_peel", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_peel.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:778",
              launches=k2_default + k2_culled + s_launches[1]
-             + a_launches[1] + m_launches[1],
+             + a_launches[1] + m_launches[1] + p_k2,
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
              bound_by=k2['occluder']['bound'][1],
              bound_all_px_ms=k2['occluder']['bound_all_px'], library_ms=None,
-             inputs=[row(k if k == "sun map" else f"masked set, {k}", v,
+             inputs=[row(k if k in ("sun map", "plaza masked set")
+                         else f"masked set, {k}", v,
                          k != "no occluder") for k, v in k2.items()]),
         dict(name="traverse", route="cuda",
              source="toyrenderer_tpu_torch/csrc/traverse.cu",
@@ -2514,7 +2902,7 @@ def main() -> int:
                       "wall_s": round(time.time() - t_start, 1)}),
           flush=True)
 
-    # 27. result --------------------------------------------------------------
+    # 33. result --------------------------------------------------------------
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -32,7 +32,9 @@ import numpy as np
 import pytest
 import torch
 
-from toyrenderer_tpu_torch.engine import View, default_frame_inputs
+from toyrenderer_tpu_torch.engine import (
+    RenderSettings, View, default_frame_inputs, init_carry, make_render_fn)
+from toyrenderer_tpu_torch.engine import streaming
 from toyrenderer_tpu_torch.ops import bvh as B
 from toyrenderer_tpu_torch.ops import bvh_cuda as BC
 from toyrenderer_tpu_torch.ops import bvh_sah as BS
@@ -45,6 +47,7 @@ from toyrenderer_tpu_torch.ops import raster_cuda as RC
 from toyrenderer_tpu_torch.ops import warp_cuda as WC
 from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
 from toyrenderer_tpu_torch.scene import load_scene
+from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
 from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
 
 from test_torch_pair_split import PAIR_LISTS, pair_list
@@ -809,3 +812,62 @@ def test_traverse_instances_on_ragged_counts(traverse_trees, tree, any_hit,
                 assert not bool(got['steps'].any())
             assert 0 < schedule['warps'] <= 4 * -(-n // 128)
             assert int(schedule['fetched']) >= n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tile", "mip"])
+def test_streamed_frame_matches_plain_version(cuda_device, mode):
+    """The streamed culled stress frame (textured, 192x96, two frames
+    across two updates) on the card -- K1 and the card's gathers --
+    against the same frames on the CPU (the plain versions), both on
+    the overrides of one manager that the CPU frame's feedback drives.
+    Images within 1 on >= 99.9% of the pixels (the devices' 4x4
+    products may round apart by an ulp at an edge, so a pixel may change
+    triangle); the feedback within 3e-3 mips where both are finite, and
+    finite at the same entries but for at most 2% of them (a pixel that
+    changes triangle may reach another tile)."""
+    host = make_stress_scene(n_objects=16, sphere_res=10, seed=5,
+                             textured=True)
+    pi, pm = G.static_meshlet_pairs(host, 'all')
+    st = RenderSettings(width=192, height=96, manual_exposure=0.1,
+                        enable_culling=True, max_tris_per_tile=256,
+                        max_big_tris=64, tile_batch=4)
+    cpu = torch.device("cpu")
+    atlas = streaming.scene_atlas(host)
+    if mode == 'tile':
+        mgr = streaming.TileStreamingManager(atlas, pool_tiles=24,
+                                             device=cpu)
+        ov = mgr.update(np.full(mgr.table_size, np.inf))
+        fb_key = 'vt_tile_feedback'
+    else:
+        mgr = streaming.TextureStreamingManager(
+            atlas, pool_texels=1 << 17, textures_per_frame=2, device=cpu)
+        ov = mgr.update(np.full(host.num_textures, np.inf))
+        fb_key = 'tex_feedback'
+    devs = (cuda_device, cpu)
+    scenes = [host.to_device(d) for d in devs]
+    renders = [make_render_fn(st, d) for d in devs]
+    carries = [init_carry(s, st) for s in scenes]
+    pairs = [[torch.from_numpy(a).to(d) for a in (pi, pm)] for d in devs]
+    view = View.from_scene(host, 192, 96)
+    for _ in range(2):
+        mats = view.matrices()
+        out = []
+        for i, d in enumerate(devs):
+            fi = dict(default_frame_inputs(host, mats),
+                      **{k: v.to(d) for k, v in ov.items()})
+            img, carries[i], aux = renders[i](scenes[i], *pairs[i], fi,
+                                              carries[i])
+            out.append((img.cpu().numpy().astype(int),
+                        aux[fb_key].cpu().numpy()))
+        view.advance(mats)
+        (img_c, fb_c), (img_p, fb_p) = out
+        close = (np.abs(img_c - img_p).max(-1) <= 1).mean()
+        assert close >= 0.999, close
+        both = np.isfinite(fb_c) & np.isfinite(fb_p)
+        assert both.any()
+        np.testing.assert_allclose(fb_c[both], fb_p[both], rtol=0,
+                                   atol=3e-3)
+        assert (np.isfinite(fb_c) != np.isfinite(fb_p)).sum() <= (
+            0.02 * both.sum()), fb_key
+        ov = mgr.update(fb_p)

@@ -77,5 +77,5 @@ def test_bin_knobs_reach_traverse_binned(monkeypatch, capsys):
 
 
 def test_stress_scene_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         TR.main(["--scene", "stress", "--device", "cpu"])

@@ -12,7 +12,8 @@ never ignored:
 * TR_CONE_DIRS / TR_CONE_BRICK other than 16 / 256 (reference
   ddgi.py:137-139): refused by the probe trace, rtbench and the CLI;
 * the texture-residency overrides in frame_inputs (reference
-  engine/frame.py:528-537): refused by the frame.
+  engine/frame.py:528-537): read by the frame, each turning the
+  analytic descriptors off.
 """
 
 import types
@@ -21,14 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-from toyrenderer_tpu_torch.engine import (
-    RenderSettings, View, default_frame_inputs, init_carry, make_render_fn)
-from toyrenderer_tpu_torch.engine.frame import render_frame
+from toyrenderer_tpu_torch.engine import RenderSettings
+from toyrenderer_tpu_torch.engine.frame import frame_atlas, render_frame
 from toyrenderer_tpu_torch.ops import ddgi
 from toyrenderer_tpu_torch.ops.bvh import RtStatic
 from toyrenderer_tpu_torch.ops.bvh_sah import (
     RtStaticSah, build_rt_static_gi)
 from toyrenderer_tpu_torch.scene import load_scene
+from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
 from toyrenderer_tpu_torch.tools import render as cli
 from toyrenderer_tpu_torch.tools import rtbench
 
@@ -85,16 +86,20 @@ def test_switch_at_the_ported_value_runs(monkeypatch, var, value, call):
 
 @pytest.mark.parametrize("key", ["tex_texels", "tex_desc", "tex_min_mip",
                                  "tex_tile_table"])
-def test_residency_override_raises(key):
-    host = load_scene(SCENE, use_cache=False)
+def test_residency_override_turns_analytic_off(key):
+    """Each residency override alone replaces the scene's array in the
+    frame's atlas, keeps the records' encoding and turns the analytic
+    descriptors off (reference package, engine/frame.py:528-537)."""
+    host = make_stress_scene(n_objects=2, sphere_res=4, textured=True)
     scene = host.to_device("cpu")
-    st = RenderSettings(width=64, height=32)
-    fi = default_frame_inputs(host, View.from_scene(host, 64, 32).matrices())
-    fi[key] = np.zeros(4, np.float32)
-    render = make_render_fn(st, device="cpu")
-    pairs = [torch.zeros(1, dtype=torch.int32)] * 2
-    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP"):
-        render(scene, *pairs, fi, init_carry(scene, st))
+    assert scene.tex_analytic
+    plain = frame_atlas(scene, {})
+    assert plain['_enc'] and plain['_analytic']
+    value = torch.zeros(4, dtype=torch.int32)
+    atlas = frame_atlas(scene, {key: value, 'jitter': None})
+    assert atlas[key] is value
+    assert atlas['_enc'] and not atlas['_analytic']
+    assert atlas.keys() - {key} == plain.keys() - {key}
 
 
 @pytest.mark.parametrize("value,kind", [

@@ -153,15 +153,15 @@ class RenderSettings:
 # setting -> (is it on?, the ROADMAP queue item that ports it)
 _NOT_PORTED = (
     ('show_gi_probes', lambda s: s.enable_gi and s.show_gi_probes,
-     'queue 1 item 3 (debug views: ddgi.visualize_probes)'),
+     'queue 1 item 5 (debug views: ddgi.visualize_probes)'),
     ('enable_restir', lambda s: s.enable_restir,
-     'queue 1 item 9 (opt-in paths)'),
+     'queue 1 item 7 (opt-in paths)'),
     ('enable_transparency', lambda s: s.enable_transparency,
-     'queue 1 item 9 (opt-in paths: transparency)'),
+     'queue 1 item 7 (opt-in paths: transparency)'),
     ('pack_gbuffer', lambda s: s.pack_gbuffer,
-     'queue 1 item 3 (packed GBuffer)'),
+     'queue 1 item 5 (packed GBuffer)'),
     ('debug_mode', lambda s: s.debug_mode != 0,
-     'queue 1 item 3 (debug views)'),
+     'queue 1 item 5 (debug views)'),
 )
 
 
@@ -181,19 +181,23 @@ def check_settings(settings: RenderSettings):
             f"unknown gi_sun_technique {settings.gi_sun_technique!r}")
 
 
-# frame_inputs keys through which the reference's streaming manager
-# overrides the atlas's residency (reference engine/frame.py:528-537)
+# frame_inputs keys through which a streaming manager (engine/
+# streaming.py) overrides the atlas's residency (reference package,
+# engine/frame.py:528-537)
 _RESIDENCY_KEYS = ('tex_texels', 'tex_desc', 'tex_min_mip', 'tex_tile_table')
 
 
-def check_frame_inputs(frame_inputs: dict):
-    """Raise NotImplementedError for frame inputs the reference's frame
-    reads and the port's does not: the texture-residency overrides."""
-    given = [k for k in _RESIDENCY_KEYS if k in frame_inputs]
-    if given:
-        raise NotImplementedError(
-            f"frame_inputs {', '.join(given)} (virtual-texture residency "
-            "overrides): not ported yet (ROADMAP queue 1 item 4)")
+def frame_atlas(scene, frame_inputs: dict) -> dict:
+    """The sampler's atlas for this frame: the scene's, with any
+    residency override of frame_inputs in its place.  An override keeps
+    the records' encoding ('_enc') and turns the analytic descriptors
+    off ('_analytic'): streaming rewrites the desc rows."""
+    atlas = scene.atlas_dict()
+    streamed = [k for k in _RESIDENCY_KEYS if k in frame_inputs]
+    atlas.update({k: frame_inputs[k] for k in streamed})
+    if streamed and atlas.get('_analytic'):
+        atlas['_analytic'] = False
+    return atlas
 
 
 def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
@@ -519,8 +523,12 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     prev_view_proj_nojitter, inv_view_proj, cam_pos, jitter,
     cull_frustum_planes, cull_cam_pos, proj_scale_px, node_translation /
     rotation / scale, sun_direction, sun_color, sun_intensity,
-    sky_params.  Under `enable_culling` the frame builds its own pair
-    lists, and pair_inst only sets the early list's capacity.
+    sky_params; optionally the residency overrides of a streaming
+    manager (engine/streaming.py update(): tex_texels, tex_desc,
+    tex_min_mip, tex_tile_table), which the sampler reads in place of
+    the scene's atlas through the descriptor rows.  Under
+    `enable_culling` the frame builds its own pair lists, and pair_inst
+    only sets the early list's capacity.
     raster_cfg: a content-sized RasterConfig (engine/capacity.py) in
     place of settings.raster_config(), for the same width and height;
     mask_raster_cfg: the masked set's, sized for that set (default:
@@ -550,10 +558,12 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     `ddgi_updated` (a Python bool: this frame updated the probes),
     `shadow_map_dropped` (the sun map's summed drop counters, on the
     frames that render it),
-    `bloom`, and exposure's `avg_luminance` / `target_exposure`.
+    `bloom`, exposure's `avg_luminance` / `target_exposure`, and, when
+    the frame samples textures, the opaque set's sampler feedback:
+    `tex_feedback` (per texture) and, with a tile table,
+    `vt_tile_feedback` (per tile), the min desired mip, +inf unused.
     """
     check_settings(settings)
-    check_frame_inputs(frame_inputs)
     if rt_static is not None:
         check_main_tree_switch()
     gi_own_tree = settings.enable_gi and rt_static_gi is not None
@@ -608,17 +618,14 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
 
     atlas = None
     if settings.enable_textures and scene.num_textures > 0:
-        if not scene.tex_analytic:
-            raise NotImplementedError(
-                "descriptor-row texture sampling (atlases with >= 64 "
-                "entries): not ported yet (ROADMAP queue 1 item 3)")
-        atlas = dict(tex_texels=scene.tex_texels)
+        atlas = frame_atlas(scene, frame_inputs)
 
-    def gbuffer(planes, d, t):
+    def gbuffer(planes, d, t, feedback=True):
         return finish_gbuffer(planes, d, t, frame_inputs['jitter'], cfg,
-                              atlas=atlas,
+                              atlas=atlas, num_textures=scene.num_textures,
                               quad_taps=settings.texture_quad_taps,
-                              aniso=settings.texture_aniso)
+                              aniso=settings.texture_aniso,
+                              feedback=feedback)
     gb = gbuffer(interp, depth, tri_id)
 
     # -- Alpha-masked set (basepass.hlsl ALPHA_MASK_MODE parity): depth-
@@ -672,7 +679,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
             for _layer in range(n_layers):
                 depth_m, tid_m, rec_m = fill_resolve_stream(
                     setup_m, records_m, bins_m, cfg_m, peel_depth=peel)
-                gb_m = gbuffer(rec_m, depth_m, tid_m)
+                gb_m = gbuffer(rec_m, depth_m, tid_m, feedback=False)
                 passes = ((gb_m['alpha'] >= gb_m['alpha_cutoff'])
                           & (depth_m > depth) & (depth_m > 0.0) & ~chosen)
                 depth, tri_id = merge(passes, gb_m, depth_m, tid_m)
@@ -809,6 +816,10 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     if ao is not None:
         aux['ao'] = ao
     aux.update(gi_aux)
+    # the opaque set's sampler feedback (the masked set sends none)
+    for k in ('tex_feedback', 'vt_tile_feedback'):
+        if k in gb:
+            aux[k] = gb[k]
 
     # -- HDR post, in the reference's pass order: bloom from the lighting
     #    output, exposure adapted on the device (frame 0 snaps to the

@@ -410,8 +410,8 @@ def traverse_auto(bvh, origins, directions, t_max, any_hit: bool = False,
     routes are not ported yet and raise, naming their ROADMAP item."""
     for on, what in (
             (sp_mesh is not None, "sp_mesh (multi-device rays): ROADMAP "
-             "queue 1 item 12"),
-            (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 9")):
+             "queue 1 item 10"),
+            (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 7")):
         if on:
             raise NotImplementedError(f"traverse_auto {what}")
     if pairs:

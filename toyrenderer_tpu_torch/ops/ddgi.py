@@ -247,14 +247,14 @@ def trace_probes(*args, **kwargs):
     """The unphased probe trace: no caller in the frame, not ported."""
     raise NotImplementedError(
         "ddgi.trace_probes (the unphased trace; the frame uses "
-        "trace_probe_block): not ported yet (ROADMAP queue 1 item 9)")
+        "trace_probe_block): not ported yet (ROADMAP queue 1 item 7)")
 
 
 def visualize_probes(*args, **kwargs):
     """The probe overlay (show_gi_probes): not ported."""
     raise NotImplementedError(
         "ddgi.visualize_probes (show_gi_probes): not ported yet (ROADMAP "
-        "queue 1 item 3, debug views)")
+        "queue 1 item 5, debug views)")
 
 
 def build_shade_records(scene, pair_inst, pair_meshlet, v0, v1, v2):
@@ -532,7 +532,7 @@ def sample_irradiance_visibility(volume: DdgiVolume, irradiance, distance,
                     and os.environ.get('TR_GI_VIS_PACK', '0') == '1'):
         raise NotImplementedError(
             "TR_GI_VIS_PACK=1 (the corner-packed visibility fetch): not "
-            "ported yet (ROADMAP queue 1 item 9)")
+            "ported yet (ROADMAP queue 1 item 7)")
     return _sample(volume, irradiance, distance, world_pos, normal,
                    probe_offset=probe_offset, vis_pool=vis_pool)
 

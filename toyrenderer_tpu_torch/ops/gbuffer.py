@@ -205,15 +205,24 @@ def resolve_interpolants(records, depth, tri_id, cfg, pixel_xy=None,
 
 
 def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
-                   quad_taps: bool = False, aniso: int = 1, pixel_xy=None,
-                   screen_wh=None):
+                   num_textures: int = 0, quad_taps: bool = False,
+                   aniso: int = 1, pixel_xy=None, screen_wh=None,
+                   feedback: bool = True):
     """Interpolant planes (INTERP_C, H, W) -> textured shading planes.
 
     jitter: (2,) current sub-pixel jitter in pixels (motion vectors are
-    unjittered).  atlas: the scene's texture atlas (DeviceScene
-    fields) or None for untextured shading.  pixel_xy / screen_wh: as
-    resolve_interpolants takes them (motion vectors are in screen
-    pixels).
+    unjittered).  atlas: the sampler's atlas dict (tex_texels, tex_desc,
+    tex_wrap, tex_min_mip, optionally tex_tile_table, and the flags
+    '_enc': records carry tex + 64*base11, '_analytic': derive the mip
+    descriptors from it instead of gathering desc rows) or None for
+    untextured shading.  pixel_xy / screen_wh: as resolve_interpolants
+    takes them (motion vectors are in screen pixels).
+    With an atlas and `feedback` the result also holds the sampler
+    feedback: tex_feedback (num_textures,) (per-texture min desired mip,
+    +inf where unused), tex_desired_mip (H, W) (-1 off textured pixels)
+    and, with a tile table, vt_tile_feedback (table size,) (per tile).
+    The masked set's layers pass feedback=False: their feedback is
+    never read (reference package, gbuffer.py:553-556).
     """
     h, w = depth.shape
     sw, sh = (w, h) if screen_wh is None else screen_wh
@@ -243,17 +252,24 @@ def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
     rough = torch.clamp(interp[20], 0.02, 1.0)
     emissive = torch.clamp(ch(I_EMIS), min=0.0)
 
+    fb = {}
     if atlas is not None:
         from toyrenderer_tpu_torch.ops.texture import (
-            sample_material_maps, sample_material_maps_quad, srgb_to_linear)
+            sample_material_maps, sample_material_maps_quad, srgb_to_linear,
+            texture_feedback, vt_tile_feedback)
         tex_id = interp[I_TEX].to(torch.int32)
         tex_id = torch.where(hit, tex_id, -1)
-        # records carry tex + 64*base11: decode the plain id and the
-        # chain base for the analytic descriptor path
-        base_rows = torch.where(
-            tex_id >= 0, torch.div(tex_id, 64, rounding_mode='floor')
-            * ATLAS_ALIGN, 0)
-        tex_id = torch.where(tex_id >= 0, torch.remainder(tex_id, 64), -1)
+        base_rows = None
+        if atlas.get('_enc'):
+            # records carry tex + 64*base11: decode the plain id and,
+            # unless a streaming override rewrote the desc rows, the
+            # chain base for the analytic descriptor path
+            if atlas.get('_analytic'):
+                base_rows = torch.where(
+                    tex_id >= 0, torch.div(tex_id, 64, rounding_mode='floor')
+                    * ATLAS_ALIGN, 0)
+            tex_id = torch.where(tex_id >= 0, torch.remainder(tex_id, 64),
+                                 -1)
         duv_dx = ch(I_DUVX)
         duv_dy = ch(I_DUVY)
         statics = torch.round(interp[I_WS]).to(torch.int32)
@@ -285,6 +301,16 @@ def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
         ok_tbn = (torch.maximum(torch.sum(t_n * t_n, -1),
                                 torch.sum(b_n * b_n, -1)) > 0.0)
         n_w = torch.where((ok_tbn & (tex_id >= 0))[..., None], n_mapped, n_w)
+        desired = maps['desired']
+        if feedback:
+            fb = dict(
+                tex_feedback=texture_feedback(tex_id, desired, num_textures),
+                tex_desired_mip=torch.where(hit & (tex_id >= 0), desired,
+                                            -1.0))
+            if 'tile_id' in maps:
+                fb['vt_tile_feedback'] = vt_tile_feedback(
+                    torch.where(hit, maps['tile_id'], -1), desired,
+                    atlas['tex_tile_table'].shape[0])
 
     h3 = hit[..., None]
     return dict(
@@ -298,11 +324,13 @@ def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
         emissive_f=torch.where(h3, emissive, 0.0),
         rough_f=torch.where(hit, rough, 0.0),
         metal_f=torch.where(hit, metal, 0.0),
+        **fb,
     )
 
 
 def resolve_gbuffer(records, depth, tri_id, jitter, cfg, atlas=None,
-                    quad_taps: bool = False, aniso: int = 1):
+                    num_textures: int = 0, quad_taps: bool = False,
+                    aniso: int = 1):
     """Per-pixel resolve + GBuffer from either input form: (T, 64) raw
     records + visibility buffer (resolve_interpolants first), or the
     (INTERP_C, H, W) planes the fill kernel already wrote."""
@@ -311,7 +339,8 @@ def resolve_gbuffer(records, depth, tri_id, jitter, cfg, atlas=None,
     else:
         interp = resolve_interpolants(records, depth, tri_id, cfg)
     return finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=atlas,
-                          quad_taps=quad_taps, aniso=aniso)
+                          num_textures=num_textures, quad_taps=quad_taps,
+                          aniso=aniso)
 
 
 def unpack_gbuffer(gb: dict):
@@ -321,7 +350,7 @@ def unpack_gbuffer(gb: dict):
     if 'albedo_f' not in gb:
         raise NotImplementedError(
             "unpack_gbuffer of the packed GBuffer: not ported yet (ROADMAP "
-            "queue 1 item 3)")
+            "queue 1 item 5)")
     return dict(albedo=gb['albedo_f'], normal=gb['normal_f'],
                 emissive=gb['emissive_f'], roughness=gb['rough_f'],
                 metallic=gb['metal_f'], depth=gb['depth'])
@@ -414,7 +443,8 @@ def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
                                       pixel_xy=pix, screen_wh=(w, h))
         gb_l = finish_gbuffer(interp, depth_c, tid_c, jitter, cfg,
                               atlas=atlas, quad_taps=quad_taps, aniso=aniso,
-                              pixel_xy=pix, screen_wh=(w, h))
+                              pixel_xy=pix, screen_wh=(w, h),
+                              feedback=False)
         # occluder-seeded peel: tid >= 0 already means in front of the
         # opaque surface
         p_l = (gb_l['alpha'] >= gb_l['alpha_cutoff']) & (tid_c >= 0)

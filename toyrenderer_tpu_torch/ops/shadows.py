@@ -96,7 +96,7 @@ def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
         raise NotImplementedError(
             "trace_shadow_mask gdir (the sun rays' strip layout for the "
             "grouped-direction kernel K5, TR_SHADOW_GDIR): "
-            "ROADMAP queue 1 item 9")
+            "ROADMAP queue 1 item 7")
     h, w = hit_mask.shape
     origins = world_pos + normal * normal_bias
     r1 = interleaved_gradient_noise(h, w, frame_index)

@@ -272,6 +272,8 @@ class DeviceScene:
     tex_width: torch.Tensor
     tex_height: torch.Tensor
     tex_wrap: torch.Tensor
+    tex_min_mip: torch.Tensor
+    tex_desc: torch.Tensor         # (T * MAX_MIPS, 4) packed desc rows
     node_depth: int = 0
     num_textures: int = 0
     tex_analytic: bool = False     # records carry tex + 64*base11; the
@@ -306,6 +308,19 @@ class DeviceScene:
     @property
     def device(self) -> torch.device:
         return self.positions.device
+
+    def atlas_dict(self) -> dict:
+        """The sampler's atlas.  With analytic descriptors the resolve
+        records carry tex + 64*base11 (pack_resolve_records): '_enc'
+        tells finish_gbuffer to decode them, '_analytic' to derive the
+        mip descriptors from them (a streaming override clears it,
+        engine/frame.frame_atlas)."""
+        d = dict(tex_texels=self.tex_texels, tex_desc=self.tex_desc,
+                 tex_wrap=self.tex_wrap, tex_min_mip=self.tex_min_mip)
+        if self.tex_analytic:
+            d['_enc'] = True
+            d['_analytic'] = True
+        return d
 
 
 def build_scene(doc: G.GltfDocument, scale: float = 1.0,

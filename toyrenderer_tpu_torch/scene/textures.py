@@ -17,7 +17,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from toyrenderer_tpu_torch.device import resolve_device
 from toyrenderer_tpu_torch.scene.png import SIGNATURE, decode_png
 
 MAX_TEXTURE_DIM = 1024
@@ -42,7 +44,8 @@ WRAP_CLAMP = 1
 
 @dataclass
 class TextureAtlas:
-    """Host-side material atlas.
+    """Host-side material atlas; `to_device()` -> the sampler's dict of
+    tensors.
 
     Texel storage is QUAD-EXPANDED per map: row i holds, for each of the 4
     material maps, the 2x2 bilinear footprint of texel i -- [T(x,y),
@@ -79,6 +82,21 @@ class TextureAtlas:
                                self.desc_width[ti, r],
                                self.desc_height[ti, r], 0)
         return desc.reshape(t * MAX_MIPS, 4)
+
+    def to_device(self, device=None) -> dict:
+        """The sampler's atlas dict on `device` (default: the CUDA
+        device): texels as int32 bit for bit (u32 RGBA8 patterns), the
+        packed descriptor rows, wrap modes and min resident mips."""
+        dev = resolve_device(device)
+
+        def on(a):
+            return torch.from_numpy(np.array(a, np.int32)).to(dev)
+        return dict(
+            tex_texels=torch.from_numpy(np.ascontiguousarray(
+                self.texels, np.uint32).view(np.int32)).to(dev),
+            tex_desc=on(self.packed_desc()),
+            tex_wrap=on(self.wrap_mode),
+            tex_min_mip=on(self.min_resident_mip))
 
 
 def _decode_image(tex) -> np.ndarray | None:
@@ -161,14 +179,25 @@ def _resample(img: np.ndarray, h: int, w: int) -> np.ndarray:
     return img[ys[:, None], xs[None, :]]
 
 
-def build_atlas(doc) -> TextureAtlas:
+def build_atlas(doc=None, material_maps: list[dict] | None = None,
+                images: list[np.ndarray] | None = None,
+                wrap_modes=None) -> TextureAtlas:
     """Build the material atlas.
 
-    doc: GltfDocument — one entry per material that references any texture
-    (base/normal/MR/emissive indices on GltfMaterial).  Entry order ==
-    the order of textured materials; callers map material index ->
-    entry id (scenebuild wires mat_base_color_tex).
+    doc: GltfDocument -- one entry per material that references any
+    texture (base/normal/MR/emissive indices on GltfMaterial).
+    material_maps: explicit list of {'base'|'normal'|'mr'|'emissive':
+    (H, W, 4) u8, 'wrap': int} dicts (procedural scenes, tests), after
+    the document's entries.  images: base-colour-only shorthand for
+    material_maps (wrap_modes: their wrap modes, default REPEAT).
+    Entry order == the order of textured materials, then the given
+    maps; callers map material index -> entry id (scenebuild wires
+    mat_base_color_tex).
     """
+    if images is not None:
+        wraps_in = list(wrap_modes or [WRAP_REPEAT] * len(images))
+        material_maps = list(material_maps or []) + [
+            dict(base=img, wrap=wraps_in[i]) for i, img in enumerate(images)]
     entries: list[dict] = []
     decoded: dict[int, np.ndarray | None] = {}
 
@@ -181,7 +210,7 @@ def build_atlas(doc) -> TextureAtlas:
             decoded[ti] = _decode_image(t)
         return decoded[ti]
 
-    for m in doc.materials:
+    for m in (doc.materials if doc is not None else ()):
         # one entry per material that REFERENCES any texture, keeping
         # entry ids aligned with scenebuild._material_atlas_entries
         if (m.base_color_texture < 0 and m.normal_texture < 0
@@ -199,6 +228,8 @@ def build_atlas(doc) -> TextureAtlas:
                     else WRAP_REPEAT)
         maps['wrap'] = wrap
         entries.append(maps)
+    if material_maps is not None:
+        entries.extend(material_maps)
 
     n = max(len(entries), 1)
     offsets = np.full((n, MAX_MIPS), -1, np.int32)
@@ -261,3 +292,29 @@ def build_atlas(doc) -> TextureAtlas:
         num_mips=num_mips, wrap_mode=wraps,
         min_resident_mip=np.zeros((n,), np.int32),
         num_textures=len(entries))
+
+
+def checkerboard(size: int = 256, tiles: int = 8,
+                 c0=(255, 255, 255), c1=(40, 40, 40)) -> np.ndarray:
+    """Procedural test texture: (size, size, 4) u8, opaque."""
+    y, x = np.meshgrid(np.arange(size), np.arange(size), indexing='ij')
+    m = ((x * tiles // size) + (y * tiles // size)) % 2
+    img = np.where(m[..., None] == 0,
+                   np.asarray(c0, np.uint8), np.asarray(c1, np.uint8))
+    return np.concatenate(
+        [img, np.full((size, size, 1), 255, np.uint8)], -1)
+
+
+def bump_normal_map(size: int = 256, bumps: int = 16,
+                    amplitude: float = 1.0) -> np.ndarray:
+    """Procedural tangent-space normal map: a sine-bump height field's
+    analytic gradient, encoded glTF-style (+Y up, 0.5-biased)."""
+    t = np.linspace(0, 2 * np.pi * bumps, size, endpoint=False)
+    y, x = np.meshgrid(t, t, indexing='ij')
+    dhdx = amplitude * np.cos(x) * np.sin(y)
+    dhdy = amplitude * np.sin(x) * np.cos(y)
+    n = np.stack([-dhdx, -dhdy, np.ones_like(dhdx)], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    rgb = ((n * 0.5 + 0.5) * 255.0 + 0.5).astype(np.uint8)
+    return np.concatenate(
+        [rgb, np.full((size, size, 1), 255, np.uint8)], -1)

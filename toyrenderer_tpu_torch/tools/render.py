@@ -8,8 +8,11 @@ reference's default), built once at load for shadows or GI and refit
 every frame (TR_RT_SAH=1, the reference's SAH main tree, raises); GI
 traces its own LOD-reduced SAH tree (`bvh_sah.build_rt_static_gi`; the
 complete tree with TR_GI_SAH=0).  Raster capacities are sized from the
-first view's content (engine/capacity.py).  Flags of passes the port
-does not have yet raise NotImplementedError naming their ROADMAP item.
+first view's content (engine/capacity.py).  `--vtstream mip|tile`
+streams the atlas through engine/streaming.py's managers (pool budget
+`--vtpool`); `--scene stress` renders the procedural textured scene.
+Flags of passes the port does not have yet raise NotImplementedError
+naming their ROADMAP item.
 
 Usage:
   python -m toyrenderer_tpu_torch.tools.render \\
@@ -30,28 +33,28 @@ import torch
 
 # flag -> (is it asked for?, the ROADMAP queue item that ports it)
 _NOT_PORTED = (
-    ('--vtstream', lambda a: a.vtstream != 'off',
-     'queue 1 item 10 (streaming)'),
     ('--animate', lambda a: a.animate,
-     'queue 1 item 13 (glTF animation channels)'),
-    ('--restir', lambda a: a.restir, 'queue 1 item 9 (opt-in paths)'),
+     'queue 1 item 6 (glTF animation channels)'),
+    ('--restir', lambda a: a.restir, 'queue 1 item 7 (opt-in paths)'),
     ('--transparency', lambda a: a.transparency,
-     'queue 1 item 9 (opt-in paths: transparency)'),
+     'queue 1 item 7 (opt-in paths: transparency)'),
     ('--showprobes', lambda a: a.showprobes,
-     'queue 1 item 3 (debug views: ddgi.visualize_probes)'),
+     'queue 1 item 5 (debug views: ddgi.visualize_probes)'),
     ('--debugview', lambda a: a.debugview != 0,
-     'queue 1 item 3 (debug views)'),
+     'queue 1 item 5 (debug views)'),
     ('--passtable', lambda a: a.passtable,
-     'queue 1 item 11 (tools: the per-pass timing table)'),
+     'queue 1 item 8 (tools: the per-pass timing table)'),
     ('--orbit', lambda a: a.orbit != 0.0,
-     'queue 1 item 11 (tools: the camera orbit)'),
+     'queue 1 item 8 (tools: the camera orbit)'),
 )
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--scene", default="resources/cornell.gltf")
+    p.add_argument("--scene", default="resources/cornell.gltf",
+                   help="a glTF file, or 'stress' for the procedural "
+                        "textured stress scene")
     p.add_argument("--displayresolution", default="1280x720",
                    help="WxH render resolution")
     p.add_argument("--frames", type=int, default=1)
@@ -78,6 +81,13 @@ def parse_args(argv=None):
                    help="every triangle at every pixel (the oracle)")
     p.add_argument("--stats", default=None,
                    help="write per-frame stats JSON to this path")
+    p.add_argument("--vtstream", choices=("off", "mip", "tile"),
+                   default="off",
+                   help="virtual-texture streaming: per-mip residency "
+                        "or 64x64-texel tiles with spatial feedback")
+    p.add_argument("--vtpool", type=int, default=64,
+                   help="tile-pool budget (tiles) / mip-pool budget "
+                        "(x64K texel rows) for --vtstream")
     # the reference's flags of passes not ported yet
     p.add_argument("--debugview", type=int, default=0)
     p.add_argument("--showprobes", action="store_true")
@@ -85,17 +95,12 @@ def parse_args(argv=None):
     p.add_argument("--transparency", action="store_true")
     p.add_argument("--animate", action="store_true")
     p.add_argument("--orbit", type=float, default=0.0)
-    p.add_argument("--vtstream", choices=("off", "mip", "tile"),
-                   default="off")
     p.add_argument("--passtable", action="store_true")
     args = p.parse_args(argv)
     for flag, on, item in _NOT_PORTED:
         if on(args):
             raise NotImplementedError(f"{flag}: not ported yet (ROADMAP "
                                       f"{item})")
-    if args.scene == "stress":
-        raise NotImplementedError("--scene stress: not ported yet (ROADMAP "
-                                  "queue 1 item 13: scene/procedural.py)")
     # the reference's switches that the port has no path for
     if args.shadows or args.gi:
         from toyrenderer_tpu_torch.ops.bvh import check_main_tree_switch
@@ -124,7 +129,13 @@ def main(argv=None) -> int:
     w, h = (int(x) for x in args.displayresolution.split("x"))
 
     t0 = time.time()
-    host = load_scene(args.scene, use_cache=not args.nocache)
+    if args.scene == "stress":
+        # the procedural textured scene (no assets): texture, VT and
+        # culling demos
+        from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
+        host = make_stress_scene(n_objects=64, sphere_res=16, textured=True)
+    else:
+        host = load_scene(args.scene, use_cache=not args.nocache)
     print(f"[scene] {args.scene}: {host.num_vertices} verts, "
           f"{host.num_meshlets} meshlets, {host.num_instances} instances "
           f"({time.time() - t0:.2f}s)")
@@ -211,10 +222,32 @@ def main(argv=None) -> int:
 
     render = make_render_fn(settings, dev, **cfg_kw)
     carry = init_carry(scene, settings, volume)
+
+    # virtual-texture streaming: the residency overrides ride
+    # frame_inputs from frame 0, and each frame's feedback drives the
+    # next update (TextureFeedbackManager.cpp loop)
+    stream_mgr = None
+    overrides = {}
+    if args.vtstream != "off" and host.num_textures > 0:
+        from toyrenderer_tpu_torch.engine import streaming
+        atlas = streaming.scene_atlas(host)
+        if args.vtstream == "mip":
+            stream_mgr = streaming.TextureStreamingManager(
+                atlas, pool_texels=args.vtpool << 16, device=dev)
+            overrides = stream_mgr.update(np.full(host.num_textures, np.inf))
+        else:
+            stream_mgr = streaming.TileStreamingManager(
+                atlas, pool_tiles=args.vtpool, device=dev)
+            overrides = stream_mgr.update(
+                np.full(stream_mgr.table_size, np.inf))
+        print(f"[vt] {args.vtstream}-granularity streaming, pool budget "
+              f"{args.vtpool}")
+    fb_key = 'vt_tile_feedback' if args.vtstream == 'tile' else 'tex_feedback'
     rows = []
     for i in range(args.frames):
         mats = view.matrices()
         fi = default_frame_inputs(host, mats)
+        fi.update(overrides)
         t0 = time.time()
         image, carry, aux = render(scene, pair_inst, pair_meshlet, fi, carry,
                                    **kw)
@@ -224,6 +257,12 @@ def main(argv=None) -> int:
         view.advance(mats)
         label = "build+run" if i == 0 else "frame"
         print(f"[frame {i}] {label}: {dt:.2f} ms")
+        if stream_mgr is not None:
+            t0 = time.time()
+            overrides = stream_mgr.update(aux[fb_key])
+            print(f"[vt] update {(time.time() - t0) * 1000:.2f} ms, "
+                  f"{stream_mgr.last_upload_bytes} B uploaded, "
+                  f"{stream_mgr.stats}")
         if args.stats:
             rec = dict(frame=i, ms=round(dt, 3),
                        coverage=round(float((aux['tri_id'] >= 0).float()

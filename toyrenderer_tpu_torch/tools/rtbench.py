@@ -157,8 +157,8 @@ def run(argv=None) -> list[dict]:
     args = _parse(argv)
     if args.scene == "stress":
         raise NotImplementedError(
-            "rtbench --scene stress (scene/procedural.py): not ported yet "
-            "(ROADMAP queue 1 item 13)")
+            "rtbench --scene stress (its stress rows): not ported yet "
+            "(ROADMAP queue 1 item 8)")
     dev = resolve_device(args.device)
     print("[stage] scene build...", flush=True)
     host = load_scene(COURTYARD)

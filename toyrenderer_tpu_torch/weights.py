@@ -45,6 +45,21 @@ def frame_inputs_from_numpy(frame_inputs: dict, device=None) -> dict:
     return {k: _tensor(v, dev) for k, v in frame_inputs.items()}
 
 
+def residency_from_numpy(overrides: dict, device=None) -> dict:
+    """A streaming manager's frame_inputs overrides (tex_texels,
+    tex_desc, tex_min_mip, tex_tile_table; numpy or anything numpy
+    reads, e.g. the reference package's manager's) -> int32 tensors on
+    `device`.  u32 texels and table entries keep their bits."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in overrides.items():
+        a = np.asarray(v)
+        a = (a.view(np.int32) if a.dtype in (np.uint32, np.int32)
+             else a.astype(np.int32))
+        out[k] = torch.from_numpy(np.array(a)).to(dev)
+    return out
+
+
 def carry_from_numpy(carry: dict, device=None) -> dict:
     """Carry (prev_inst_world, prev_depth, exposure, frame_index, the
     HZB's tuple of mips under culling, the TAA and shadow histories and
