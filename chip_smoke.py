@@ -71,7 +71,23 @@ both main paths through the port's entry points at 1920x1080:
   profile, the last frame again with full residency (printed); then
   streamed 384x216 frames on the card against the CPU on one manager's
   overrides: the culled courtyard near its floor (tile manager), the
-  culled textured stress scene (mip manager).
+  culled textured stress scene (mip manager);
+* slice 8, the frame's last settings: the glass-and-emitters frame at
+  1920x1080 (the render CLI's stress scene with the ground and instance
+  1 in glass, as tests/test_e2e.py:265-300 makes them; ReSTIR DI on its
+  emissive triangles, the glass in 2 depth-peeled OIT layers, RT sun
+  shadows, TAA): the traversal kernel (K3) held against its plain version
+  on the frame's ReSTIR visibility rays (every pixel's) and shadow rays,
+  K1 on both OIT layer launches, 1 + 5 frames of a pan with gates (a
+  finite image, lights found, no drop in either set, ReSTIR light on
+  some pixels; K1 3, K3 2, K4 2 a frame), a profile; the culled courtyard
+  with the packed GBuffer, 1 + 5 frames, against the float-plane frame;
+  each debug view 1-14 once on it; the all-on update frame with the probe
+  overlay; 384x216 frames on the card against the CPU (the glass frame,
+  the packed culled courtyard, debug views 2, 11 and 14, the probe
+  overlay); the render CLI in its own processes (--scene stress --restir
+  --transparency --oitlayers 2, and --animate on an animated Cornell,
+  equal to the same frames rendered here).
 
 Each K6 line gives its even split's census (pairs_cuda.census: ray
 blocks with pairs, their largest and mean walk, work items and the grid,
@@ -733,11 +749,12 @@ def launch_inputs(render, scene, pairs, fi_np, carry, kw, modules):
 def drops_of(aux) -> tuple[int, int]:
     """(raster_dropped, raster_mask_dropped): the sums of the frame's
     drop counters, as bench.py:333-335 sums the keys ending in
-    'dropped' -- the opaque set's (reference keys) and, apart, the
-    masked set's (the port's raster_mask_* keys)."""
+    'dropped' -- the opaque set's (reference keys, with the blend set's
+    raster_trans_* when it is drawn) and, apart, the masked set's (the
+    port's raster_mask_* keys; 0 when no masked set is drawn)."""
     opaque = sum(int(v) for k, v in aux.items() if k.endswith('dropped')
                  and not k.startswith('raster_mask_'))
-    return opaque, int(aux['raster_mask_dropped'])
+    return opaque, int(aux.get('raster_mask_dropped', 0))
 
 
 def reset_launch_counts():
@@ -908,6 +925,9 @@ def hold_trace(label, args) -> dict:
     bvh, o, d, t_max, any_hit, live, gd = args[:7]
     seeded = (dict(seeds=args[7], packet=args[8])
               if len(args) > 7 and args[7] is not None else {})
+    # every slot is live where the caller gave no live mask (ReSTIR)
+    live_f = (torch.ones(o.shape[0], device=o.device) if live is None
+              else live)
     mode = "any-hit" if any_hit else "closest-hit"
     schedule = {}
     got = bvh_cuda.launch(*args, schedule=schedule)
@@ -929,7 +949,7 @@ def hold_trace(label, args) -> dict:
                     f"{label} {mode} vs {what}: {k} differs on "
                     f"{int((got[k] != ref[k]).sum())} rays")
     # the kernel's dead slots: live <= 0 or t_max <= 0
-    alive = (live > 0) & (torch.as_tensor(t_max, device=o.device) > 0)
+    alive = (live_f > 0) & (torch.as_tensor(t_max, device=o.device) > 0)
     n_live = int(alive.sum())
     steps = want['steps'][alive].float()
     st = dict(err=float((got['t'] - want['t']).abs().max()),
@@ -1540,6 +1560,412 @@ def slice7(dev, host, scene, cpairs, mpairs, cap1, k2):
           feedback_max_diff=f"{fb_diff:.3g}")
 
     return plaza_k1, p_k1, p_k2
+
+
+def glass_scene():
+    """The stress scene as the render CLI's --scene stress builds it, with
+    the reference's glass (tests/test_e2e.py:265-300): the ground's
+    material green glass at alpha 0.4, instance 1's red glass at 0.5."""
+    from toyrenderer_tpu_torch.scene.gltf import ALPHA_BLEND
+    from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
+    s = make_stress_scene(n_objects=64, sphere_res=16, textured=True)
+    for inst, colour in ((0, [0.1, 0.9, 0.1, 0.4]),
+                         (1, [0.9, 0.1, 0.1, 0.5])):
+        mat = int(s.prim_material[int(s.inst_prim[inst])])
+        s.mat_alpha_mode[mat] = ALPHA_BLEND
+        s.mat_base_color[mat] = colour
+    return s
+
+
+def write_animated_cornell(dst: Path) -> Path:
+    """Cornell with one synthesized rotation channel (node 0, a half turn
+    about z over 4 s), saved as the port's scene cache of a copy of
+    cornell.gltf in `dst` (tests/test_animation.py:74-95 writes the
+    reference's so); load_scene of the copy reads the channel."""
+    import shutil
+
+    import numpy as np
+
+    from toyrenderer_tpu_torch.scene import scenebuild as sb
+    from toyrenderer_tpu_torch.scene.animation import pack_animations
+    from toyrenderer_tpu_torch.scene.gltf import GltfAnimationChannel
+    dst.mkdir(parents=True, exist_ok=True)
+    src = ROOT / "resources" / "cornell.gltf"
+    copy = dst / "cornell_animated.gltf"
+    shutil.copy(src, copy)
+    shutil.copy(src.with_suffix(".bin"), dst / "cornell.bin")
+    s = sb.load_scene(copy, use_cache=False)
+    data = pack_animations([GltfAnimationChannel(
+        node=0, path="rotation", times=np.asarray([0.0, 4.0], np.float32),
+        values=np.asarray([[0, 0, 0, 1], [0, 0, 1, 0]], np.float32))])
+    s.anim_node, s.anim_path = data.node, data.path
+    s.anim_interp, s.anim_key_offset = data.interp, data.key_offset
+    s.anim_times, s.anim_values = data.times, data.values
+    s.anim_duration = data.duration
+    sb.save_scene_cache(sb.cache_path(copy, 1.0), s)
+    return copy
+
+
+def slice8(dev, ctx: dict) -> dict:
+    """Slice 8's phases: the glass-and-emitters frame at 1920x1080 (ReSTIR
+    DI, two depth-peeled OIT layers, RT sun shadows, TAA on the stress
+    scene with glass): K3 against its plain version on the frame's ReSTIR
+    rays and its shadow rays, K1 on both OIT layer launches, 1 + FRAMES
+    frames with gates, a profile; the culled courtyard with
+    pack_gbuffer=True against its float-plane frame; the 14 debug views
+    on it; the all-on update frame with the probe overlay; 384x216 frames
+    on the card against the CPU; the render CLI in its own processes
+    (the glass flags, and --animate on an animated Cornell).  ctx: the
+    earlier phases' scene, settings, pairs and numbers it builds on.
+    Returns the numbers the kernels line adds."""
+    import numpy as np
+    import torch
+
+    from toyrenderer_tpu_torch._build import BUILD_DIR
+    from toyrenderer_tpu_torch.engine import (
+        RenderSettings, View, default_frame_inputs, init_carry,
+        make_render_fn)
+    from toyrenderer_tpu_torch.engine.capacity import (
+        sized_raster_config, sized_settings, tile_pair_counts)
+    from toyrenderer_tpu_torch.ops import bvh as bvh_mod
+    from toyrenderer_tpu_torch.ops import bvh_cuda, raster_cuda
+    from toyrenderer_tpu_torch.ops import geometry as geo_mod
+    from toyrenderer_tpu_torch.scene import load_scene
+    from toyrenderer_tpu_torch.scene.animation import AnimationPlayer
+    from toyrenderer_tpu_torch.scene.png import decode_png
+    from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
+    out = {}
+    t8 = time.time()
+
+    # 27. the glass-and-emitters frame: the stress scene (64 objects,
+    #     textured; every 7th material emissive) with two glass materials,
+    #     ReSTIR DI on its emissive triangles, the glass in 2 OIT layers,
+    #     RT sun shadows and TAA over a slow pan
+    g_host = glass_scene()
+    g_scene = g_host.to_device(dev)
+    gpi, gpm = geo_mod.static_meshlet_pairs(g_host, 'opaque')
+    gti, gtm = geo_mod.static_meshlet_pairs(g_host, 'blend')
+    g_pairs = tuple(torch.from_numpy(a).to(dev) for a in (gpi, gpm))
+    g_blend = tuple(torch.from_numpy(a).to(dev) for a in (gti, gtm))
+    g_base = RenderSettings(width=WIDTH, height=HEIGHT, manual_exposure=0.1,
+                            enable_restir=True, enable_transparency=True,
+                            oit_layers=2, enable_shadows=True,
+                            enable_taa=True)
+    pan = View.from_scene(g_host, WIDTH, HEIGHT)
+    g_fi = []
+    for _ in range(4 + FRAMES):
+        mats = pan.matrices()
+        g_fi.append(default_frame_inputs(g_host, mats))
+        pan.advance(mats)
+        pan.rotate_yaw_pitch(SHADOW_YAW, 0.0)
+    g_fi.reverse()
+    g_counts = tile_pair_counts(g_scene, frame_inputs_from_numpy(
+        g_fi[-1], dev), g_base, {"opaque": g_pairs, "blend": g_blend})
+    g_set = sized_settings(g_base, g_counts)
+    g_cfg = dict(raster_cfg=sized_raster_config(
+        g_set, {"opaque": g_counts["opaque"]}),
+        trans_raster_cfg=sized_raster_config(
+            g_set, {"blend": g_counts["blend"]}))
+    t = time.time()
+    g_rts = bvh_mod.build_rt_static(g_host, gpi, gpm, device=dev)
+    g_build_s = time.time() - t
+    g_kw = dict(trans_pair_inst=g_blend[0], trans_pair_meshlet=g_blend[1],
+                rt_static=g_rts)
+    g_render = make_render_fn(g_set, **g_cfg)
+    emissive = g_host.mat_emissive.sum(-1) > 1e-3
+    lit_pairs = emissive[g_host.prim_material[g_host.meshlet_prim[gpm]]]
+    phase("glass scene", instances=g_host.num_instances,
+          opaque_pairs=len(gpi), blend_pairs=len(gti),
+          emissive_materials=int(emissive.sum()),
+          emissive_triangles=int(g_host.meshlet_tri_count[gpm][
+              lit_pairs].sum()),
+          restir_max_lights=g_set.restir_max_lights,
+          rt_host_build_s=f"{g_build_s:.2f}",
+          K=g_set.max_tris_per_tile,
+          blend_max_tile_pairs=g_counts['blend']['max_tile_pairs'],
+          blend_binned_pairs=g_counts['blend']['pairs'])
+
+    # 28. K3 and K1 against their plain versions on the inputs of one
+    #     frame's launches (the second frame: the reservoir and the
+    #     histories valid): K3 on the shadow rays and on ReSTIR's
+    #     visibility rays (every pixel's, any-hit, as the frame traces
+    #     them), K1 on the opaque fill and both OIT layers
+    _, g_carry, _ = g_render(g_scene, *g_pairs, g_fi.pop(),
+                             init_carry(g_scene, g_set), **g_kw)
+    (k1_in, k3_in), (_, g_carry, g_aux) = launch_inputs(
+        g_render, g_scene, g_pairs, g_fi.pop(), g_carry, g_kw,
+        (raster_cuda, bvh_cuda))
+    k1_in = [a[0] for a in k1_in]
+    if (len(k1_in), len(k3_in)) != (3, 2):
+        raise AssertionError(f"glass frame: {len(k1_in)} K1 and "
+                             f"{len(k3_in)} K3 launches; want 3 and 2")
+    restir_args = k3_in[1]
+    if restir_args[5] is not None or restir_args[1].shape[0] != \
+            WIDTH * HEIGHT:
+        raise AssertionError("glass frame: ReSTIR's launch is not every "
+                             "pixel's ray")
+    out['k3'] = {
+        "glass shadow rays, any-hit": hold_trace("K3", k3_in[0]),
+        "ReSTIR visibility rays, any-hit": hold_trace("K3 (ReSTIR)",
+                                                      restir_args)}
+    out['k1'] = {name: hold_k1(name, inp) for name, inp in
+                 zip(("OIT layer 0", "OIT layer 1"), k1_in[1:])}
+    del k1_in, k3_in, restir_args
+    phase("slice 8 timing", step="glass scene and kernels",
+          seconds=f"{time.time() - t8:.1f}")
+    t8 = time.time()
+
+    # 29. the glass frame at 1920x1080 through the entry points: 1 + 5
+    #     frames of the pan; every timed frame launches K1 3 times
+    #     (opaque, 2 layers), K3 twice (shadows, ReSTIR), K4 twice, drops
+    #     nothing in either set, finds the lights, and ReSTIR adds light
+    def g_per_frame(aux, carry):
+        hit = aux['depth'] > 0
+        added = aux['restir'].sum(-1)
+        return dict(launches=launch_counts(),
+                    finite=bool(torch.isfinite(aux['hdr']).all()),
+                    lights=int(aux['restir_lights']),
+                    drops=sum(int(v) for k, v in aux.items()
+                              if k.endswith('dropped')),
+                    trans_dropped=int(aux['raster_trans_dropped']),
+                    restir_lit=float((added[hit] > 0).float().mean()),
+                    restir_mean=float(added[hit].mean()))
+    g_times, g_walls, g_img, g_aux, g_carry, g_rows = drive(
+        g_render, g_scene, g_pairs, g_fi.pop, g_carry, g_kw, FRAMES,
+        g_per_frame)
+    prev = [0] * 9
+    for i, r in enumerate(g_rows):
+        per = [a - b for a, b in zip(r['launches'], prev)]
+        prev = r['launches']
+        if (per != [3, 0, 2, 2, 0, 0, 0, 0, 0] or not r['finite']
+                or r['lights'] <= 0 or r['drops'] or r['trans_dropped']
+                or not r['restir_lit'] > 0):
+            raise AssertionError(f"glass frame {i}: launches K1-K7 {per} "
+                                 f"(want [3, 0, 2, 2, 0, 0, 0, 0, 0]), {r}")
+    out['glass_launches'] = prev
+    if g_img.shape != (HEIGHT, WIDTH, 3) or g_img.dtype != torch.uint8:
+        raise AssertionError(f"glass frame: image {tuple(g_img.shape)}")
+    np.save(BUILD_DIR / f"chip_smoke_glass_{WIDTH}x{HEIGHT}.npy",
+            g_img.cpu().numpy())
+    g_busy, g_by_op, _ = profile_frame(g_render, g_scene, g_pairs,
+                                       g_fi.pop(), g_carry, g_kw)
+    phase("frame", path="glass and emitters", size=f"{WIDTH}x{HEIGHT}",
+          frames=FRAMES, median_ms=f"{statistics.median(g_times):.3f}",
+          all_ms=json.dumps([round(x, 3) for x in g_times]),
+          host_wall_ms=json.dumps([round(x, 3) for x in g_walls]),
+          device_busy_ms=f"{g_busy:.3f}",
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(prev),
+          lights=g_rows[-1]['lights'],
+          restir_lit_share=json.dumps([round(r['restir_lit'], 4)
+                                       for r in g_rows]),
+          restir_mean=json.dumps([round(r['restir_mean'], 5)
+                                  for r in g_rows]),
+          coverage=f"{float((g_aux['tri_id'] >= 0).float().mean()):.4f}",
+          blend_tris=int(g_aux['raster_trans_tris']),
+          raster_dropped=g_rows[-1]['drops'],
+          raster_trans_dropped=g_rows[-1]['trans_dropped'])
+    phase("profile", path="glass and emitters",
+          device_busy_ms=f"{g_busy:.3f}",
+          busy_share_of_median_frame=(
+              f"{g_busy / statistics.median(g_times):.3f}" if g_busy
+              else "not measured"),
+          by_op_ms_calls=json.dumps(g_by_op[:20]))
+    del g_img, g_aux, g_carry
+    phase("slice 8 timing", step="glass frames and profile",
+          seconds=f"{time.time() - t8:.1f}")
+    t8 = time.time()
+
+    # 30. the bench's culled courtyard with the packed GBuffer: every
+    #     resolve writes the four u32 words, the passes read only them;
+    #     1 + 5 frames as the float-plane culled frame ran them, its image
+    #     against that frame's
+    scene, c_pairs, fi_np = ctx['scene'], ctx['c_pairs'], ctx['fi_np']
+    mask_kw, c_kw = ctx['mask_kw'], ctx['c_kw']
+    pk_set = dataclasses.replace(ctx['c_set'], pack_gbuffer=True)
+    pk_render = make_render_fn(pk_set, **c_kw)
+    pk_times, pk_walls, pk_img, pk_aux, pk_carry, _ = drive(
+        pk_render, scene, c_pairs, fi_np, init_carry(scene, pk_set),
+        mask_kw, FRAMES, lambda a, c: None)
+    out['packed_launches'] = launch_counts()
+    pk_coverage = check_frame(pk_img, pk_aux, out['packed_launches'][0],
+                              out['packed_launches'][1], 2 * FRAMES, FRAMES,
+                              "packed culled frame")
+    pk_close = float(((pk_img.int() - ctx['c_img'].int()).abs().amax(-1)
+                      <= 1).float().mean())
+    if pk_close < 0.99:
+        raise AssertionError(f"packed culled frame: within 1 of the float "
+                             f"frame on {pk_close:.5f}")
+    pk_busy, pk_by_op, _ = profile_frame(pk_render, scene, c_pairs, fi_np,
+                                         pk_carry, mask_kw)
+    phase("frame", path="culled, packed GBuffer", size=f"{WIDTH}x{HEIGHT}",
+          frames=FRAMES, median_ms=f"{statistics.median(pk_times):.3f}",
+          all_ms=json.dumps([round(x, 3) for x in pk_times]),
+          host_wall_ms=json.dumps([round(x, 3) for x in pk_walls]),
+          device_busy_ms=f"{pk_busy:.3f}",
+          float_frame_busy_ms=f"{ctx['c_busy']:.3f}",
+          float_frame_median_ms=f"{ctx['c_median']:.3f}",
+          within_1_of_float_frame=f"{pk_close:.6f}",
+          launches_k1_k2=json.dumps(out['packed_launches'][:2]),
+          coverage=f"{pk_coverage:.4f}",
+          by_op_ms_calls=json.dumps(pk_by_op[:12]))
+
+    # 31. each debug view 1-14 once on that frame (the lit passes still
+    #     run; the image is the view in u8)
+    views = {}
+    for mode in range(1, 15):
+        img, _, aux = make_render_fn(dataclasses.replace(
+            pk_set, debug_mode=mode), **c_kw)(scene, *c_pairs, fi_np,
+                                              pk_carry, **mask_kw)
+        if (img.dtype != torch.uint8 or img.shape != (HEIGHT, WIDTH, 3)
+                or not bool(torch.isfinite(aux['hdr']).all())):
+            raise AssertionError(f"debug view {mode}: {img.dtype} "
+                                 f"{tuple(img.shape)}")
+        views[mode] = round(float(img.float().mean()), 3)
+    if views[2] == views[1] or views[11] == views[1]:
+        raise AssertionError(f"debug views: normals / meshlets show the "
+                             f"albedo ({views})")
+    phase("debug views", path="culled, packed GBuffer", modes="1-14",
+          mean_u8=json.dumps(views))
+    del pk_img, pk_aux
+
+    # 32. the all-on frame with the probe overlay, on its first update
+    #     frame (frames 0-2 hold the probes)
+    a_set, a_kw = ctx['a_set'], ctx['a_kw']
+    a_render = make_render_fn(a_set, **c_kw)
+    a_carry = init_carry(scene, a_set, a_kw['ddgi_volume'])
+    for _ in range(3):
+        _, a_carry, _ = a_render(scene, *c_pairs, fi_np, a_carry, **a_kw)
+    _, _, plain_aux = a_render(scene, *c_pairs, fi_np, a_carry, **a_kw)
+    o_img, _, o_aux = make_render_fn(dataclasses.replace(
+        a_set, show_gi_probes=True), **c_kw)(scene, *c_pairs, fi_np,
+                                             a_carry, **a_kw)
+    # the HDR the overlay draws into (auto-exposure then moves every
+    # pixel of the u8 image a little)
+    drawn = float((o_aux['hdr'] != plain_aux['hdr']).any(-1).float().mean())
+    if (not o_aux['ddgi_updated'] or not 0.0 < drawn < 0.5
+            or not bool(torch.isfinite(o_aux['hdr']).all())):
+        raise AssertionError(f"probe overlay: updated "
+                             f"{o_aux['ddgi_updated']}, drawn share {drawn}")
+    phase("probe overlay", path="all-on update frame", frame=3,
+          probes=a_kw['ddgi_volume'].num_probes,
+          pixels_drawn=f"{drawn:.5f}")
+    del plain_aux, o_img, o_aux, a_carry
+    phase("slice 8 timing", step="packed frame, debug views, overlay",
+          seconds=f"{time.time() - t8:.1f}")
+    t8 = time.time()
+
+    # 33. the render CLI in its own processes, both at once and beside
+    #     the small frames below: the glass flags on --scene stress
+    #     (960x540, 2 frames), and --animate on the animated Cornell
+    #     (448x256, 3 frames), whose PNG must equal the same frames
+    #     rendered here
+    anim = write_animated_cornell(BUILD_DIR / "anim_cornell")
+    runs = {
+        "glass flags": ["--scene", "stress", "--restir", "--transparency",
+                        "--oitlayers", "2", "--shadows", "--taa",
+                        "--displayresolution", "960x540", "--frames", "2",
+                        "--exposure", "0.1"],
+        "animate": ["--scene", str(anim), "--animate", "--frames", "3",
+                    "--displayresolution", "448x256", "--exposure", "0.01"]}
+    t_cli = time.time()
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "toyrenderer_tpu_torch.tools.render", *a,
+         "--output", str(BUILD_DIR / f"chip_smoke_cli8_{i}.png")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i, (k, a) in enumerate(runs.items())}
+
+    # 34. 384x216 frames on the card against the CPU: the glass frame
+    #     (2 frames: ReSTIR's temporal reuse), the packed culled
+    #     courtyard, debug views 2, 11 and 14 and the probe overlay (1
+    #     frame each; a CPU frame of the culled courtyard takes ~9 s)
+    host, small_c, s_counts = ctx['host'], ctx['small_c'], ctx['s_counts']
+    none = np.zeros(0, np.int32)
+    gs_base = dataclasses.replace(g_base, width=SMALL[0], height=SMALL[1])
+    gs_counts = tile_pair_counts(g_scene, frame_inputs_from_numpy(
+        default_frame_inputs(g_host, View.from_scene(g_host, *SMALL)
+                             .matrices()), dev), gs_base,
+        {"opaque": g_pairs, "blend": g_blend})
+    gs_set = sized_settings(gs_base, gs_counts)
+    g_rts_cpu = rt_static_on(g_rts, torch.device("cpu"))
+    small = {}
+    small['glass'] = card_vs_cpu(
+        g_host, g_scene, gs_set, [gpi, gpm, none, none], 2, dict(
+            raster_cfg=sized_raster_config(
+                gs_set, {"opaque": gs_counts["opaque"]}),
+            trans_raster_cfg=sized_raster_config(
+                gs_set, {"blend": gs_counts["blend"]})),
+        yaw=SHADOW_YAW * WIDTH / SMALL[0], min_share=0.995,
+        kw_on=lambda d: dict(
+            trans_pair_inst=torch.from_numpy(gti).to(d),
+            trans_pair_meshlet=torch.from_numpy(gtm).to(d),
+            rt_static=g_rts if d.type == "cuda" else g_rts_cpu))
+    cpi, cpm, mk_i, mk_m = ctx['c_pairs_np']
+    s_cfg = dict(raster_cfg=sized_raster_config(
+        small_c, {"opaque": s_counts["opaque"]}),
+        mask_raster_cfg=sized_raster_config(
+            small_c, {"masked": s_counts["masked"]}))
+    small_pk = dataclasses.replace(small_c, pack_gbuffer=True)
+    small['packed culled'] = card_vs_cpu(
+        host, scene, small_pk, [cpi, cpm, mk_i, mk_m], 1, s_cfg,
+        min_share=0.995)
+    for mode in (2, 11, 14):
+        small[f'debug {mode}'] = card_vs_cpu(
+            host, scene, dataclasses.replace(small_pk, debug_mode=mode),
+            [cpi, cpm, mk_i, mk_m], 1, s_cfg, min_share=0.995)
+    # the probe hits' sun visibility by rays (a sun map's plain fill is
+    # too slow for the CPU side)
+    small_o = dataclasses.replace(small_c, enable_gi=True,
+                                  show_gi_probes=True, gi_update_phases=1,
+                                  gi_sun_technique='rt')
+    small['probe overlay'] = card_vs_cpu(
+        host, scene, small_o, [cpi, cpm, mk_i, mk_m], 1, s_cfg,
+        min_share=0.995, kw_on=ctx['small_kw'], volume=ctx['small_vol'])
+    phase("slice 8 small frames card vs cpu", size=f"{SMALL[0]}x{SMALL[1]}",
+          within_1_and_max_diff=json.dumps(
+              {k: [round(v[0], 6), v[1]] for k, v in small.items()}),
+          seconds=f"{time.time() - t8:.1f}")
+
+    # 35. the CLI processes' results
+    results = {k: p.communicate(timeout=600) + (p.returncode,)
+               for k, p in procs.items()}
+    cli_s = time.time() - t_cli
+    for k, (so, se, rc) in results.items():
+        if rc != 0:
+            raise AssertionError(f"render CLI ({k}) exited {rc}:\n"
+                                 f"{so[-2000:]}{se[-4000:]}")
+    a_host = load_scene(anim)
+    a_scene = a_host.to_device(dev)
+    a_pairs = [torch.from_numpy(x).to(dev) for x in
+               geo_mod.static_meshlet_pairs(a_host, 'all')]
+    st = RenderSettings(width=448, height=256, manual_exposure=0.01)
+    render = make_render_fn(st)
+    carry = init_carry(a_scene, st)
+    view = View.from_scene(a_host, 448, 256)
+    player = AnimationPlayer(a_host.animation_data())
+    for i in range(3):
+        mats = view.matrices()
+        fi = default_frame_inputs(a_host, mats)
+        tr, ro, sc = player.evaluate(i / 60.0, a_host.node_translation,
+                                     a_host.node_rotation, a_host.node_scale)
+        fi.update(node_translation=tr, node_rotation=ro, node_scale=sc)
+        img, carry, _ = render(a_scene, *a_pairs, fi, carry)
+        view.advance(mats)
+    cli_img = decode_png((BUILD_DIR / "chip_smoke_cli8_1.png").read_bytes())
+    if not np.array_equal(cli_img[..., :3], img.cpu().numpy()):
+        raise AssertionError("render CLI --animate: the PNG differs from "
+                             "the same frames rendered here")
+    glass_png = decode_png((BUILD_DIR / "chip_smoke_cli8_0.png").read_bytes())
+    phase("cli", commands=json.dumps({k: " ".join(a)
+                                      for k, a in runs.items()}),
+          started_to_collected_s=f"{cli_s:.1f}",
+          animate_equals_in_process=True,
+          anim_line=json.dumps([ln for ln in results["animate"][0]
+                                .splitlines() if ln.startswith("[anim]")]),
+          glass_png=f"{glass_png.shape[1]}x{glass_png.shape[0]}",
+          frame_lines=json.dumps({k: [ln for ln in r[0].splitlines()
+                                      if ln.startswith("[frame")]
+                                  for k, r in results.items()}))
+    return out
 
 
 def main() -> int:
@@ -2754,6 +3180,15 @@ def main() -> int:
     plaza_k1, p_k1, p_k2 = slice7(dev, host, scene, (cpi, cpm),
                                   (mk_i, mk_m), cap1, k2)
 
+    # ===== ReSTIR, OIT, the packed GBuffer, debug views (slice 8) ===========
+    s8 = slice8(dev, dict(
+        host=host, scene=scene, c_pairs=c_pairs, fi_np=fi_np,
+        mask_kw=mask_kw, c_kw=c_kw, c_set=c_set, c_img=c_img,
+        c_busy=c_busy, c_median=statistics.median(c_times), a_set=a_set,
+        a_kw=a_kw, small_c=small_c, s_counts=s_counts,
+        c_pairs_np=(cpi, cpm, mk_i, mk_m), small_kw=small_kw,
+        small_vol=small_vol))
+
     # 32. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
@@ -2790,9 +3225,11 @@ def main() -> int:
              source="toyrenderer_tpu_torch/csrc/fill_resolve.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:294",
              launches=k1_default + k1_culled + s_launches[0]
-             + a_launches[0] + p_k1,
+             + a_launches[0] + p_k1 + s8['glass_launches'][0]
+             + s8['packed_launches'][0],
              max_abs_err=max(s['err'] for s in [*main_in, *split.values(),
-                                                 *plaza_k1.values()]),
+                                                 *plaza_k1.values(),
+                                                 *s8['k1'].values()]),
              ms=statistics.mean(s['ms'] for s in main_in),
              plain_ms=statistics.mean(s['plain_ms'] for s in main_in),
              bound_ms=statistics.mean(s['bound'][0] for s in main_in),
@@ -2803,12 +3240,15 @@ def main() -> int:
              inputs=[row(k, v, True) for k, v in stats.items()]
              + [row(k, v, False) for k, v in split.items()]
              + [dict(row(k, v, True), path="plaza streamed")
-                for k, v in plaza_k1.items()]),
+                for k, v in plaza_k1.items()]
+             + [dict(row(k, v, True), path="glass and emitters")
+                for k, v in s8['k1'].items()]),
         dict(name="fill_peel", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_peel.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:778",
              launches=k2_default + k2_culled + s_launches[1]
-             + a_launches[1] + m_launches[1] + p_k2,
+             + a_launches[1] + m_launches[1] + p_k2
+             + s8['packed_launches'][1],
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
@@ -2820,17 +3260,25 @@ def main() -> int:
         dict(name="traverse", route="cuda",
              source="toyrenderer_tpu_torch/csrc/traverse.cu",
              replaces="toyrenderer_tpu/ops/bvh_pallas.py:250",
-             launches=s_launches[2] + a_launches[2],
-             max_abs_err=max(v['err'] for v in k3.values()),
+             launches=s_launches[2] + a_launches[2]
+             + s8['glass_launches'][2],
+             max_abs_err=max(v['err'] for v in [*k3.values(),
+                                                *s8['k3'].values()]),
              ms=k3['any-hit']['ms'], plain_ms=k3['any-hit']['plain_ms'],
              bound_ms=k3['any-hit']['bound'][0],
              bound_by=k3['any-hit']['bound'][1], library_ms=None,
              inputs=[dict(row(f"shadow rays, {k}", v, k == "any-hit"),
-                          mrays_per_s=v['mrays_s']) for k, v in k3.items()]),
+                          mrays_per_s=v['mrays_s']) for k, v in k3.items()]
+             + [dict(row(k, v, True), path="glass and emitters",
+                     mrays_per_s=v['mrays_s'], ray_slots=v['ray_slots'],
+                     live_rays=v['live_rays'], visits_mean=v['visits_mean'],
+                     visits_max=v['visits_max'])
+                for k, v in s8['k3'].items()]),
         dict(name="warp", route="cuda",
              source="toyrenderer_tpu_torch/csrc/warp.cu",
              replaces="toyrenderer_tpu/ops/warp_pallas.py:41",
-             launches=s_launches[3] + a_launches[3],
+             launches=s_launches[3] + a_launches[3]
+             + s8['glass_launches'][3],
              max_abs_err=max(v['err'] for v in k4.values()),
              ms=statistics.mean(v['ms'] for v in k4.values()),
              plain_ms=statistics.mean(v['plain_ms'] for v in k4.values()),

@@ -365,8 +365,6 @@ def test_unported_routes_raise(cornell, monkeypatch):
     vol = cornell['tvol']
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TD.trace_probes(vol)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.visualize_probes(None, None, vol, None, None, None)
     monkeypatch.setenv('TR_GI_VIS_PACK', '1')
     z = torch.zeros((2, 2, 3))
     with pytest.raises(NotImplementedError, match="TR_GI_VIS_PACK"):

@@ -27,7 +27,6 @@ so the maximum is not bounded.
 import dataclasses
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -44,7 +43,7 @@ from toyrenderer_tpu.scene import load_scene as jax_load_scene
 
 from test_torch_raster import _one_torch_thread, scene_arrays  # noqa: F401
 from toyrenderer_tpu_torch.engine import (
-    RenderSettings, init_carry, make_render_fn, render_frame)
+    RenderSettings, init_carry, render_frame)
 from toyrenderer_tpu_torch.ops import raster_cuda
 from toyrenderer_tpu_torch.weights import (
     carry_from_numpy, frame_inputs_from_numpy, scene_from_numpy)
@@ -149,22 +148,6 @@ def test_courtyard_frame_matches_reference():
                                    port['fi'], port['carry'], variant, **mask)
         assert (other.numpy() != img).any(axis=-1).mean() > 0.001
     assert raster_cuda.launches == 0     # CPU tensors ran the plain version
-
-
-@pytest.mark.parametrize("field,value", [
-    ('show_gi_probes', True), ('enable_restir', True),
-    ('enable_transparency', True),
-    ('pack_gbuffer', True), ('debug_mode', 2)])
-def test_unported_settings_raise(field, value):
-    """Each setting whose pass is not ported yet raises, naming its
-    ROADMAP item (the probe overlay with GI and RT shadows on)."""
-    if field == 'show_gi_probes':
-        settings = RenderSettings(enable_shadows=True, enable_gi=True,
-                                  **{field: value})
-    else:
-        settings = RenderSettings(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_render_fn(settings, device="cpu")
 
 
 def test_init_carry_matches_reference():

@@ -16,7 +16,8 @@ The probes run on the scene's device and return plain ints.  The class
 caps are not RenderSettings fields (the reference's settings do not
 reach them), so the sizing returns them as a RasterConfig per set,
 which render_frame / make_render_fn take as `raster_cfg` (the opaque
-set) and `mask_raster_cfg` (the masked set).  A cap only bounds
+set), `mask_raster_cfg` (the masked set) and `trans_raster_cfg` (the
+blend set).  A cap only bounds
 how many slots a class gets, and pairs keep their stable per-tile
 order, so a sized config gives the same fill bit for bit wherever the
 default one drops nothing.
@@ -96,13 +97,15 @@ def tile_pair_counts(scene, frame_inputs: dict, settings,
 
 
 def culled_pair_counts(scene, frame_inputs: dict, settings,
-                       pair_capacity: int, mask_pairs=None) -> dict:
+                       pair_capacity: int, mask_pairs=None,
+                       blend_pairs=None) -> dict:
     """Measure the culled frame's sets: 'opaque', its early phase as the
     first frame runs it (frustum culling, screen-error LOD and meshlet
     culling into a list of `pair_capacity` pairs, no HZB: occlusion only
-    removes pairs), and 'masked', the (pair_inst, pair_meshlet) set
-    `mask_pairs` when given.  The measured 'opaque' entry also holds
-    `pairs_wanted`, the pairs culling kept before the list capacity."""
+    removes pairs), and 'masked' / 'blend', the (pair_inst,
+    pair_meshlet) sets `mask_pairs` / `blend_pairs` when given (drawn
+    unculled).  The measured 'opaque' entry also holds `pairs_wanted`,
+    the pairs culling kept before the list capacity."""
     inst_world = _instance_world(scene, frame_inputs)
     planes = frame_inputs['cull_frustum_planes']
     cam = frame_inputs['cull_cam_pos']
@@ -119,10 +122,11 @@ def culled_pair_counts(scene, frame_inputs: dict, settings,
         scene, inst_world, frame_inputs['view_proj'], pi, pm, pv),
         settings))
     out['opaque']['pairs_wanted'] = int(total)
-    if mask_pairs is not None:
-        out['masked'] = _measure(geo_mod.meshlet_clip_triangles(
-            scene, inst_world, frame_inputs['view_proj'], *mask_pairs),
-            settings)
+    for name, pairs in (('masked', mask_pairs), ('blend', blend_pairs)):
+        if pairs is not None:
+            out[name] = _measure(geo_mod.meshlet_clip_triangles(
+                scene, inst_world, frame_inputs['view_proj'], *pairs),
+                settings)
     return out
 
 
@@ -163,11 +167,16 @@ def sized_raster_config(settings, counts: dict) -> raster_mod.RasterConfig:
     margin: the set that needs the largest fraction decides, and the
     fractions are never lowered.  Size each set of a frame on its own
     counts: a larger cap than a set needs only makes its binning sort
-    more empty slots."""
+    more empty slots.  A pair budget a set's binned pairs exceed is
+    raised to 1.55x them, rounded up to 128 (a set the budget holds keeps
+    it)."""
     cfg = settings.raster_config()
     fracs = {}
     for cls, (field, _) in _CLASS_FIELDS.items():
         need = max((-(-int(v['classes'][cls] * MARGIN) // 8) * 8 + 1)
                    / v['tris'] for v in counts.values())
         fracs[field] = max(getattr(cfg, field), min(need, 1.0))
+    pairs = max(v['pairs'] for v in counts.values())
+    if cfg.pair_capacity is not None and pairs > cfg.pair_capacity:
+        fracs['pair_capacity'] = _round_up(pairs * PAIR_MARGIN, 128, 4096)
     return dataclasses.replace(cfg, **fracs)

@@ -13,15 +13,21 @@ for map shadows and for the probe hits' sun taps) -> sun shadows (ray-
 traced through the traversal kernel, or sampled from the map; temporal
 + spatial denoise) -> DDGI (on
 update frames: the GI tree's refit, the probe rays and the probe update;
-every frame: the probe field sampled at half resolution) -> GTAO (half-
-resolution horizons, a depth-aware blur) -> deferred lighting + sky ->
-bloom, auto-exposure, TAA -> tonemap.
+every frame: the probe field sampled at half resolution) -> ReSTIR DI
+(emissive triangles as lights, one visibility ray a pixel through the
+main tree) -> GTAO (half-resolution horizons, a depth-aware blur) ->
+deferred lighting + sky -> the blend set, depth-peeled `oit_layers`
+times, shaded and composited back to front -> the probe overlay ->
+bloom, auto-exposure, TAA -> tonemap, or a debug view of the GBuffer.
+With `pack_gbuffer` every resolve writes the packed 4 x u32 GBuffer, the
+only medium the passes read; otherwise float shading planes.
 Cross-frame state (transforms, HZB, exposure, TAA and shadow histories,
-the DDGI probes) lives in an explicit `carry` dict, as in the reference
-package.  One branch needs the host: whether this frame updates the
-probes (`_gi_pass`), read once per frame with GI on.
-Settings whose passes are not ported yet raise NotImplementedError
-naming their ROADMAP queue item; the frame never silently skips a pass.
+the DDGI probes, ReSTIR's reservoir) lives in an explicit `carry` dict,
+as in the reference package.  One branch needs the host: whether this
+frame updates the probes (`_gi_pass`), read once per frame with GI on.
+Every RenderSettings field of the reference runs; the frame never
+silently skips a pass.  `pack_frame_inputs` turns the small per-frame
+inputs into one host-to-device copy.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from toyrenderer_tpu_torch.ops import exposure as exposure_mod
 from toyrenderer_tpu_torch.ops import geometry as geo_mod
 from toyrenderer_tpu_torch.ops import hzb as hzb_mod
 from toyrenderer_tpu_torch.ops import raster as raster_mod
+from toyrenderer_tpu_torch.ops import restir as restir_mod
 from toyrenderer_tpu_torch.ops import shadowmap
 from toyrenderer_tpu_torch.ops import shadows as shadows_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
@@ -52,7 +59,7 @@ from toyrenderer_tpu_torch.ops.gbuffer import (
     resolve_interpolants, unpack_gbuffer)
 from toyrenderer_tpu_torch.ops.gtao import gtao
 from toyrenderer_tpu_torch.ops.lighting import (
-    deferred_lighting, world_pos_from_depth)
+    debug_view, deferred_lighting, world_pos_from_depth)
 from toyrenderer_tpu_torch.ops.peel_cuda import fill_peel_stream
 from toyrenderer_tpu_torch.ops.postprocess import compose_final
 from toyrenderer_tpu_torch.ops.raster import RasterConfig
@@ -150,27 +157,8 @@ class RenderSettings:
             pair_capacity=self.pair_capacity)
 
 
-# setting -> (is it on?, the ROADMAP queue item that ports it)
-_NOT_PORTED = (
-    ('show_gi_probes', lambda s: s.enable_gi and s.show_gi_probes,
-     'queue 1 item 5 (debug views: ddgi.visualize_probes)'),
-    ('enable_restir', lambda s: s.enable_restir,
-     'queue 1 item 7 (opt-in paths)'),
-    ('enable_transparency', lambda s: s.enable_transparency,
-     'queue 1 item 7 (opt-in paths: transparency)'),
-    ('pack_gbuffer', lambda s: s.pack_gbuffer,
-     'queue 1 item 5 (packed GBuffer)'),
-    ('debug_mode', lambda s: s.debug_mode != 0,
-     'queue 1 item 5 (debug views)'),
-)
-
-
 def check_settings(settings: RenderSettings):
-    """Raise NotImplementedError for any setting this slice cannot run."""
-    for name, on, item in _NOT_PORTED:
-        if on(settings):
-            raise NotImplementedError(
-                f"RenderSettings.{name}: not ported yet (ROADMAP {item})")
+    """Raise ValueError for a setting outside the reference's choices."""
     if settings.sky_model not in ('hosek', 'preetham'):
         raise ValueError(f"unknown sky_model {settings.sky_model!r}")
     if settings.shadow_technique not in ('rt', 'map'):
@@ -202,7 +190,8 @@ def frame_atlas(scene, frame_inputs: dict) -> dict:
 
 def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
     """Initial cross-frame state, on the scene's device; with GI on, the
-    probes of `ddgi_volume` (ddgi.init_probes)."""
+    probes of `ddgi_volume` (ddgi.init_probes); with ReSTIR on, its zero
+    reservoir."""
     dev = scene.device
     n_inst = scene.inst_node.shape[0]
     carry = dict(
@@ -228,6 +217,12 @@ def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
             raise ValueError("enable_gi needs a ddgi_volume "
                              "(ddgi.volume_from_aabb)")
         carry.update(ddgi_mod.init_probes(ddgi_volume, dev))
+    if settings.enable_restir:
+        # the zero reservoir: light 0, weight 0, no candidates
+        carry['restir_reservoir'] = dict(
+            li=torch.zeros(hw, dtype=torch.int32, device=dev),
+            r1=torch.zeros(hw, device=dev), r2=torch.zeros(hw, device=dev),
+            w=torch.zeros(hw, device=dev), m=torch.zeros(hw, device=dev))
     return carry
 
 
@@ -515,11 +510,14 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                  mask_raster_cfg: RasterConfig | None = None,
                  rt_static=None, rt_pair_inst=None, rt_pair_meshlet=None,
                  ddgi_volume=None, rt_static_gi=None, gi_pair_inst=None,
-                 gi_pair_meshlet=None):
+                 gi_pair_meshlet=None, trans_pair_inst=None,
+                 trans_pair_meshlet=None,
+                 trans_raster_cfg: RasterConfig | None = None):
     """One frame.
 
     frame_inputs (tensors on the scene's device, see
-    weights.frame_inputs_from_numpy): view_proj, view_proj_nojitter,
+    weights.frame_inputs_from_numpy, or unpack_frame_inputs of a packed
+    set): view_proj, view_proj_nojitter,
     prev_view_proj_nojitter, inv_view_proj, cam_pos, jitter,
     cull_frustum_planes, cull_cam_pos, proj_scale_px, node_translation /
     rotation / scale, sun_direction, sun_color, sun_intensity,
@@ -531,15 +529,17 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     only sets the early list's capacity.
     raster_cfg: a content-sized RasterConfig (engine/capacity.py) in
     place of settings.raster_config(), for the same width and height;
-    mask_raster_cfg: the masked set's, sized for that set (default:
-    raster_cfg).
+    mask_raster_cfg / trans_raster_cfg: the masked set's and the blend
+    set's, each sized for its set (default: raster_cfg).
     rt_static: the static RT topology (ops/bvh.build_rt_static over the
-    RT pair list, the masked set appended), for RT shadows and for GI
-    when it has no tree of its own; the frame refits it every frame.
+    RT pair list, the masked set appended), for RT shadows, ReSTIR's
+    visibility rays and GI when it has no tree of its own; the frame
+    refits it every frame.
     Without it those rebuild the tree every frame (bvh.build_bvh over
     the RT pair list, no masked set).  rt_pair_inst / rt_pair_meshlet:
     that RT pair list (its payloads index it; default pair_inst /
-    pair_meshlet).  The sun map (map shadows; the probe hits' sun taps
+    pair_meshlet); ReSTIR's lights are its emissive triangles.  The sun
+    map (map shadows; the probe hits' sun taps
     when gi_sun_technique is 'map', or 'auto' without RT shadows) draws
     the RT pair stream, its masked pairs through rt_static's coverage
     keep.
@@ -548,27 +548,34 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     build_rt_static_gi: the SAH tree, or the complete one) over
     gi_pair_inst / gi_pair_meshlet (default: the RT pair list), the
     masked set appended; refit on every GI update frame.
+    trans_pair_inst / trans_pair_meshlet: the blend set (alpha mode
+    BLEND), drawn with enable_transparency.
     Returns (image_u8 (H, W, 3), new_carry, aux dict).  aux holds the
     opaque set's raster counters as `raster_*` (`raster_dropped` sums its
     drop counters, as the reference's does) or, culled, the reference's
     `early_*` / `late_*` counters; when the masked set is drawn, the same
-    raster counters of that set as `raster_mask_*`; and, with their
+    raster counters of that set as `raster_mask_*`, and of the blend set
+    as `raster_trans_*`; and, with their
     passes on, `shadow` (the denoised mask), `ao`, the probes'
     `ddgi_variability` / `ddgi_active_probes` / `ddgi_converged` and
     `ddgi_updated` (a Python bool: this frame updated the probes),
     `shadow_map_dropped` (the sun map's summed drop counters, on the
-    frames that render it),
+    frames that render it), ReSTIR's `restir_lights` (the light count)
+    and `restir` (its radiance, (H, W, 3)),
     `bloom`, exposure's `avg_luminance` / `target_exposure`, and, when
     the frame samples textures, the opaque set's sampler feedback:
     `tex_feedback` (per texture) and, with a tile table,
     `vt_tile_feedback` (per tile), the min desired mip, +inf unused.
+    With debug_mode != 0 the image is that debug view (lighting.
+    debug_view) of the GBuffer, in u8.
     """
     check_settings(settings)
     if rt_static is not None:
         check_main_tree_switch()
     gi_own_tree = settings.enable_gi and rt_static_gi is not None
     needs_rays = settings.enable_shadows and settings.shadow_technique == 'rt'
-    needs_rt = needs_rays or (settings.enable_gi and not gi_own_tree)
+    needs_rt = (needs_rays or settings.enable_restir
+                or (settings.enable_gi and not gi_own_tree))
     gi_sun_map = settings.enable_gi and (
         settings.gi_sun_technique == 'map'
         or (settings.gi_sun_technique == 'auto' and not needs_rays))
@@ -577,10 +584,15 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                          "(ddgi.volume_from_aabb)")
     cfg = settings.raster_config() if raster_cfg is None else raster_cfg
     cfg_m = cfg if mask_raster_cfg is None else mask_raster_cfg
-    for name, c in (('raster_cfg', cfg), ('mask_raster_cfg', cfg_m)):
+    cfg_t = cfg if trans_raster_cfg is None else trans_raster_cfg
+    for name, c in (('raster_cfg', cfg), ('mask_raster_cfg', cfg_m),
+                    ('trans_raster_cfg', cfg_t)):
         if (c.width, c.height) != (settings.width, settings.height):
             raise ValueError(f"{name} is {c.width}x{c.height}, the "
                              f"settings {settings.width}x{settings.height}")
+    # the packed GBuffer is the only medium between passes, or the float
+    # planes are
+    emit = not settings.pack_gbuffer
 
     # -- UpdateInstanceConsts ------------------------------------------------
     world = geo_mod.node_world_matrices(
@@ -615,6 +627,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 prev_vp)
             raster_aux = {f'raster_{k}': v for k, v in rstats.items()}
     mstats = {}     # the masked set's counters, when it is drawn
+    tstats = {}     # the blend set's
 
     atlas = None
     if settings.enable_textures and scene.num_textures > 0:
@@ -625,7 +638,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                               atlas=atlas, num_textures=scene.num_textures,
                               quad_taps=settings.texture_quad_taps,
                               aniso=settings.texture_aniso,
-                              feedback=feedback)
+                              feedback=feedback, emit_planes=emit)
     gb = gbuffer(interp, depth, tri_id)
 
     # -- Alpha-masked set (basepass.hlsl ALPHA_MASK_MODE parity): depth-
@@ -643,8 +656,16 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         bins_m = bin_pairs_with_budget(setup_m, cfg_m)
         mstats = _raster_stats(setup_m, bins_m)
         n_layers = max(settings.alpha_layers, 1)
-        merge_scalar = ('rough_f', 'metal_f')
-        merge_vec = ('motion', 'albedo_f', 'normal_f', 'emissive_f')
+        # the merged channels: the packed words or the float planes, and
+        # uv when a debug view may read it
+        if settings.pack_gbuffer:
+            merge_scalar = ('gbuffer0', 'gbuffer1', 'gbuffer2', 'gbuffer3')
+            merge_vec = ['motion']
+        else:
+            merge_scalar = ('rough_f', 'metal_f')
+            merge_vec = ['motion', 'albedo_f', 'normal_f', 'emissive_f']
+        if settings.debug_mode != 0:
+            merge_vec.append('uv')
         h0, w0 = depth.shape
 
         def merge(passes, gb_m, depth_m, tid_m):
@@ -669,7 +690,8 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 records_m, depth_l, tid_l, frame_inputs['jitter'], cfg_m,
                 cap_q, atlas=atlas, quad_taps=settings.texture_quad_taps,
                 aniso=settings.texture_aniso,
-                channels=set(merge_scalar) | set(merge_vec))
+                channels=set(merge_scalar) | set(merge_vec),
+                emit_planes=emit)
             depth, tri_id = merge(gb_m['passes'], gb_m, gb_m['depth'],
                                   gb_m['tri_id'])
         else:
@@ -692,16 +714,22 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     shadow_mask = None
     new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
                      frame_index=carry['frame_index'] + 1)
-    normal = unpack_gbuffer(gb)['normal']
+    m_gb = unpack_gbuffer(gb)
+    normal = m_gb['normal']
     base_pi = pair_inst if rt_pair_inst is None else rt_pair_inst
     base_pm = pair_meshlet if rt_pair_meshlet is None else rt_pair_meshlet
     rt_pi, rt_pm = _rt_streams(base_pi, base_pm, rt_static, mask_pair_inst,
                                mask_pair_meshlet)
-    bvh = None
+    bvh = tris = None
     if needs_rt and rt_static is not None:
         bvh = refit_bvh(rt_static, inst_world)
     elif needs_rt:
-        bvh = build_bvh(*world_triangles(scene, inst_world, rt_pi, rt_pm))
+        tris = world_triangles(scene, inst_world, rt_pi, rt_pm)
+        bvh = build_bvh(*tris)
+    wp = None
+    if settings.enable_gi or settings.enable_restir:
+        wp = world_pos_from_depth(depth, frame_inputs['inv_view_proj'],
+                                  settings.width, settings.height)
 
     # -- the sun shadow map, for map shadows and the probe hits' sun taps:
     #    rendered at its first use in the frame, so every frame with map
@@ -781,12 +809,29 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
             v0, v1, v2, _ = world_triangles(scene, inst_world, *streams)
             return tree, ddgi_mod.build_shade_records(scene, *streams, v0,
                                                       v1, v2)
-        wp = world_pos_from_depth(depth, frame_inputs['inv_view_proj'],
-                                  settings.width, settings.height)
         gi_irradiance, gi_carry, gi_aux = _gi_pass(
             ddgi_volume, trace_inputs, depth, wp, normal, frame_inputs,
             carry, settings, sky_fn, sun_vis_fn)
         new_carry.update(gi_carry)
+
+    # -- ReSTIR DI: the emissive triangles of the RT pair stream as lights,
+    #    one visibility ray a pixel through the main tree (K3) -------------
+    restir_light = None
+    restir_aux = {}
+    if settings.enable_restir:
+        if tris is None:
+            tris = world_triangles(scene, inst_world, rt_pi, rt_pm)
+        lights = restir_mod.collect_emissive_lights(
+            scene, rt_pi, rt_pm, *tris[:3],
+            max_lights=settings.restir_max_lights)
+        restir_light, new_carry['restir_reservoir'] = restir_mod.restir_di(
+            bvh, lights, wp, normal, m_gb['albedo'], depth > 0.0,
+            carry['frame_index'],
+            prev_reservoir=carry.get('restir_reservoir'),
+            motion=gb['motion'], num_candidates=settings.restir_candidates,
+            num_spatial=settings.restir_spatial_taps,
+            spatial_radius=settings.restir_spatial_radius)
+        restir_aux = dict(restir_lights=lights['count'], restir=restir_light)
 
     # -- AmbientOcclusion (GTAO) ----------------------------------------------
     ao = None
@@ -796,19 +841,63 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                                 settings.ao_half_res)
 
     # -- Deferred lighting + sky --------------------------------------------
-    hdr = deferred_lighting(
-        gb, frame_inputs['cam_pos'], frame_inputs['inv_view_proj'],
-        frame_inputs['sun_direction'], frame_inputs['sun_color'],
-        frame_inputs['sun_intensity'], sky_fn,
-        ambient_factor=settings.ambient_factor, shadow_mask=shadow_mask,
-        ao=ao, gi_irradiance=gi_irradiance)
+    def lighting(g, **kw):
+        return deferred_lighting(
+            g, frame_inputs['cam_pos'], frame_inputs['inv_view_proj'],
+            frame_inputs['sun_direction'], frame_inputs['sun_color'],
+            frame_inputs['sun_intensity'], sky_fn,
+            ambient_factor=settings.ambient_factor,
+            gi_irradiance=gi_irradiance, **kw)
+    hdr = lighting(gb, shadow_mask=shadow_mask, ao=ao)
+    if restir_light is not None:
+        hdr = hdr + torch.where((depth > 0)[..., None], restir_light, 0.0)
+
+    # -- TransparentForward: the blend set, depth-peeled `oit_layers`
+    #    times (layer 0 unbounded, each later one past the last), each
+    #    layer shaded without shadow or AO, composited back to front over
+    #    the pixels where it lies in front of the opaque depth (reference
+    #    package, frame.py:1170-1232) --------------------------------------
+    if (settings.enable_transparency and trans_pair_inst is not None
+            and trans_pair_inst.shape[0] > 0):
+        geo_t = geo_mod.meshlet_clip_triangles(
+            scene, inst_world, frame_inputs['view_proj'], trans_pair_inst,
+            trans_pair_meshlet)
+        setup_t = raster_mod.setup_triangles(geo_t, cfg_t)
+        records_t = pack_resolve_records(
+            setup_t, scene, inst_world, inst_adj, prev_inst_world, prev_vp)
+        bins_t = bin_pairs_with_budget(setup_t, cfg_t)
+        tstats = _raster_stats(setup_t, bins_t)
+        layers = []
+        peel = None
+        for _layer in range(max(settings.oit_layers, 1)):
+            depth_t, tid_t, rec_t = fill_resolve_stream(
+                setup_t, records_t, bins_t, cfg_t, peel_depth=peel)
+            # the reference resolves these layers with the per-pixel
+            # sampler (no quad taps)
+            gb_t = finish_gbuffer(
+                rec_t, depth_t, tid_t, frame_inputs['jitter'], cfg_t,
+                atlas=atlas, num_textures=scene.num_textures,
+                aniso=settings.texture_aniso, feedback=False,
+                emit_planes=emit)
+            layers.append((depth_t, lighting(gb_t), gb_t['alpha']))
+            peel = depth_t
+        for depth_t, hdr_t, alpha_t in reversed(layers):
+            front = (depth_t > depth) & (depth_t > 0.0)
+            blend = torch.where(front, alpha_t, 0.0)[..., None]
+            hdr = hdr * (1.0 - blend) + hdr_t * blend
+    if settings.show_gi_probes and settings.enable_gi:
+        hdr = ddgi_mod.visualize_probes(
+            hdr, depth, ddgi_volume, new_carry['ddgi_irradiance'],
+            frame_inputs['view_proj_nojitter'], frame_inputs['cam_pos'],
+            probe_offset=new_carry['ddgi_offset'])
 
     if new_hzb is not None:
         new_carry['hzb'] = new_hzb
     aux = dict(depth=depth, tri_id=tri_id, motion=gb['motion'], hdr=hdr,
                resolved_pixels=torch.sum((tri_id >= 0).to(torch.int32)),
                **raster_aux,
-               **{f'raster_mask_{k}': v for k, v in mstats.items()})
+               **{f'raster_mask_{k}': v for k, v in mstats.items()},
+               **{f'raster_trans_{k}': v for k, v in tstats.items()})
     if sm:
         aux['shadow_map_dropped'] = sm['dropped']
     if shadow_mask is not None:
@@ -816,6 +905,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     if ao is not None:
         aux['ao'] = ao
     aux.update(gi_aux)
+    aux.update(restir_aux)
     # the opaque set's sampler feedback (the masked set sends none)
     for k in ('tex_feedback', 'vt_tile_feedback'):
         if k in gb:
@@ -840,8 +930,18 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         aa, new_carry['taa_history'] = taa_resolve(
             hdr, gb['motion'], carry['taa_history'], carry['taa_valid'])
         new_carry['taa_valid'] = torch.ones_like(carry['taa_valid'])
-    image = compose_final(aa, exposure=exposure, bloom=bloom_tex,
-                          bloom_strength=settings.bloom_strength)
+    if settings.debug_mode != 0:
+        # the debug view in place of the lit image (reference package,
+        # frame.py:1298-1305); the passes above still run and carry
+        extras = dict(motion=gb['motion'], uv=gb['uv'],
+                      tex_desired_mip=gb.get('tex_desired_mip'),
+                      shadow=shadow_mask, ao=ao, tri_id=tri_id)
+        dbg = debug_view(gb, settings.debug_mode, extras={
+            k: v for k, v in extras.items() if v is not None})
+        image = torch.clamp(dbg * 255.0 + 0.5, 0, 255).to(torch.uint8)
+    else:
+        image = compose_final(aa, exposure=exposure, bloom=bloom_tex,
+                              bloom_strength=settings.bloom_strength)
     return image, new_carry, aux
 
 
@@ -872,16 +972,112 @@ def default_frame_inputs(scene_host, view_matrices: dict,
     return out
 
 
+# -- packed frame inputs --------------------------------------------------
+#
+# The per-frame inputs are ~14 small arrays; uploading them one by one
+# costs one host-to-device copy each.  pack_frame_inputs lays them into
+# ONE f32 vector on the host (the reference's _FI_PACK order, reference
+# package frame.py:1416-1485), copies it once, without blocking, from
+# pinned memory, and unpack_frame_inputs hands the frame views of it.
+# The node TRS arrays (their shape is the scene's) are uploaded once per
+# host object: the rest pose once, an animation's fresh arrays each frame.
+
+_FI_PACK = (
+    ('sky_params', (10, 3)),
+    ('view_proj', (4, 4)),
+    ('view_proj_nojitter', (4, 4)),
+    ('prev_view_proj_nojitter', (4, 4)),
+    ('inv_view_proj', (4, 4)),
+    ('cam_pos', (3,)),
+    ('cull_frustum_planes', (5, 4)),
+    ('cull_cam_pos', (3,)),
+    ('proj_scale_px', ()),
+    ('jitter', (2,)),
+    ('sun_direction', (3,)),
+    ('sun_color', (3,)),
+    ('sun_intensity', ()),
+    ('sun_view_proj', (4, 4)),
+)
+_FI_NODES = ('node_translation', 'node_rotation', 'node_scale')
+_FI_SIZES = [int(np.prod(s)) if s else 1 for _, s in _FI_PACK]
+_FI_TOTAL = sum(_FI_SIZES)
+
+_node_dev_cache: dict = {}
+
+
+def _dev_cached(key: str, v, device):
+    """The device tensor of a host array, cached by the array's identity
+    (the cache holds the array, so an id cannot be reused while its
+    entry lives); tensors pass through, moved to `device`."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    ck = (key, id(v), str(device))
+    hit = _node_dev_cache.get(ck)
+    if hit is not None and hit[0] is v:
+        return hit[1]
+    if len(_node_dev_cache) > 64:
+        _node_dev_cache.clear()
+    t = torch.from_numpy(np.array(v, np.float32)).to(device)
+    _node_dev_cache[ck] = (v, t)
+    return t
+
+
+def pack_frame_inputs(fi: dict, device=None) -> dict:
+    """Host frame_inputs (numpy, e.g. default_frame_inputs) -> the packed
+    set on `device` (default: the CUDA device): 'fi_vec', the small
+    fields as one f32 vector copied in one transfer, the node TRS arrays
+    through the identity cache, and any other key (a streaming manager's
+    residency overrides) as it is, numpy converted as
+    weights.frame_inputs_from_numpy converts it."""
+    from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
+    dev = resolve_device(device)
+    vec = np.empty(_FI_TOTAL, np.float32)
+    off = 0
+    for (name, _), size in zip(_FI_PACK, _FI_SIZES):
+        vec[off:off + size] = np.asarray(fi[name], np.float32).reshape(-1)
+        off += size
+    host = torch.from_numpy(vec)
+    if dev.type == 'cuda':
+        # pinned, so the copy runs without blocking the host (the
+        # caching host allocator keeps the buffer until it is done)
+        host = host.pin_memory()
+    out = {'fi_vec': host.to(dev, non_blocking=True)}
+    for k in _FI_NODES:
+        out[k] = _dev_cached(k, fi[k], dev)
+    known = {n for n, _ in _FI_PACK} | set(_FI_NODES)
+    rest = {k: v for k, v in fi.items() if k not in known}
+    out.update({k: v for k, v in rest.items() if isinstance(v, torch.Tensor)})
+    out.update(frame_inputs_from_numpy(
+        {k: v for k, v in rest.items() if not isinstance(v, torch.Tensor)},
+        dev))
+    return out
+
+
+def unpack_frame_inputs(packed: dict) -> dict:
+    """The packed set -> frame_inputs: views of 'fi_vec' (no copy), the
+    other keys as they are."""
+    vec = packed['fi_vec']
+    fi = {k: v for k, v in packed.items() if k != 'fi_vec'}
+    off = 0
+    for (name, shape), size in zip(_FI_PACK, _FI_SIZES):
+        v = vec[off:off + size]
+        fi[name] = v.view(shape) if shape else v[0]
+        off += size
+    return fi
+
+
 def make_render_fn(settings: RenderSettings, device=None,
                    raster_cfg: RasterConfig | None = None,
-                   mask_raster_cfg: RasterConfig | None = None):
+                   mask_raster_cfg: RasterConfig | None = None,
+                   trans_raster_cfg: RasterConfig | None = None):
     """Frame function for `settings` on `device` (default: the CUDA
     device; raises when there is none), with the content-sized
-    `raster_cfg` / `mask_raster_cfg` when given (see render_frame).
-    Accepts frame_inputs as host numpy arrays or tensors, and passes its
-    keyword arguments (mask_pair_*, rt_static, rt_pair_*, ddgi_volume,
-    rt_static_gi, gi_pair_*) to render_frame; returns render_frame's
-    result."""
+    `raster_cfg` / `mask_raster_cfg` / `trans_raster_cfg` when given
+    (see render_frame).  Accepts frame_inputs as host numpy arrays or
+    tensors, or packed (pack_frame_inputs: the same frame, bit for bit),
+    and passes its keyword arguments (mask_pair_*, trans_pair_*,
+    rt_static, rt_pair_*, ddgi_volume, rt_static_gi, gi_pair_*) to
+    render_frame; returns render_frame's result."""
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
     check_settings(settings)
     dev = resolve_device(device)
@@ -890,8 +1086,16 @@ def make_render_fn(settings: RenderSettings, device=None,
         if scene.device != dev:
             raise ValueError(f"scene is on {scene.device}, the render "
                              f"function on {dev}")
-        fi = frame_inputs_from_numpy(frame_inputs, dev)
+        if 'fi_vec' in frame_inputs:
+            fi = unpack_frame_inputs(frame_inputs)
+            if fi['view_proj'].device != dev:
+                raise ValueError(f"packed frame inputs on "
+                                 f"{fi['view_proj'].device}, the render "
+                                 f"function on {dev}")
+        else:
+            fi = frame_inputs_from_numpy(frame_inputs, dev)
         return render_frame(scene, pair_inst, pair_meshlet, fi, carry,
                             settings, raster_cfg=raster_cfg,
-                            mask_raster_cfg=mask_raster_cfg, **kw)
+                            mask_raster_cfg=mask_raster_cfg,
+                            trans_raster_cfg=trans_raster_cfg, **kw)
     return render

@@ -250,11 +250,73 @@ def trace_probes(*args, **kwargs):
         "trace_probe_block): not ported yet (ROADMAP queue 1 item 7)")
 
 
-def visualize_probes(*args, **kwargs):
-    """The probe overlay (show_gi_probes): not ported."""
-    raise NotImplementedError(
-        "ddgi.visualize_probes (show_gi_probes): not ported yet (ROADMAP "
-        "queue 1 item 5, debug views)")
+def visualize_probes(hdr, depth, volume: DdgiVolume, irradiance,
+                     view_proj, cam_pos, radius_world: float | None = None,
+                     probe_offset=None, patch: int = 32):
+    """The probe overlay (show_gi_probes): depth-tested, fake-lit probe
+    spheres in their own mean irradiance (GIDebugRenderer /
+    giprobevisualization.hlsl; reference package, ddgi.py:577-630).
+
+    The reference splats a patch x patch square per probe, probe by
+    probe, at x0 = clip(int32(cx) - patch // 2, 0, w - patch) (int32
+    truncates toward zero, left of the screen too), and a later probe
+    overwrites an earlier one where both are inside.  So a pixel shows
+    the highest probe index whose patch is inside there, else the HDR:
+    here one scatter (amax) of probe indices over every patch's inside
+    pixels, then one gather of the winner's colour."""
+    h, w = depth.shape
+    if h < patch or w < patch:
+        raise ValueError(f"a {w}x{h} frame cannot hold a {patch} px patch")
+    dev = hdr.device
+    if radius_world is None:
+        radius_world = float(min(volume.spacing)) * 0.12
+    pos = volume.probe_positions(dev)                      # (P, 3)
+    if probe_offset is not None:
+        pos = pos + probe_offset
+    n = pos.shape[0]
+    clip = torch.cat([pos, torch.ones_like(pos[:, :1])], -1) @ view_proj.T
+    wc = clip[:, 3]
+    in_front = wc > 1e-3
+    wsafe = torch.where(in_front, wc, 1.0)
+    sx = (clip[:, 0] / wsafe * 0.5 + 0.5) * w
+    sy = (0.5 - clip[:, 1] / wsafe * 0.5) * h
+    pd = clip[:, 2] / wsafe                                # reverse-Z depth
+    dist = torch.linalg.vector_norm(pos - cam_pos[None], dim=-1)
+    r_px = torch.clamp(radius_world / torch.clamp(dist, min=1e-3)
+                       * 0.5 * h * 1.2, 1.0, patch * 0.45)
+    mean_irr = irradiance.mean(dim=1)                      # (P, 3)
+
+    # every probe's patch: its origin, its pixels, and where it is inside
+    x0 = torch.clamp(sx.to(torch.int32) - patch // 2, 0, w - patch)
+    y0 = torch.clamp(sy.to(torch.int32) - patch // 2, 0, h - patch)
+    k = torch.arange(patch, dtype=torch.int32, device=dev)
+    xs = x0[:, None, None] + k[None, None, :]              # (P, 1, patch)
+    ys = y0[:, None, None] + k[None, :, None]              # (P, patch, 1)
+
+    def offsets(px, py, i):
+        """(dx, dy) of pixels from probe i's centre, in its radii."""
+        return ((px.to(torch.float32) + 0.5 - sx[i]) / r_px[i],
+                (py.to(torch.float32) + 0.5 - sy[i]) / r_px[i])
+    pi = torch.arange(n, device=dev)[:, None, None]
+    dx, dy = offsets(xs, ys, pi)
+    inside = ((dx * dx + dy * dy < 1.0) & in_front[pi]
+              & (pd[pi] > depth[ys.long(), xs.long()]))
+    flat = (ys * w + xs).long().expand(n, patch, patch)
+    winner = torch.full((h * w,), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, flat.reshape(-1),
+                           torch.where(inside, pi, -1).reshape(-1), 'amax')
+    winner = winner.reshape(h, w)
+
+    # the winner's fake sphere shade at each pixel: brighter toward the
+    # rim facing up
+    i = torch.clamp(winner, min=0)
+    py, px = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing='ij')
+    dx, dy = offsets(px, py, i)
+    nz = torch.sqrt(torch.clamp(1.0 - (dx * dx + dy * dy), min=0.0))
+    shade = 0.3 + 0.7 * torch.clamp(nz * 0.7 - dy * 0.6, min=0.0)
+    color = mean_irr[i] * shade[..., None] + 1e-3
+    return torch.where((winner >= 0)[..., None], color, hdr)
 
 
 def build_shade_records(scene, pair_inst, pair_meshlet, v0, v1, v2):

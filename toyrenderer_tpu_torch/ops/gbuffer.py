@@ -5,9 +5,11 @@ folds everything a pixel needs into ONE dense (T, 64) f32 record per
 triangle; the fill kernel's epilogue (or, for CPU tensors,
 `resolve_interpolants`) turns the winner's record into the 32-plane
 interpolant stack; `finish_gbuffer` textures it into the float shading
-planes the lighting pass reads.  The reference package's packed 4 x u32
-GBuffer only feeds its `pack_gbuffer=True` mode, which this slice does
-not port.
+planes the lighting pass reads, or (`emit_planes=False`, the frame's
+`pack_gbuffer=True`) into the reference's packed 4 x u32 GBuffer
+(lightingcommon.hlsli:28-57: albedo RGBA8, octahedral normal, RGB9E5
+emissive, roughness / metallic RGBA8 with the material id in the high
+half), which `unpack_gbuffer` reads back.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from toyrenderer_tpu_torch.mathlib.transforms import cross, normalize
+from toyrenderer_tpu_torch.ops import packing as P
 from toyrenderer_tpu_torch.scene.textures import ATLAS_ALIGN
 
 RESOLVE_REC = 64
@@ -207,8 +210,10 @@ def resolve_interpolants(records, depth, tri_id, cfg, pixel_xy=None,
 def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
                    num_textures: int = 0, quad_taps: bool = False,
                    aniso: int = 1, pixel_xy=None, screen_wh=None,
-                   feedback: bool = True):
-    """Interpolant planes (INTERP_C, H, W) -> textured shading planes.
+                   feedback: bool = True, emit_planes: bool = True):
+    """Interpolant planes (INTERP_C, H, W) -> textured shading planes,
+    or with emit_planes=False the packed GBuffer words gbuffer0-3 (int32
+    bit patterns of the reference's u32 words) in their place.
 
     jitter: (2,) current sub-pixel jitter in pixels (motion vectors are
     unjittered).  atlas: the sampler's atlas dict (tex_texels, tex_desc,
@@ -313,24 +318,37 @@ def finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=None,
                     atlas['tex_tile_table'].shape[0])
 
     h3 = hit[..., None]
-    return dict(
+    out = dict(
         alpha=torch.where(hit, base_color[..., 3], 0.0),
         alpha_cutoff=interp[I_CUT],
         motion=motion,
         depth=depth,
         uv=torch.where(h3, uv, 0.0),
-        albedo_f=torch.where(h3, base_color[..., :3], 0.0),
-        normal_f=torch.where(h3, n_w, 0.0),
-        emissive_f=torch.where(h3, emissive, 0.0),
-        rough_f=torch.where(hit, rough, 0.0),
-        metal_f=torch.where(hit, metal, 0.0),
         **fb,
     )
+    if emit_planes:
+        out.update(albedo_f=torch.where(h3, base_color[..., :3], 0.0),
+                   normal_f=torch.where(h3, n_w, 0.0),
+                   emissive_f=torch.where(h3, emissive, 0.0),
+                   rough_f=torch.where(hit, rough, 0.0),
+                   metal_f=torch.where(hit, metal, 0.0))
+        return out
+    # the packed words (reference package, gbuffer.py:380-405); the
+    # material id rides the high half of gbuffer3, clamped to 16 bits
+    mat_id = torch.clamp(interp[I_MAT].to(torch.int64), max=0xFFFF)
+    zero = torch.zeros_like(rough)
+    words = (P.pack_rgba8_u32(base_color), P.pack_normal_oct_u32(n_w),
+             P.pack_rgb9e5_u32(emissive),
+             P.pack_rgba8_u32(torch.stack([rough, metal, zero, zero], -1))
+             | P.u32_bits(mat_id << 16))
+    for i, g in enumerate(words):
+        out[f'gbuffer{i}'] = torch.where(hit, g, 0)
+    return out
 
 
 def resolve_gbuffer(records, depth, tri_id, jitter, cfg, atlas=None,
                     num_textures: int = 0, quad_taps: bool = False,
-                    aniso: int = 1):
+                    aniso: int = 1, emit_planes: bool = True):
     """Per-pixel resolve + GBuffer from either input form: (T, 64) raw
     records + visibility buffer (resolve_interpolants first), or the
     (INTERP_C, H, W) planes the fill kernel already wrote."""
@@ -340,20 +358,22 @@ def resolve_gbuffer(records, depth, tri_id, jitter, cfg, atlas=None,
         interp = resolve_interpolants(records, depth, tri_id, cfg)
     return finish_gbuffer(interp, depth, tri_id, jitter, cfg, atlas=atlas,
                           num_textures=num_textures, quad_taps=quad_taps,
-                          aniso=aniso)
+                          aniso=aniso, emit_planes=emit_planes)
 
 
 def unpack_gbuffer(gb: dict):
-    """GBuffer channels -> shading inputs (lightingcommon.hlsli unpack),
-    from the full-precision float planes.  The packed 4 x u32 GBuffer
-    (`pack_gbuffer=True`) is not ported yet."""
-    if 'albedo_f' not in gb:
-        raise NotImplementedError(
-            "unpack_gbuffer of the packed GBuffer: not ported yet (ROADMAP "
-            "queue 1 item 5)")
-    return dict(albedo=gb['albedo_f'], normal=gb['normal_f'],
-                emissive=gb['emissive_f'], roughness=gb['rough_f'],
-                metallic=gb['metal_f'], depth=gb['depth'])
+    """GBuffer channels -> shading inputs (lightingcommon.hlsli unpack):
+    the float planes when the GBuffer has them, else the packed words
+    gbuffer0-3 decoded (reference package, gbuffer.py:438-455)."""
+    if 'albedo_f' in gb:
+        return dict(albedo=gb['albedo_f'], normal=gb['normal_f'],
+                    emissive=gb['emissive_f'], roughness=gb['rough_f'],
+                    metallic=gb['metal_f'], depth=gb['depth'])
+    rm = P.unpack_rgba8_u32(gb['gbuffer3'] & 0xFFFF)
+    return dict(albedo=P.unpack_rgba8_u32(gb['gbuffer0'])[..., :3],
+                normal=P.unpack_normal_oct_u32(gb['gbuffer1']),
+                emissive=P.unpack_rgb9e5_u32(gb['gbuffer2']),
+                roughness=rm[..., 0], metallic=rm[..., 1], depth=gb['depth'])
 
 
 def _merges(k: str, channels) -> bool:
@@ -367,7 +387,7 @@ def _merges(k: str, channels) -> bool:
 def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
                               cap_quads: int, atlas=None,
                               quad_taps: bool = False, aniso: int = 1,
-                              channels=None):
+                              channels=None, emit_planes: bool = True):
     """Every masked peel layer -> the merged winner's channels, resolved
     and textured only on the 2x2 quads that hold a fragment
     (reference package, gbuffer.py:456-626).
@@ -386,6 +406,8 @@ def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
 
     records: (T, 64) the masked set's resolve records; peel_depth /
     peel_tid: (L, H, W).  Quads past cap_quads drop their fragments.
+    emit_planes=False resolves the packed words (finish_gbuffer), which
+    ride the row table as their bits.
     Returns full-resolution {'passes' (H, W) bool, 'depth', 'tri_id',
     <channels>}; tri_id is -1 where no layer passed.
     """
@@ -444,7 +466,7 @@ def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
         gb_l = finish_gbuffer(interp, depth_c, tid_c, jitter, cfg,
                               atlas=atlas, quad_taps=quad_taps, aniso=aniso,
                               pixel_xy=pix, screen_wh=(w, h),
-                              feedback=False)
+                              feedback=False, emit_planes=emit_planes)
         # occluder-seeded peel: tid >= 0 already means in front of the
         # opaque surface
         p_l = (gb_l['alpha'] >= gb_l['alpha_cutoff']) & (tid_c >= 0)
@@ -453,8 +475,8 @@ def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
             if not _merges(k, channels):
                 continue
             s = sel[..., None] if v.ndim == 3 else sel
-            merged[k] = torch.where(s, v, 0.0 if k not in merged
-                                    else merged[k])
+            merged[k] = torch.where(s, v, torch.zeros_like(v)
+                                    if k not in merged else merged[k])
         depth_w = torch.where(sel, depth_c, 0.0 if depth_w is None
                               else depth_w)
         tid_w = torch.where(sel, tid_c, -1 if tid_w is None else tid_w)
@@ -462,9 +484,13 @@ def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
 
     # the winner's channels (+ depth, tri_id) in ONE quad-rate row table:
     # all 4 pixels of a quad ride one row.  tri_id rides as a float VALUE
-    # (exact below 2^24): the pad row, for quads with no slot, reads -1
+    # (exact below 2^24): the pad row, for quads with no slot, reads -1;
+    # the packed words ride as their bits (the pad row's are 0)
     named = dict(depth=depth_w, tri_id=tid_w.to(torch.float32), **merged)
-    parts = [v[..., None] if v.ndim == 2 else v for v in named.values()]
+    words = {k for k, v in named.items() if v.dtype == torch.int32}
+    parts = [(v.view(torch.float32) if k in words else v)
+             for k, v in named.items()]
+    parts = [v[..., None] if v.ndim == 2 else v for v in parts]
     widths = [p.shape[-1] for p in parts]
     packed = torch.cat(parts, -1)                          # (2R, 2C, ct)
     ct = packed.shape[-1]
@@ -482,7 +508,8 @@ def masked_peel_merge_compact(records, peel_depth, peel_tid, jitter, cfg,
     for k, wd in zip(named, widths):
         v = rows[..., o:o + wd]
         o += wd
-        out[k] = v[..., 0] if wd == 1 else v
+        v = v[..., 0] if wd == 1 else v
+        out[k] = v.contiguous().view(i32) if k in words else v
     out['tri_id'] = torch.round(out['tri_id']).to(i32)
     out['passes'] = out['tri_id'] >= 0
     return out

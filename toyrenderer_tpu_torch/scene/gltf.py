@@ -1,8 +1,9 @@
 """Pure-Python glTF 2.0 loader producing numpy arrays.
 
 The port's own copy of toyrenderer_tpu/scene/gltf.py (same numpy logic,
-so both packages build the same scene), without animation channels: the
-port renders the rest pose.
+so both packages build the same scene), with its keyframe animation
+channels (translation / rotation / scale; CUBICSPLINE keeps its value
+keys, played linearly).
 
 Capability counterpart of the reference's cgltf-based loader
 (source/SceneLoading.cpp:24-1143): meshes/primitives with POSITION / NORMAL /
@@ -114,6 +115,15 @@ class GltfTexture:
 
 
 @dataclass
+class GltfAnimationChannel:
+    node: int
+    path: str                        # 'translation' | 'rotation' | 'scale'
+    times: np.ndarray                # (K,) f32
+    values: np.ndarray               # (K, 3|4) f32
+    interpolation: str = "LINEAR"    # 'LINEAR' | 'STEP'
+
+
+@dataclass
 class GltfDocument:
     meshes: list[GltfMesh]
     materials: list[GltfMaterial]
@@ -123,6 +133,7 @@ class GltfDocument:
     lights: list[GltfLight]
     textures: list[GltfTexture]
     base_dir: Path
+    animations: list[GltfAnimationChannel] = field(default_factory=list)
 
 
 def _read_buffer(buf: dict, base_dir: Path, glb_bin: bytes | None) -> bytes:
@@ -385,10 +396,30 @@ def load_gltf(path: str | Path) -> GltfDocument:
             color=np.asarray(l.get("color", [1, 1, 1]), np.float32),
             intensity=float(l.get("intensity", 1.0))))
 
+    # --- animations ----------------------------------------------------------
+    channels: list[GltfAnimationChannel] = []
+    for anim in gltf.get("animations", []):
+        samplers_a = anim.get("samplers", [])
+        for ch in anim.get("channels", []):
+            target = ch["target"]
+            if target.get("path") not in ("translation", "rotation", "scale"):
+                continue
+            s = samplers_a[ch["sampler"]]
+            times = _accessor_f32(gltf, views, s["input"])[:, 0]
+            values = _accessor_f32(gltf, views, s["output"])
+            interp = s.get("interpolation", "LINEAR")
+            if interp == "CUBICSPLINE":
+                # keep only the value keys (drop in/out tangents)
+                values = values.reshape(len(times), 3, -1)[:, 1, :]
+                interp = "LINEAR"
+            channels.append(GltfAnimationChannel(
+                node=target["node"], path=target["path"],
+                times=times, values=values, interpolation=interp))
+
     return GltfDocument(
         meshes=meshes, materials=materials, nodes=nodes,
         root_nodes=root_nodes, cameras=cameras, lights=lights,
-        textures=textures, base_dir=base_dir)
+        textures=textures, base_dir=base_dir, animations=channels)
 
 
 def _face_normals_to_vertex(pos: np.ndarray, idx: np.ndarray) -> np.ndarray:

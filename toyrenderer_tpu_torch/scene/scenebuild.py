@@ -28,7 +28,7 @@ from toyrenderer_tpu_torch.scene import lod as LOD
 from toyrenderer_tpu_torch.scene import meshlet as ML
 from toyrenderer_tpu_torch.scene import textures as TX
 
-CACHE_VERSION = 1
+CACHE_VERSION = 2
 MAX_LODS = LOD.MAX_LODS
 
 
@@ -146,6 +146,29 @@ class SceneBuffers:
         default_factory=lambda: np.tile(
             np.asarray([[0, 1, 1, 0]], np.int32), (TX.MAX_MIPS, 1)))
     num_textures: int = 0
+    # packed animation channels (scene/animation.py)
+    anim_node: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    anim_path: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    anim_interp: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    anim_key_offset: np.ndarray = field(
+        default_factory=lambda: np.zeros(1, np.int32))
+    anim_times: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, np.float32))
+    anim_values: np.ndarray = field(
+        default_factory=lambda: np.zeros((0, 4), np.float32))
+    anim_duration: float = 0.0
+
+    def animation_data(self):
+        """The scene's channels as scene/animation.AnimationData."""
+        from toyrenderer_tpu_torch.scene.animation import AnimationData
+        return AnimationData(
+            node=self.anim_node, path=self.anim_path,
+            interp=self.anim_interp, key_offset=self.anim_key_offset,
+            times=self.anim_times, values=self.anim_values,
+            duration=self.anim_duration)
 
     def attach_atlas(self, atlas: "TX.TextureAtlas"):
         self.tex_texels = atlas.texels
@@ -535,6 +558,14 @@ def build_scene(doc: G.GltfDocument, scale: float = 1.0,
         # one material-map-set atlas entry per TEXTURED material (order
         # matches _material_atlas_entries)
         scene_out.attach_atlas(TX.build_atlas(doc))
+    if doc.animations:
+        from toyrenderer_tpu_torch.scene.animation import pack_animations
+        ad = pack_animations(doc.animations)
+        scene_out.anim_node, scene_out.anim_path = ad.node, ad.path
+        scene_out.anim_interp = ad.interp
+        scene_out.anim_key_offset = ad.key_offset
+        scene_out.anim_times, scene_out.anim_values = ad.times, ad.values
+        scene_out.anim_duration = ad.duration
     return scene_out
 
 
@@ -620,7 +651,9 @@ def _mat3_to_quat(m: np.ndarray) -> np.ndarray:
 # Cache (reference: <scene>_CachedData.bin, SceneLoading.cpp:1090-1142)
 # ---------------------------------------------------------------------------
 
-def _cache_path(path: Path, scale: float) -> Path:
+def cache_path(path: Path, scale: float) -> Path:
+    """Where load_scene keeps the build of `path` at `scale`: the build
+    directory, keyed on the file's name, its bytes and the scale."""
     h = hashlib.sha256()
     h.update(path.read_bytes())
     h.update(repr((CACHE_VERSION, float(scale))).encode())
@@ -629,9 +662,11 @@ def _cache_path(path: Path, scale: float) -> Path:
 
 _SCALARS = ('node_depth', 'num_vertices', 'num_meshlets', 'num_primitives',
             'num_instances', 'num_nodes', 'num_textures', 'sun_intensity',
-            'camera_yfov', 'camera_znear')
+            'camera_yfov', 'camera_znear', 'anim_duration')
 _HOST_ARRAYS = ('sun_direction', 'sun_color', 'camera_position',
-                'camera_rotation', 'world_aabb')
+                'camera_rotation', 'world_aabb', 'anim_node', 'anim_path',
+                'anim_interp', 'anim_key_offset', 'anim_times',
+                'anim_values')
 
 
 def save_scene_cache(cache: Path, scene: SceneBuffers):
@@ -651,7 +686,8 @@ def load_scene_cache(cache: Path) -> SceneBuffers:
         kw = {f: z[f] for f in (*SceneBuffers._DEVICE_FIELDS, *_HOST_ARRAYS)}
         scalars = z["__scalars"]
     for f, v in zip(_SCALARS, scalars):
-        kw[f] = float(v) if f.startswith(('sun_', 'camera_')) else int(v)
+        kw[f] = (float(v) if f.startswith(('sun_', 'camera_', 'anim_'))
+                 else int(v))
     return SceneBuffers(**kw)
 
 
@@ -661,7 +697,7 @@ def load_scene(path: str | Path, scale: float = 1.0,
     build of the same file (same bytes, same scale) is read back from
     the build directory instead of rebuilt."""
     path = Path(path)
-    cache = _cache_path(path, scale)
+    cache = cache_path(path, scale)
     if use_cache and cache.exists():
         return load_scene_cache(cache)
     scene = build_scene(G.load_gltf(path), scale=scale)

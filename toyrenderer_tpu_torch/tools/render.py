@@ -11,8 +11,13 @@ complete tree with TR_GI_SAH=0).  Raster capacities are sized from the
 first view's content (engine/capacity.py).  `--vtstream mip|tile`
 streams the atlas through engine/streaming.py's managers (pool budget
 `--vtpool`); `--scene stress` renders the procedural textured scene.
-Flags of passes the port does not have yet raise NotImplementedError
-naming their ROADMAP item.
+`--transparency` draws the blend set (`--oitlayers` depth-peeled
+layers) and splits it from the opaque set, `--restir` adds ReSTIR DI,
+`--debugview N` writes debug view N, `--showprobes` the probe overlay
+(with `--gi`), `--animate` plays the scene's glTF animation at 60 fps
+steps, `--orbit R` turns the camera R radians a frame.  Each frame's
+inputs go to the device in one copy (engine/frame.pack_frame_inputs).
+`--passtable` raises NotImplementedError naming its ROADMAP item.
 
 Usage:
   python -m toyrenderer_tpu_torch.tools.render \\
@@ -33,19 +38,8 @@ import torch
 
 # flag -> (is it asked for?, the ROADMAP queue item that ports it)
 _NOT_PORTED = (
-    ('--animate', lambda a: a.animate,
-     'queue 1 item 6 (glTF animation channels)'),
-    ('--restir', lambda a: a.restir, 'queue 1 item 7 (opt-in paths)'),
-    ('--transparency', lambda a: a.transparency,
-     'queue 1 item 7 (opt-in paths: transparency)'),
-    ('--showprobes', lambda a: a.showprobes,
-     'queue 1 item 5 (debug views: ddgi.visualize_probes)'),
-    ('--debugview', lambda a: a.debugview != 0,
-     'queue 1 item 5 (debug views)'),
     ('--passtable', lambda a: a.passtable,
      'queue 1 item 8 (tools: the per-pass timing table)'),
-    ('--orbit', lambda a: a.orbit != 0.0,
-     'queue 1 item 8 (tools: the camera orbit)'),
 )
 
 
@@ -88,21 +82,29 @@ def parse_args(argv=None):
     p.add_argument("--vtpool", type=int, default=64,
                    help="tile-pool budget (tiles) / mip-pool budget "
                         "(x64K texel rows) for --vtstream")
-    # the reference's flags of passes not ported yet
-    p.add_argument("--debugview", type=int, default=0)
-    p.add_argument("--showprobes", action="store_true")
-    p.add_argument("--restir", action="store_true")
-    p.add_argument("--transparency", action="store_true")
-    p.add_argument("--animate", action="store_true")
-    p.add_argument("--orbit", type=float, default=0.0)
-    p.add_argument("--passtable", action="store_true")
+    p.add_argument("--debugview", type=int, default=0,
+                   help="0=lit, 1=albedo, 2=normal, 6=depth, 11=meshlet, "
+                        "... 14=texture mip (ops/lighting.DEBUG_*)")
+    p.add_argument("--showprobes", action="store_true",
+                   help="GI probe visualization overlay (with --gi)")
+    p.add_argument("--restir", action="store_true", help="ReSTIR DI")
+    p.add_argument("--transparency", action="store_true",
+                   help="the blend set, depth-peeled and composited")
+    p.add_argument("--oitlayers", type=int, default=1,
+                   help="depth-peeled OIT layers of the blend set")
+    p.add_argument("--animate", action="store_true",
+                   help="play the scene's animations at 60 fps frame steps")
+    p.add_argument("--orbit", type=float, default=0.0,
+                   help="turn the camera by this many radians a frame")
+    p.add_argument("--passtable", action="store_true",
+                   help="the per-pass device-ms table (not ported)")
     args = p.parse_args(argv)
     for flag, on, item in _NOT_PORTED:
         if on(args):
             raise NotImplementedError(f"{flag}: not ported yet (ROADMAP "
                                       f"{item})")
     # the reference's switches that the port has no path for
-    if args.shadows or args.gi:
+    if args.shadows or args.gi or args.restir:
         from toyrenderer_tpu_torch.ops.bvh import check_main_tree_switch
         check_main_tree_switch()
     if args.gi:
@@ -117,7 +119,7 @@ def main(argv=None) -> int:
     from toyrenderer_tpu_torch.device import resolve_device
     from toyrenderer_tpu_torch.engine import (
         RenderSettings, View, default_frame_inputs, init_carry,
-        make_render_fn)
+        make_render_fn, pack_frame_inputs)
     from toyrenderer_tpu_torch.engine import capacity
     from toyrenderer_tpu_torch.ops.geometry import static_meshlet_pairs
     from toyrenderer_tpu_torch.scene import load_scene
@@ -142,7 +144,16 @@ def main(argv=None) -> int:
     scene = host.to_device(dev)
     mk_i, mk_m = static_meshlet_pairs(host, 'mask')
     has_mask = len(mk_i) > 0
-    pi, pm = static_meshlet_pairs(host, 'not_mask' if has_mask else 'all')
+    # the alpha-mode split of the base pass (reference render.py:114-138)
+    if has_mask and args.transparency:
+        opaque_filter = 'opaque_strict'     # masked and blend split out
+    elif has_mask:
+        opaque_filter = 'not_mask'          # masked split out, blend drawn
+    elif args.transparency:
+        opaque_filter = 'opaque'            # blend split out
+    else:
+        opaque_filter = 'all'
+    pi, pm = static_meshlet_pairs(host, opaque_filter)
 
     def on(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
@@ -151,13 +162,21 @@ def main(argv=None) -> int:
     if has_mask:
         mask_kw = dict(mask_pair_inst=on(mk_i), mask_pair_meshlet=on(mk_m))
         print(f"[alpha-test] {len(mk_i)} masked pairs")
+    trans_kw = {}
+    if args.transparency:
+        ti, tm = static_meshlet_pairs(host, 'blend')
+        trans_kw = dict(trans_pair_inst=on(ti), trans_pair_meshlet=on(tm))
+        print(f"[transparency] {len(ti)} blend pairs")
 
     settings = RenderSettings(
-        width=w, height=h, manual_exposure=args.exposure,
+        width=w, height=h, debug_mode=args.debugview,
+        manual_exposure=args.exposure,
         enable_bloom=args.bloom, enable_auto_exposure=args.autoexposure,
         enable_taa=args.taa, enable_culling=args.culling,
         enable_shadows=args.shadows, shadow_technique=args.shadowtechnique,
-        enable_ao=args.ao, enable_gi=args.gi,
+        enable_ao=args.ao, enable_gi=args.gi, show_gi_probes=args.showprobes,
+        enable_restir=args.restir, enable_transparency=args.transparency,
+        oit_layers=args.oitlayers,
         use_bruteforce_raster=args.bruteforceraster)
 
     # content-sized raster capacities from the first view
@@ -166,24 +185,31 @@ def main(argv=None) -> int:
                                   dev)
     mask_pairs = ((mask_kw['mask_pair_inst'], mask_kw['mask_pair_meshlet'])
                   if has_mask else None)
+    blend_pairs = ((trans_kw['trans_pair_inst'],
+                    trans_kw['trans_pair_meshlet'])
+                   if trans_kw and len(trans_kw['trans_pair_inst']) else None)
     if args.culling:
         counts = capacity.culled_pair_counts(scene, fi0, settings,
-                                             len(pi), mask_pairs)
+                                             len(pi), mask_pairs,
+                                             blend_pairs)
         settings = capacity.sized_culled_settings(settings, counts)
     else:
         sets = {"opaque": (pair_inst, pair_meshlet)}
         if has_mask:
             sets["masked"] = mask_pairs
+        if blend_pairs is not None:
+            sets["blend"] = blend_pairs
         counts = capacity.tile_pair_counts(scene, fi0, settings, sets)
         settings = capacity.sized_settings(settings, counts)
-    cfg_kw = {f"{'mask_' if k == 'masked' else ''}raster_cfg":
+    prefix = {'opaque': '', 'masked': 'mask_', 'blend': 'trans_'}
+    cfg_kw = {f"{prefix[k]}raster_cfg":
               capacity.sized_raster_config(settings, {k: v})
               for k, v in counts.items()}
     print(f"[capacity] K={settings.max_tris_per_tile} "
           f"B={settings.max_big_tris} pair_capacity="
           f"{settings.pair_capacity}")
 
-    kw = dict(mask_kw)
+    kw = dict(mask_kw, **trans_kw)
     volume = None
     if args.gi:
         from toyrenderer_tpu_torch.ops.ddgi import volume_from_aabb
@@ -192,7 +218,7 @@ def main(argv=None) -> int:
         kw['ddgi_volume'] = volume
         print(f"[gi] probe grid {volume.counts}, {volume.num_probes} probes "
               f"x {volume.rays_per_probe} rays")
-    if args.gi or args.shadows:
+    if args.gi or args.shadows or args.restir:
         # built for 'map' shadows too: the sun map draws the masked set
         # through the tree's coverage keep
         from toyrenderer_tpu_torch.ops.bvh import build_rt_static
@@ -209,7 +235,7 @@ def main(argv=None) -> int:
         t0 = time.time()
         gi_sah = gi_sah_wanted()
         gi_static, g_pi, g_pm, gi_lod = build_rt_static_gi(
-            host, 'not_mask' if has_mask else 'all',
+            host, opaque_filter,
             mask_pair_inst=mk_i if has_mask else None,
             mask_pair_meshlet=mk_m if has_mask else None, sah=gi_sah,
             device=dev)
@@ -242,11 +268,24 @@ def main(argv=None) -> int:
                 np.full(stream_mgr.table_size, np.inf))
         print(f"[vt] {args.vtstream}-granularity streaming, pool budget "
               f"{args.vtpool}")
+    player = None
+    if args.animate:
+        from toyrenderer_tpu_torch.scene.animation import AnimationPlayer
+        player = AnimationPlayer(host.animation_data())
+        print(f"[anim] {player.data.num_channels} channels, "
+              f"{player.data.duration:.2f}s")
     fb_key = 'vt_tile_feedback' if args.vtstream == 'tile' else 'tex_feedback'
     rows = []
     for i in range(args.frames):
         mats = view.matrices()
         fi = default_frame_inputs(host, mats)
+        if player is not None and player.enabled:
+            t, r, s = player.evaluate(i / 60.0, host.node_translation,
+                                      host.node_rotation, host.node_scale)
+            fi.update(node_translation=np.asarray(t, np.float32),
+                      node_rotation=np.asarray(r, np.float32),
+                      node_scale=np.asarray(s, np.float32))
+        fi = pack_frame_inputs(fi, dev)
         fi.update(overrides)
         t0 = time.time()
         image, carry, aux = render(scene, pair_inst, pair_meshlet, fi, carry,
@@ -255,6 +294,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize(dev)
         dt = (time.time() - t0) * 1000
         view.advance(mats)
+        if args.orbit:
+            view.rotate_yaw_pitch(args.orbit, 0.0)
         label = "build+run" if i == 0 else "frame"
         print(f"[frame {i}] {label}: {dt:.2f} ms")
         if stream_mgr is not None:

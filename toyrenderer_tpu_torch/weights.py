@@ -63,11 +63,17 @@ def residency_from_numpy(overrides: dict, device=None) -> dict:
 def carry_from_numpy(carry: dict, device=None) -> dict:
     """Carry (prev_inst_world, prev_depth, exposure, frame_index, the
     HZB's tuple of mips under culling, the TAA and shadow histories and
-    their validity) as numpy -> tensors on `device` (floats f32,
-    integers i32)."""
+    their validity, ReSTIR's reservoir dict) as numpy -> tensors on
+    `device` (floats f32, integers i32)."""
     dev = resolve_device(device)
-    return {k: tuple(_tensor(m, dev) for m in v) if isinstance(v, tuple)
-            else _tensor(v, dev) for k, v in carry.items()}
+
+    def conv(v):
+        if isinstance(v, tuple):
+            return tuple(_tensor(m, dev) for m in v)
+        if isinstance(v, dict):
+            return {k: _tensor(m, dev) for k, m in v.items()}
+        return _tensor(v, dev)
+    return {k: conv(v) for k, v in carry.items()}
 
 
 def rt_static_from_numpy(arrays: dict, device=None) -> RtStatic:
