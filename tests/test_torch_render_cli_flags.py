@@ -9,6 +9,11 @@
   port's scene cache) and `--orbit 0.1`: the PNG equals the loop of
   AnimationPlayer and View.rotate_yaw_pitch through make_render_fn, and
   differs from the frame without the flag.
+* `--aniso 4 --customscenescale 2 --forcedlod 1`: the port's parse sets
+  the same RenderSettings fields and scene scale as the reference CLI's
+  (its main, stopped once it builds its RenderSettings); a culled
+  Cornell frame at 96x64 with `--forcedlod 1` renders on the CPU, equal
+  to the same frame through make_render_fn.
 """
 
 import numpy as np
@@ -125,3 +130,72 @@ def test_cli_animate_and_orbit(tmp_path, capsys, flags):
     np.testing.assert_array_equal(img, want)
     still, _ = _cli(tmp_path, capsys, args)
     assert (still != img).any()
+
+
+class _Built(Exception):
+    """Stops the reference CLI once it has built its RenderSettings."""
+
+
+FLAGS = ["--aniso", "4", "--customscenescale", "2", "--forcedlod", "1"]
+
+
+def test_cli_flags_match_reference_parse(monkeypatch):
+    import toyrenderer_tpu.engine as jax_engine
+    import toyrenderer_tpu.scene as jax_scene
+    from toyrenderer_tpu.tools import render as jax_cli
+    from toyrenderer_tpu_torch import scene as port_scene
+
+    seen = {}
+    jax_load = jax_scene.load_scene
+
+    def jax_loader(path, scale=1.0, use_cache=True):
+        seen['jax_scale'] = scale
+        return jax_load(path, use_cache=False)
+
+    def jax_settings(**kw):
+        seen['jax'] = kw
+        raise _Built
+    monkeypatch.setattr(jax_scene, 'load_scene', jax_loader)
+    monkeypatch.setattr(jax_engine, 'RenderSettings', jax_settings)
+    with pytest.raises(_Built):
+        jax_cli.main(["--displayresolution", f"{W}x{H}", *FLAGS])
+
+    port_load = port_scene.load_scene
+
+    def port_loader(path, scale=1.0, use_cache=True):
+        seen['port_scale'] = scale
+        return port_load(path, use_cache=False)
+    monkeypatch.setattr(port_scene, 'load_scene', port_loader)
+    args = cli.parse_args(["--displayresolution", f"{W}x{H}",
+                           "--device", "cpu", *FLAGS])
+    st = cli.build(args, torch.device("cpu"), log=lambda *_: None).settings
+    assert seen['port_scale'] == seen['jax_scale'] == 2.0
+    assert (st.texture_aniso, st.forced_lod) == (
+        seen['jax']['texture_aniso'], seen['jax']['forced_lod']) == (4, 1)
+
+
+def test_cli_forcedlod_renders(tmp_path, capsys):
+    img, printed = _cli(tmp_path, capsys, ["--frames", "2", "--exposure",
+                                           "0.01", "--culling",
+                                           "--forcedlod", "1"])
+    assert "[stats] covered pixels: 0/" not in printed
+    host = load_scene("resources/cornell.gltf")
+    scene = host.to_device("cpu")
+    pi, pm = (torch.from_numpy(a) for a in static_meshlet_pairs(host, 'all'))
+    st = RenderSettings(width=W, height=H, manual_exposure=0.01,
+                        enable_culling=True, forced_lod=1)
+    view = View.from_scene(host, W, H)
+    counts = capacity.culled_pair_counts(scene, frame_inputs_from_numpy(
+        default_frame_inputs(host, view.matrices()), "cpu"), st, len(pi),
+        None, None)
+    st = capacity.sized_culled_settings(st, counts)
+    render = make_render_fn(st, "cpu", raster_cfg=capacity.
+                            sized_raster_config(st, {"opaque":
+                                                     counts["opaque"]}))
+    carry = init_carry(scene, st)
+    for _ in range(2):
+        mats = view.matrices()
+        want, carry, _ = render(scene, pi, pm,
+                                default_frame_inputs(host, mats), carry)
+        view.advance(mats)
+    np.testing.assert_array_equal(img, want.numpy())

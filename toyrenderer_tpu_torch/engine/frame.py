@@ -8,31 +8,44 @@ and HZB occlusion; with `use_bruteforce_raster`, every triangle tested
 at every pixel) -> the alpha-masked set, peeled `alpha_layers` times
 (per layer, or in one peel fill and a compact merge with
 `peel_merge_frac` > 0) -> the RT tree (refit from `rt_static`, or a
-per-frame morton rebuild) -> the sun shadow map (rendered every frame,
-for map shadows and for the probe hits' sun taps) -> sun shadows (ray-
-traced through the traversal kernel, or sampled from the map; temporal
-+ spatial denoise) -> DDGI (on
-update frames: the GI tree's refit, the probe rays and the probe update;
-every frame: the probe field sampled at half resolution) -> ReSTIR DI
-(emissive triangles as lights, one visibility ray a pixel through the
-main tree) -> GTAO (half-resolution horizons, a depth-aware blur) ->
-deferred lighting + sky -> the blend set, depth-peeled `oit_layers`
-times, shaded and composited back to front -> the probe overlay ->
-bloom, auto-exposure, TAA -> tonemap, or a debug view of the GBuffer.
-With `pack_gbuffer` every resolve writes the packed 4 x u32 GBuffer, the
-only medium the passes read; otherwise float shading planes.
+per-frame morton rebuild) -> the sun shadow map (for map shadows and for
+the probe hits' sun taps) -> sun shadows (ray-traced through the
+traversal kernel, or sampled from the map; temporal + spatial denoise)
+-> DDGI (on update frames: the GI tree's refit, the probe rays and the
+probe update; every frame: the probe field sampled at half resolution)
+-> ReSTIR DI (emissive triangles as lights, one visibility ray a pixel
+through the main tree) -> GTAO (half-resolution horizons, a depth-aware
+blur) -> deferred lighting + sky -> the blend set, depth-peeled
+`oit_layers` times, shaded and composited back to front -> the probe
+overlay -> bloom, auto-exposure, TAA -> tonemap, or a debug view of the
+GBuffer.  With `pack_gbuffer` every resolve writes the packed 4 x u32
+GBuffer, the only medium the passes read; otherwise float shading planes.
+
 Cross-frame state (transforms, HZB, exposure, TAA and shadow histories,
-the DDGI probes, ReSTIR's reservoir) lives in an explicit `carry` dict,
-as in the reference package.  One branch needs the host: whether this
-frame updates the probes (`_gi_pass`), read once per frame with GI on.
-Every RenderSettings field of the reference runs; the frame never
-silently skips a pass.  `pack_frame_inputs` turns the small per-frame
-inputs into one host-to-device copy.
+the DDGI probes, ReSTIR's reservoir, and the caches below) lives in an
+explicit `carry` dict, as in the reference package (a FrameCarry: the
+same keys, and beside them the attribute `host`, a HostMirror of what
+the frame decides on the host).
+The caches that init_carry adds when it is given the frame's static
+topologies (the refit RT tree, the GI tree with its shade records and
+pair tables) and, with `cache_sun_map`, the sun map, are served unless
+an instance or the sun moved since they were built; "moved" is decided
+on the host, from the host copies of the node transforms and of the sun
+that pack_frame_inputs and make_render_fn keep beside the frame inputs
+(inputs with no host copy count as moved).  A cache changes no pixel.
+Whether a GI frame updates the probes is decided on the host too: the
+previous frame's convergence test, copied to the host without blocking,
+is waited for at the branch, so the frame reads no device value.  Every
+RenderSettings field of the reference runs; the frame never silently
+skips a pass.  Each pass runs in a profiler range named with the
+reference's pass labels (PASS_LABELS; tools/passes.py reads them).
+`pack_frame_inputs` turns the small per-frame inputs into one
+host-to-device copy.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -61,12 +74,14 @@ from toyrenderer_tpu_torch.ops.gtao import gtao
 from toyrenderer_tpu_torch.ops.lighting import (
     debug_view, deferred_lighting, world_pos_from_depth)
 from toyrenderer_tpu_torch.ops.peel_cuda import fill_peel_stream
+from toyrenderer_tpu_torch.ops.rt_pairs import mt_tables
 from toyrenderer_tpu_torch.ops.postprocess import compose_final
 from toyrenderer_tpu_torch.ops.raster import RasterConfig
 from toyrenderer_tpu_torch.ops.raster_cuda import (
     bin_pairs_with_budget, crop_image, fill_resolve_stream)
 from toyrenderer_tpu_torch.ops.taa import taa_resolve
 from toyrenderer_tpu_torch.ops.texture import _maxpool2, _quad_expand
+from toyrenderer_tpu_torch.utils.timing import profiler_range
 
 
 @dataclass(frozen=True)
@@ -188,13 +203,195 @@ def frame_atlas(scene, frame_inputs: dict) -> dict:
     return atlas
 
 
-def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
+# the frame's profiler ranges, in frame order: the reference's pass
+# labels (its tools/passes.py:28-56) where a pass maps to one.  Two open
+# inside another pass: 'ShadowMap' (the sun map) in the pass that first
+# reads it, 'RT(pair boxes)' (the pair route's box phase and pair list,
+# ops/rt_pairs.py) in GI; the blend set has one range per depth-peeled
+# layer, 'TransparentForward(layer i)' for i = 0 .. oit_layers - 1, and
+# one for their composite
+PASS_LABELS = ('UpdateInstanceConsts', 'GPUCulling', 'BasePass(fill+resolve)',
+               'HZB(SPD)', 'GBufferResolve', 'AlphaMaskedPass',
+               'RT(BVH build)', 'ShadowMap', 'ShadowMask', 'Denoise',
+               'GI(DDGI)', 'RT(pair boxes)', 'ReSTIR', 'AmbientOcclusion',
+               'DeferredLighting', 'TransparentForward(layer 0)',
+               'TransparentForward(composite)', 'ProbeOverlay', 'Bloom',
+               'AdaptLuminance', 'TAA', 'PostProcess')
+
+# the carry's cache entries (reference package, frame.py:230-337), each
+# beside the build it holds: the refit main tree, the GI tree with its
+# shade records, the pair route's tables, the sun map
+CACHE_KEYS = ('rt_bvh_cache', 'gi_bvh_cache', 'gi_shade_cache', 'gi_mt_cache',
+              'sun_map_depth', 'sun_map_dropped', 'prev_sun_view_proj')
+
+
+@dataclass(frozen=True, eq=False)
+class HostMirror:
+    """FrameCarry.host: what the frame decides on the host, so that no
+    decision reads the device.
+
+    frame_index mirrors carry['frame_index'].  version counts the frames
+    on which the scene may have moved (an instance transform differs
+    from the previous frame's, or is not known on the host); `built`
+    maps each cache (CACHE_KEYS' 'rt', 'gi', 'mt', 'sm') to the version
+    its contents were built at (absent: stale).  nodes: the node TRS host
+    arrays of the carry's frame (None: unknown); sun_vp: the sun
+    view-proj the cached sun map was rendered with.  With GI on, sun_sig
+    mirrors carry['ddgi_sun_sig'], and `converged` holds the carry's
+    convergence test (ddgi_convergence): a bool CPU tensor, pinned and
+    filled by a non-blocking copy when the carry is on the card, valid
+    once the CUDA event `ready` has completed (None: at once)."""
+    frame_index: int
+    version: int = 0
+    built: dict = field(default_factory=dict)
+    nodes: tuple | None = None
+    sun_vp: np.ndarray | None = None
+    sun_sig: np.ndarray | None = None
+    converged: torch.Tensor | None = None
+    ready: object = None
+
+    def is_converged(self) -> bool:
+        """The carry's convergence test: waits for its copy to land (the
+        previous frame's end of GI on the card), reads no device value."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return bool(self.converged)
+
+    @classmethod
+    def of_carry(cls, carry: dict, settings: RenderSettings):
+        """The mirror of a carry that has none (built by carry_from_numpy
+        or loaded from a snapshot): read from the device once, every
+        cache stale."""
+        conv = sig = None
+        if settings.enable_gi and 'ddgi_sun_sig' in carry:
+            sig = carry['ddgi_sun_sig'].detach().cpu().numpy().astype(
+                np.float32)
+            conv = ddgi_convergence(carry['ddgi_var_samples'],
+                                    carry['ddgi_var_ring'], settings).cpu()
+        return cls(frame_index=int(carry['frame_index']), sun_sig=sig,
+                   converged=conv)
+
+
+class FrameCarry(dict):
+    """The carry: a dict of the cross-frame state with the reference's
+    keys, and its host mirror as the attribute `host` (a HostMirror; None
+    on a carry built elsewhere, e.g. by weights.carry_from_numpy: the
+    frame then reads one from the device)."""
+    host: HostMirror | None = None
+
+
+def ddgi_convergence(var_samples, ring, settings: RenderSettings):
+    """The reference's convergence test (GIRenderer.cpp:162-179) of a
+    sample count and variability ring: the std-dev of the last 16
+    variability samples under the threshold, after more than
+    gi_min_var_samples samples; a bool tensor (False without
+    gi_convergence_skip)."""
+    dev = ring.device
+    if not settings.gi_convergence_skip:
+        return torch.zeros((), dtype=torch.bool, device=dev)
+    n_valid = torch.clamp(var_samples, max=float(ddgi_mod.VAR_WINDOW))
+    vmask = torch.arange(ddgi_mod.VAR_WINDOW, device=dev) < n_valid
+    nn = torch.clamp(n_valid, min=1.0)
+    ring_mean = torch.sum(torch.where(vmask, ring, 0.0)) / nn
+    ring_std = torch.sqrt(torch.clamp(torch.sum(torch.where(
+        vmask, (ring - ring_mean) ** 2, 0.0)) / nn, min=0.0))
+    return ((var_samples > float(settings.gi_min_var_samples))
+            & (ring_std < settings.gi_variability_threshold))
+
+
+def _to_host(flag: torch.Tensor):
+    """(a CPU copy of the bool `flag`, a CUDA event after which it holds
+    the value, or None): on the card the copy lands in pinned memory
+    without blocking the host."""
+    if flag.device.type != 'cuda':
+        return flag.clone(), None
+    host = torch.empty((), dtype=torch.bool, pin_memory=True)
+    host.copy_(flag, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def _tree_needs(settings: RenderSettings, rt_static_gi):
+    """(rays for the sun shadows, GI has its own tree, the main tree is
+    needed, the probe hits' sun taps read the sun map, the frame reads
+    the sun map)."""
+    needs_rays = settings.enable_shadows and settings.shadow_technique == 'rt'
+    gi_own_tree = settings.enable_gi and rt_static_gi is not None
+    needs_rt = (needs_rays or settings.enable_restir
+                or (settings.enable_gi and not gi_own_tree))
+    gi_sun_map = settings.enable_gi and (
+        settings.gi_sun_technique == 'map'
+        or (settings.gi_sun_technique == 'auto' and not needs_rays))
+    uses_map = ((settings.enable_shadows and not needs_rays) or gi_sun_map)
+    return needs_rays, gi_own_tree, needs_rt, gi_sun_map, uses_map
+
+
+def _pair_streams(pair_inst, pair_meshlet, rt_static, rt_static_gi,
+                  rt_pair_inst, rt_pair_meshlet, gi_pair_inst,
+                  gi_pair_meshlet, mask_pair_inst, mask_pair_meshlet):
+    """(the main tree's pair stream, the GI tree's): each pair list with
+    the masked pairs its tree was built over appended."""
+    base_pi = pair_inst if rt_pair_inst is None else rt_pair_inst
+    base_pm = pair_meshlet if rt_pair_meshlet is None else rt_pair_meshlet
+    rt = _rt_streams(base_pi, base_pm, rt_static, mask_pair_inst,
+                     mask_pair_meshlet)
+    gi = _rt_streams(base_pi if gi_pair_inst is None else gi_pair_inst,
+                     base_pm if gi_pair_meshlet is None else gi_pair_meshlet,
+                     rt_static_gi, mask_pair_inst, mask_pair_meshlet)
+    return rt, gi
+
+
+def _refit_gi(rts, inst_world):
+    """The GI tree refit from its topology (SAH or complete)."""
+    if isinstance(rts, RtStaticSah):
+        return refit_sah(rts, inst_world)
+    return refit_bvh(rts, inst_world)
+
+
+def _gi_build(scene, rts_gi, streams, inst_world):
+    """(the GI tree, its shade records): payloads index the GI pair
+    stream."""
+    tree = _refit_gi(rts_gi, inst_world)
+    v0, v1, v2, _ = world_triangles(scene, inst_world, *streams)
+    shade = ddgi_mod.build_shade_records(scene, *streams, v0, v1, v2)
+    return tree, shade
+
+
+def _zeros_like(x):
+    """x with every tensor zeroed: a tensor, a tuple of them or a tree."""
+    if isinstance(x, torch.Tensor):
+        return torch.zeros_like(x)
+    if isinstance(x, tuple):
+        return tuple(_zeros_like(v) for v in x)
+    return replace(x, **{k: torch.zeros_like(v) for k, v in vars(x).items()
+                         if isinstance(v, torch.Tensor)})
+
+
+def init_carry(scene, settings: RenderSettings, ddgi_volume=None,
+               rt_static=None, rt_static_gi=None, pair_inst=None,
+               pair_meshlet=None, rt_pair_inst=None, rt_pair_meshlet=None,
+               gi_pair_inst=None, gi_pair_meshlet=None, mask_pair_inst=None,
+               mask_pair_meshlet=None) -> dict:
     """Initial cross-frame state, on the scene's device; with GI on, the
     probes of `ddgi_volume` (ddgi.init_probes); with ReSTIR on, its zero
-    reservoir."""
+    reservoir; as a FrameCarry with its host mirror.
+
+    The caches (reference package, frame.py:230-337): with
+    cache_sun_map and a frame that reads the sun map, `sun_map_depth`,
+    `sun_map_dropped` and `prev_sun_view_proj`; given the frame's
+    rt_static / rt_static_gi and the pair streams render_frame will get,
+    `rt_bvh_cache` (when the frame traces the main tree), `gi_bvh_cache`
+    and `gi_shade_cache` (GI's own tree) and, under TR_GI_PAIRS=1,
+    `gi_mt_cache`: zero-filled, of the shapes of what they cache, and
+    stale until a frame builds them (frame 0 always does).  A frame then
+    refits a tree, rebuilds the shade records or re-renders the sun map
+    only when an instance or the sun moved since they were built; the
+    pair tables are rebuilt by the first frame on the pair route after
+    that (a frame off the route leaves them stale)."""
     dev = scene.device
     n_inst = scene.inst_node.shape[0]
-    carry = dict(
+    carry = FrameCarry(
         prev_inst_world=torch.eye(4, device=dev).expand(n_inst, 4, 4)
         .contiguous(),
         prev_depth=torch.zeros((settings.height, settings.width),
@@ -212,17 +409,56 @@ def init_carry(scene, settings: RenderSettings, ddgi_volume=None) -> dict:
     if settings.enable_shadows:
         carry['shadow_history'] = torch.ones(hw, device=dev)
         carry['shadow_valid'] = torch.zeros((), device=dev)
+    _, gi_own_tree, needs_rt, _, uses_map = _tree_needs(settings,
+                                                        rt_static_gi)
+    if settings.cache_sun_map and uses_map:
+        sm_res = settings.shadow_map_resolution
+        carry['sun_map_depth'] = torch.zeros((sm_res, sm_res), device=dev)
+        carry['sun_map_dropped'] = torch.zeros((), dtype=torch.int32,
+                                               device=dev)
+        carry['prev_sun_view_proj'] = torch.zeros((4, 4), device=dev)
+    host = HostMirror(frame_index=0)
     if settings.enable_gi:
         if ddgi_volume is None:
             raise ValueError("enable_gi needs a ddgi_volume "
                              "(ddgi.volume_from_aabb)")
         carry.update(ddgi_mod.init_probes(ddgi_volume, dev))
+        # the initial carry's test, on the host: no sample yet, an empty
+        # ring (std-dev 0)
+        conv = (settings.gi_convergence_skip
+                and 0.0 > settings.gi_min_var_samples
+                and 0.0 < settings.gi_variability_threshold)
+        host = replace(host, sun_sig=np.full(7, np.inf, np.float32),
+                       converged=torch.tensor(conv))
     if settings.enable_restir:
         # the zero reservoir: light 0, weight 0, no candidates
         carry['restir_reservoir'] = dict(
             li=torch.zeros(hw, dtype=torch.int32, device=dev),
             r1=torch.zeros(hw, device=dev), r2=torch.zeros(hw, device=dev),
             w=torch.zeros(hw, device=dev), m=torch.zeros(hw, device=dev))
+
+    # the refit caches: shaped by one build at the identity transforms
+    pairs_on = ddgi_mod._gi_pairs_enabled()
+    eye = carry['prev_inst_world']
+    if needs_rt and rt_static is not None:
+        tree = refit_bvh(rt_static, eye)
+        carry['rt_bvh_cache'] = _zeros_like(tree)
+        if settings.enable_gi and not gi_own_tree and pairs_on:
+            carry['gi_mt_cache'] = _zeros_like(mt_tables(tree))
+    if gi_own_tree:
+        _, g_streams = _pair_streams(
+            pair_inst, pair_meshlet, rt_static, rt_static_gi, rt_pair_inst,
+            rt_pair_meshlet, gi_pair_inst, gi_pair_meshlet, mask_pair_inst,
+            mask_pair_meshlet)
+        if g_streams[0] is None:
+            raise ValueError("the GI caches need the GI pair stream "
+                             "(gi_pair_inst, or rt_pair_inst / pair_inst)")
+        tree, shade = _gi_build(scene, rt_static_gi, g_streams, eye)
+        carry['gi_bvh_cache'] = _zeros_like(tree)
+        carry['gi_shade_cache'] = torch.zeros_like(shade)
+        if pairs_on:
+            carry['gi_mt_cache'] = _zeros_like(mt_tables(tree))
+    carry.host = host
     return carry
 
 
@@ -255,7 +491,7 @@ def _raster_with_records(scene, geo, cfg, inst_world, inst_adj,
 
 
 def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
-                       frame_inputs, carry, pair_inst, cfg, settings):
+                       frame_inputs, carry, pair_inst, cfg, settings, passes):
     """GPU-driven 2-phase occlusion-culled GBuffer pass (reference
     package, frame.py:1311-1401).
 
@@ -267,7 +503,8 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     render on top, continuing the early planes.  The final depth's HZB
     culls the next frame.  The pair lists' capacities are Python ints
     (pair_inst only sets the early one), so nothing here waits on the
-    device.  Returns (interp planes, depth, tri_id, aux, new_hzb)."""
+    device.  `passes` opens each step's profiler range.  Returns (interp
+    planes, depth, tri_id, aux, new_hzb)."""
     planes = frame_inputs['cull_frustum_planes']
     cam = frame_inputs['cull_cam_pos']
     psc = frame_inputs['proj_scale_px']
@@ -280,6 +517,7 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
                   forced_lod=settings.forced_lod)
 
     # EARLY: cull against the previous HZB and transforms
+    passes.begin('GPUCulling')
     cull1 = cull_mod.cull_instances(
         scene, inst_world, planes, cam, psc, w, h, hzb=carry['hzb'],
         hzb_view_proj=prev_vp, hzb_inst_world=prev_inst_world, **lod_kw)
@@ -288,14 +526,17 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     pv1 = cull_mod.cull_meshlets(
         scene, pi1, pm1, pv1, inst_world, planes, cam, w, h,
         cone_cull=settings.enable_cone_culling)
+    passes.begin('BasePass(fill+resolve)')
     geo1 = geo_mod.meshlet_clip_triangles(
         scene, inst_world, frame_inputs['view_proj'], pi1, pm1, pv1)
     setup1, _, depth1, tid1, interp1, rs1 = _raster_with_records(
         scene, geo1, cfg, inst_world, inst_adj, prev_inst_world, prev_vp,
         padded_io=True)
+    passes.begin('HZB(SPD)')
     hzb_mid = hzb_mod.build_hzb(crop_image(depth1, cfg), w, h)
 
     # LATE: re-test the early-occluded candidates against the fresh HZB
+    passes.begin('GPUCulling')
     cull2 = cull_mod.cull_instances(
         scene, inst_world, planes, cam, psc, w, h, hzb=hzb_mid,
         hzb_view_proj=vp_nojit, hzb_inst_world=inst_world, **lod_kw)
@@ -305,6 +546,7 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     pv2 = cull_mod.cull_meshlets(
         scene, pi2, pm2, pv2, inst_world, planes, cam, w, h, hzb=hzb_mid,
         hzb_view_proj=vp_nojit, cone_cull=settings.enable_cone_culling)
+    passes.begin('BasePass(fill+resolve)')
     geo2 = geo_mod.meshlet_clip_triangles(
         scene, inst_world, frame_inputs['view_proj'], pi2, pm2, pv2)
     _, _, depth, tri_id, interp, rs2 = _raster_with_records(
@@ -315,6 +557,7 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     interp = crop_image(interp, cfg)
     depth = crop_image(depth, cfg)
     tri_id = crop_image(tri_id, cfg)
+    passes.begin('HZB(SPD)')
     new_hzb = hzb_mod.build_hzb(depth, w, h)
     aux = dict(
         early_instances=torch.sum(cull1['visible'].to(torch.int32)),
@@ -389,57 +632,78 @@ def _ambient_occlusion(depth, normal, frame_inputs, frame_index,
 
 _GI_KEYS = ('ddgi_irradiance', 'ddgi_distance', 'ddgi_offset', 'ddgi_state',
             'ddgi_variability', 'ddgi_var_ring', 'ddgi_var_accum')
+_SUN_KEYS = ('sun_direction', 'sun_color', 'sun_intensity')
+
+
+def _host_sun_sig(fh):
+    """The sun signature (direction, colour, intensity; f32) of the
+    frame's host inputs, or None when they hold no copy of the sun."""
+    if fh is None or not all(k in fh for k in _SUN_KEYS):
+        return None
+    return np.concatenate([np.asarray(fh[k], np.float32).reshape(-1)[:n]
+                           for k, n in zip(_SUN_KEYS, (3, 3, 1))])
 
 
 def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
-             settings, sky_fn, sun_vis_fn=None):
+             host: HostMirror, settings, sky_fn, sun_vis_fn=None):
     """The GI pass (reference package, frame.py:898-1105): the
     convergence test, the probe update on update frames, and the probe
     field sampled per pixel.  `trace_inputs()` gives (tree, shade
-    records) on update frames; `sun_vis_fn(points)`, when given, the
-    probe hits' sun visibility (the sun map's taps) in place of their
-    any-hit rays.
+    records, pair tables or None) on update frames; `sun_vis_fn(points)`,
+    when given, the probe hits' sun visibility (the sun map's taps) in
+    place of their any-hit rays.
 
     The reference holds the probes through a device-side branch (hold
     frames: 3 of every 4 with gi_update_phases=4 in interval mode, and
-    every frame once the probes converge).  Here the branch is read on
-    the host, once per frame: the frame's one host sync, so hold frames
-    pay nothing for the update.  Returns (irradiance (H, W, 3), the
-    probe carry, aux)."""
+    every frame once the probes converge).  Here the branch is taken on
+    the host, from what it knows before the frame runs: this frame's
+    converged = no sun change (host sun vectors against the mirror's)
+    and the carry's convergence test, which the previous frame copied to
+    the host without blocking (HostMirror.is_converged waits for that
+    copy only when the branch needs it); cycle_end comes from the
+    mirror's frame index.  So hold frames launch nothing of the update
+    and the frame reads no device value (a frame whose inputs hold no
+    host copy of the sun reads the device's sun test instead).  Returns
+    (irradiance (H, W, 3), the probe carry, aux, the mirror's GI
+    fields)."""
     fi = frame_inputs
     dev = depth.device
     frame_index = carry['frame_index']
     sun_sig = torch.cat([fi['sun_direction'].reshape(-1)[:3],
                          fi['sun_color'].reshape(-1)[:3],
                          fi['sun_intensity'].reshape(-1)[:1]])
-    # the reference's convergence test (GIRenderer.cpp:162-179): the
-    # std-dev of the last 16 variability samples under the threshold;
-    # a sun change restarts the count
+    # a sun change restarts the convergence count
     sun_changed = torch.any(torch.abs(sun_sig - carry['ddgi_sun_sig'])
                             > 1e-6)
     var_samples = torch.where(sun_changed, 0.0, carry['ddgi_var_samples'])
-    ring = carry['ddgi_var_ring']
-    n_valid = torch.clamp(var_samples, max=float(ddgi_mod.VAR_WINDOW))
-    vmask = torch.arange(ddgi_mod.VAR_WINDOW, device=dev) < n_valid
-    nn = torch.clamp(n_valid, min=1.0)
-    ring_mean = torch.sum(torch.where(vmask, ring, 0.0)) / nn
-    ring_std = torch.sqrt(torch.clamp(torch.sum(torch.where(
-        vmask, (ring - ring_mean) ** 2, 0.0)) / nn, min=0.0))
-    converged = ((var_samples > float(settings.gi_min_var_samples))
-                 & (ring_std < settings.gi_variability_threshold))
-    if not settings.gi_convergence_skip:
-        converged = torch.zeros((), dtype=torch.bool, device=dev)
+    converged = ddgi_convergence(var_samples, carry['ddgi_var_ring'],
+                                 settings)
     phases = max(settings.gi_update_phases, 1)
     cycle_end = torch.remainder(frame_index, phases) == phases - 1
     # interval mode: the whole volume on the cycle's last frame, the
     # carry held on the others
     interval = settings.gi_update_mode == 'interval' and phases > 1
-    skip = converged | ~cycle_end if interval else converged
+
+    # the same branch on the host
+    sig_h = _host_sun_sig(fi.get('host'))
+    if sig_h is None:
+        sun_changed_h = bool(sun_changed)
+        sig_h = sun_sig.detach().cpu().numpy()
+    else:
+        with np.errstate(invalid='ignore'):
+            sun_changed_h = bool(np.any(np.abs(sig_h - host.sun_sig)
+                                        > np.float32(1e-6)))
+
+    def converged_h():
+        return (settings.gi_convergence_skip and not sun_changed_h
+                and host.is_converged())
+    cycle_end_h = host.frame_index % phases == phases - 1
+    updated = not ((not cycle_end_h or converged_h()) if interval
+                   else converged_h())
 
     gi_carry = {k: carry[k] for k in _GI_KEYS}
-    updated = not bool(skip)
     if updated:
-        gi_bvh, shade_rec = trace_inputs()
+        gi_bvh, shade_rec, tables = trace_inputs()
         trace_phases = 1 if interval else settings.gi_update_phases
         radiance, ray_dist, ray_dirs, blk, lifecycle = \
             ddgi_mod.trace_probe_block(
@@ -448,7 +712,8 @@ def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
                 frame_index, sky_fn, trace_phases,
                 max_steps=settings.gi_max_steps,
                 probe_offset=carry['ddgi_offset'],
-                probe_state=carry['ddgi_state'], sun_vis_fn=sun_vis_fn)
+                probe_state=carry['ddgi_state'], sun_vis_fn=sun_vis_fn,
+                pair_tables=tables)
         gic = ddgi_mod.update_probe_block(
             volume, dict(carry, ddgi_var_samples=var_samples), radiance,
             ray_dist, ray_dirs, blk,
@@ -461,6 +726,10 @@ def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
     gi_carry['ddgi_var_samples'] = torch.where(
         converged, var_samples, var_samples + cycle_end.to(torch.float32))
     gi_carry['ddgi_sun_sig'] = sun_sig
+    # the next frame's branch: this carry's test, on its way to the host
+    conv_next, ready = _to_host(ddgi_convergence(
+        gi_carry['ddgi_var_samples'], gi_carry['ddgi_var_ring'], settings))
+    mirror = dict(sun_sig=sig_h, converged=conv_next, ready=ready)
 
     # the probe field sampled at 1/gi_sample_scale resolution (it is low
     # frequency), expanded, then smoothed by two separable [1 2 1] / 4
@@ -489,7 +758,7 @@ def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
     aux = dict(ddgi_variability=gi_carry['ddgi_variability'],
                ddgi_active_probes=torch.sum(gi_carry['ddgi_state']),
                ddgi_converged=converged, ddgi_updated=updated)
-    return gi, gi_carry, aux
+    return gi, gi_carry, aux, mirror
 
 
 def _rt_streams(base_pi, base_pm, rts, mask_pair_inst, mask_pair_meshlet):
@@ -501,6 +770,26 @@ def _rt_streams(base_pi, base_pm, rts, mask_pair_inst, mask_pair_meshlet):
                 torch.cat([base_pm, mask_pair_meshlet[:nm]]))
     return base_pi, base_pm
 
+
+
+class _Passes:
+    """The frame's profiler ranges (utils/timing.profiler_range):
+    `begin(label)` closes the open range and opens the next, `end()`
+    closes it; a pass that runs inside another opens its own nested
+    range.  Outside a profiler a range is a no-op."""
+
+    def __init__(self):
+        self._open = None
+
+    def begin(self, label: str):
+        self.end()
+        self._open = profiler_range(label)
+        self._open.__enter__()
+
+    def end(self):
+        if self._open is not None:
+            self._open.__exit__(None, None, None)
+            self._open = None
 
 
 def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
@@ -521,7 +810,11 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     prev_view_proj_nojitter, inv_view_proj, cam_pos, jitter,
     cull_frustum_planes, cull_cam_pos, proj_scale_px, node_translation /
     rotation / scale, sun_direction, sun_color, sun_intensity,
-    sky_params; optionally the residency overrides of a streaming
+    sun_view_proj, sky_params; optionally 'host', the host copies (f32
+    numpy) of the node TRS arrays, the sun's fields and sun_view_proj
+    from which the frame decides on the host whether the scene or the
+    sun moved (host_frame_inputs; pack_frame_inputs and make_render_fn
+    add it), and the residency overrides of a streaming
     manager (engine/streaming.py update(): tex_texels, tex_desc,
     tex_min_mip, tex_tile_table), which the sampler reads in place of
     the scene's atlas through the descriptor rows.  Under
@@ -534,20 +827,24 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     rt_static: the static RT topology (ops/bvh.build_rt_static over the
     RT pair list, the masked set appended), for RT shadows, ReSTIR's
     visibility rays and GI when it has no tree of its own; the frame
-    refits it every frame.
-    Without it those rebuild the tree every frame (bvh.build_bvh over
-    the RT pair list, no masked set).  rt_pair_inst / rt_pair_meshlet:
-    that RT pair list (its payloads index it; default pair_inst /
-    pair_meshlet); ReSTIR's lights are its emissive triangles.  The sun
-    map (map shadows; the probe hits' sun taps
+    refits it (with the carry's rt_bvh_cache: only when an instance
+    moved).  Without it those rebuild the tree every frame
+    (bvh.build_bvh over the RT pair list, no masked set).  rt_pair_inst /
+    rt_pair_meshlet: that RT pair list (its payloads index it; default
+    pair_inst / pair_meshlet); ReSTIR's lights are its emissive
+    triangles.  The sun map (map shadows; the probe hits' sun taps
     when gi_sun_technique is 'map', or 'auto' without RT shadows) draws
     the RT pair stream, its masked pairs through rt_static's coverage
-    keep.
+    keep; it is rendered at its first use in a frame, or served from the
+    carry's sun_map_depth when neither the sun nor an instance moved
+    since it was rendered.
     ddgi_volume: the probe grid GI needs (ddgi.volume_from_aabb);
     rt_static_gi: GI's own frozen topology (ops/bvh_sah.
     build_rt_static_gi: the SAH tree, or the complete one) over
     gi_pair_inst / gi_pair_meshlet (default: the RT pair list), the
-    masked set appended; refit on every GI update frame.
+    masked set appended; refit with its shade records on a GI update
+    frame (with the carry's gi_bvh_cache: on the first update frame
+    after an instance moved).
     trans_pair_inst / trans_pair_meshlet: the blend set (alpha mode
     BLEND), drawn with enable_transparency.
     Returns (image_u8 (H, W, 3), new_carry, aux dict).  aux holds the
@@ -560,25 +857,59 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     `ddgi_variability` / `ddgi_active_probes` / `ddgi_converged` and
     `ddgi_updated` (a Python bool: this frame updated the probes),
     `shadow_map_dropped` (the sun map's summed drop counters, on the
-    frames that render it), ReSTIR's `restir_lights` (the light count)
+    frames that read it), ReSTIR's `restir_lights` (the light count)
     and `restir` (its radiance, (H, W, 3)),
     `bloom`, exposure's `avg_luminance` / `target_exposure`, and, when
     the frame samples textures, the opaque set's sampler feedback:
     `tex_feedback` (per texture) and, with a tile table,
     `vt_tile_feedback` (per tile), the min desired mip, +inf unused.
-    With debug_mode != 0 the image is that debug view (lighting.
-    debug_view) of the GBuffer, in u8.
+    `rebuilt` lists the caches this frame built (of 'rt', 'gi', 'mt',
+    'sm'; a frame without a cache builds what it uses and lists
+    nothing).  With debug_mode != 0 the image is that debug view
+    (lighting.debug_view) of the GBuffer, in u8.
     """
+    passes = _Passes()
+    try:
+        return _frame(
+            passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
+            settings, mask_pair_inst=mask_pair_inst,
+            mask_pair_meshlet=mask_pair_meshlet, raster_cfg=raster_cfg,
+            mask_raster_cfg=mask_raster_cfg, rt_static=rt_static,
+            rt_pair_inst=rt_pair_inst, rt_pair_meshlet=rt_pair_meshlet,
+            ddgi_volume=ddgi_volume, rt_static_gi=rt_static_gi,
+            gi_pair_inst=gi_pair_inst, gi_pair_meshlet=gi_pair_meshlet,
+            trans_pair_inst=trans_pair_inst,
+            trans_pair_meshlet=trans_pair_meshlet,
+            trans_raster_cfg=trans_raster_cfg)
+    finally:
+        passes.end()
+
+
+def _moved(host: HostMirror, fh) -> tuple[bool, tuple | None]:
+    """(whether an instance transform may differ from the previous
+    frame's, this frame's node TRS host arrays or None): decided on the
+    host, by value; no host copy, or no previous one, counts as moved."""
+    if fh is None or not all(k in fh for k in _FI_NODES):
+        return True, None
+    nodes = tuple(fh[k] for k in _FI_NODES)
+    if host.nodes is None:
+        return True, nodes
+    return (not all(np.array_equal(a, b) for a, b in zip(nodes, host.nodes)),
+            nodes)
+
+
+def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
+           settings, *, mask_pair_inst, mask_pair_meshlet, raster_cfg,
+           mask_raster_cfg, rt_static, rt_pair_inst, rt_pair_meshlet,
+           ddgi_volume, rt_static_gi, gi_pair_inst, gi_pair_meshlet,
+           trans_pair_inst, trans_pair_meshlet, trans_raster_cfg):
+    """render_frame's body: its arguments, with the ranges `passes`,
+    which render_frame closes whether or not the frame raises."""
     check_settings(settings)
     if rt_static is not None:
         check_main_tree_switch()
-    gi_own_tree = settings.enable_gi and rt_static_gi is not None
-    needs_rays = settings.enable_shadows and settings.shadow_technique == 'rt'
-    needs_rt = (needs_rays or settings.enable_restir
-                or (settings.enable_gi and not gi_own_tree))
-    gi_sun_map = settings.enable_gi and (
-        settings.gi_sun_technique == 'map'
-        or (settings.gi_sun_technique == 'auto' and not needs_rays))
+    needs_rays, gi_own_tree, needs_rt, gi_sun_map, _ = _tree_needs(
+        settings, rt_static_gi)
     if settings.enable_gi and ddgi_volume is None:
         raise ValueError("enable_gi needs a ddgi_volume "
                          "(ddgi.volume_from_aabb)")
@@ -594,7 +925,27 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     # planes are
     emit = not settings.pack_gbuffer
 
+    # the host's view of the frame: whether the scene moved, which caches
+    # are current (a carry without a mirror gets one read from the device)
+    host = getattr(carry, 'host', None)
+    if host is None:
+        host = HostMirror.of_carry(carry, settings)
+    fh = frame_inputs.get('host')
+    moved, nodes = _moved(host, fh)
+    version = host.version + 1 if moved else host.version
+    built = dict(host.built)
+    rebuilt = []
+
+    def current(key: str, cache_key: str) -> bool:
+        return cache_key in carry and built.get(key) == version
+
+    def mark(key: str, cache_key: str):
+        if cache_key in carry:
+            built[key] = version
+            rebuilt.append(key)
+
     # -- UpdateInstanceConsts ------------------------------------------------
+    passes.begin('UpdateInstanceConsts')
     world = geo_mod.node_world_matrices(
         scene, frame_inputs['node_translation'],
         frame_inputs['node_rotation'], frame_inputs['node_scale'])
@@ -607,8 +958,9 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     if settings.enable_culling and not settings.use_bruteforce_raster:
         interp, depth, tri_id, raster_aux, new_hzb = _gbuffer_two_phase(
             scene, inst_world, inst_adj, prev_inst_world, frame_inputs,
-            carry, pair_inst, cfg, settings)
+            carry, pair_inst, cfg, settings, passes)
     else:
+        passes.begin('BasePass(fill+resolve)')
         geo = geo_mod.meshlet_clip_triangles(
             scene, inst_world, frame_inputs['view_proj'], pair_inst,
             pair_meshlet)
@@ -639,6 +991,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                               quad_taps=settings.texture_quad_taps,
                               aniso=settings.texture_aniso,
                               feedback=feedback, emit_planes=emit)
+    passes.begin('GBufferResolve')
     gb = gbuffer(interp, depth, tri_id)
 
     # -- Alpha-masked set (basepass.hlsl ALPHA_MASK_MODE parity): depth-
@@ -646,6 +999,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     #    layer whose alpha passes the cutoff wins --------------------------
     if (settings.enable_alpha_test and mask_pair_inst is not None
             and mask_pair_inst.shape[0] > 0):
+        passes.begin('AlphaMaskedPass')
         geo_m = geo_mod.meshlet_clip_triangles(
             scene, inst_world, frame_inputs['view_proj'], mask_pair_inst,
             mask_pair_meshlet)
@@ -668,14 +1022,14 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
             merge_vec.append('uv')
         h0, w0 = depth.shape
 
-        def merge(passes, gb_m, depth_m, tid_m):
+        def merge(passes_px, gb_m, depth_m, tid_m):
             for k in merge_scalar:
-                gb[k] = torch.where(passes, gb_m[k], gb[k])
+                gb[k] = torch.where(passes_px, gb_m[k], gb[k])
             for k in merge_vec:
-                gb[k] = torch.where(passes[..., None], gb_m[k], gb[k])
+                gb[k] = torch.where(passes_px[..., None], gb_m[k], gb[k])
             # ids of those pixels index the MASKED setup (aux only)
-            return (torch.where(passes, depth_m, depth),
-                    torch.where(passes, tid_m, tri_id))
+            return (torch.where(passes_px, depth_m, depth),
+                    torch.where(passes_px, tid_m, tri_id))
 
         if settings.peel_merge_frac > 0 and h0 % 2 == 0 and w0 % 2 == 0:
             # every layer in ONE occluder-seeded peel fill (K2), then
@@ -702,53 +1056,85 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 depth_m, tid_m, rec_m = fill_resolve_stream(
                     setup_m, records_m, bins_m, cfg_m, peel_depth=peel)
                 gb_m = gbuffer(rec_m, depth_m, tid_m, feedback=False)
-                passes = ((gb_m['alpha'] >= gb_m['alpha_cutoff'])
-                          & (depth_m > depth) & (depth_m > 0.0) & ~chosen)
-                depth, tri_id = merge(passes, gb_m, depth_m, tid_m)
-                chosen = chosen | passes
+                won = ((gb_m['alpha'] >= gb_m['alpha_cutoff'])
+                       & (depth_m > depth) & (depth_m > 0.0) & ~chosen)
+                depth, tri_id = merge(won, gb_m, depth_m, tid_m)
+                chosen = chosen | won
                 peel = depth_m
         gb['depth'] = depth
 
-    # -- the RT tree: refit every frame (the reference's per-frame refit
-    #    without its cache), or rebuilt every frame without rt_static ------
+    passes.begin('GBufferResolve')
     shadow_mask = None
-    new_carry = dict(prev_inst_world=inst_world, prev_depth=depth,
-                     frame_index=carry['frame_index'] + 1)
+    new_carry = FrameCarry(prev_inst_world=inst_world, prev_depth=depth,
+                           frame_index=carry['frame_index'] + 1)
+    # the caches ride on unless a pass below rebuilds them
+    new_carry.update({k: carry[k] for k in CACHE_KEYS if k in carry})
     m_gb = unpack_gbuffer(gb)
     normal = m_gb['normal']
-    base_pi = pair_inst if rt_pair_inst is None else rt_pair_inst
-    base_pm = pair_meshlet if rt_pair_meshlet is None else rt_pair_meshlet
-    rt_pi, rt_pm = _rt_streams(base_pi, base_pm, rt_static, mask_pair_inst,
-                               mask_pair_meshlet)
-    bvh = tris = None
-    if needs_rt and rt_static is not None:
-        bvh = refit_bvh(rt_static, inst_world)
-    elif needs_rt:
-        tris = world_triangles(scene, inst_world, rt_pi, rt_pm)
-        bvh = build_bvh(*tris)
+    (rt_pi, rt_pm), g_streams = _pair_streams(
+        pair_inst, pair_meshlet, rt_static, rt_static_gi, rt_pair_inst,
+        rt_pair_meshlet, gi_pair_inst, gi_pair_meshlet, mask_pair_inst,
+        mask_pair_meshlet)
     wp = None
     if settings.enable_gi or settings.enable_restir:
         wp = world_pos_from_depth(depth, frame_inputs['inv_view_proj'],
                                   settings.width, settings.height)
 
+    # -- the RT tree: refit from rt_static (from the carry's cache when no
+    #    instance moved since its refit), or rebuilt every frame without
+    #    rt_static ------------------------------------------------------------
+    bvh = tris = None
+    if needs_rt:
+        passes.begin('RT(BVH build)')
+    if needs_rt and rt_static is not None:
+        if current('rt', 'rt_bvh_cache'):
+            bvh = carry['rt_bvh_cache']
+        else:
+            bvh = refit_bvh(rt_static, inst_world)
+            mark('rt', 'rt_bvh_cache')
+            if 'rt_bvh_cache' in carry:
+                new_carry['rt_bvh_cache'] = bvh
+    elif needs_rt:
+        tris = world_triangles(scene, inst_world, rt_pi, rt_pm)
+        bvh = build_bvh(*tris)
+
     # -- the sun shadow map, for map shadows and the probe hits' sun taps:
-    #    rendered at its first use in the frame, so every frame with map
-    #    shadows and only the GI update frames without them (the
-    #    reference's cache_sun_map keeps it through a device-side branch;
-    #    the cache changes no pixel) -----------------------------------------
+    #    at its first use in the frame (so every frame with map shadows and
+    #    only the GI update frames without them), rendered, or served from
+    #    the carry's cache when neither the sun nor an instance moved since
+    #    it was rendered (reference package, frame.py:786-806) ------------
     sm = {}
     sm_res = settings.shadow_map_resolution
     sun_vp = frame_inputs['sun_view_proj']
+    sun_vp_h = (np.asarray(fh['sun_view_proj'], np.float32)
+                if fh is not None and 'sun_view_proj' in fh else None)
+    sm_cached = settings.cache_sun_map and 'sun_map_depth' in carry
 
     def sun_map():
         """The frame's sun map, quad-expanded; rendered once."""
-        if not sm:
-            keep = (rt_static.pair_keep
-                    if rt_static is not None and rt_static.n_mask_pairs > 0
-                    and mask_pair_inst is not None else None)
-            sm_depth, sm['dropped'] = shadowmap.render_shadow_map(
-                scene, inst_world, rt_pi, rt_pm, sun_vp,
-                shadowmap.shadow_map_config(sm_res), tri_keep=keep)
+        if sm:
+            return sm['quads']
+        with profiler_range('ShadowMap'):
+            if (sm_cached and current('sm', 'sun_map_depth')
+                    and sun_vp_h is not None and host.sun_vp is not None
+                    and np.array_equal(sun_vp_h, host.sun_vp)):
+                sm_depth, sm['dropped'] = (carry['sun_map_depth'],
+                                           carry['sun_map_dropped'])
+                sm['sun_vp'] = host.sun_vp
+            else:
+                keep = (rt_static.pair_keep
+                        if rt_static is not None
+                        and rt_static.n_mask_pairs > 0
+                        and mask_pair_inst is not None else None)
+                sm_depth, sm['dropped'] = shadowmap.render_shadow_map(
+                    scene, inst_world, rt_pi, rt_pm, sun_vp,
+                    shadowmap.shadow_map_config(sm_res), tri_keep=keep)
+                sm['sun_vp'] = sun_vp_h
+                if sm_cached:
+                    mark('sm', 'sun_map_depth')
+                    new_carry.update(sun_map_depth=sm_depth,
+                                     sun_map_dropped=sm['dropped'],
+                                     prev_sun_view_proj=sun_vp)
             sm['quads'] = shadowmap.quad_expand_map(sm_depth)
         return sm['quads']
 
@@ -761,6 +1147,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     # -- ShadowMask: rays through the traversal kernel, or a tap of the
     #    sun map, then the temporal + spatial denoise -------------------------
     if settings.enable_shadows:
+        passes.begin('ShadowMask')
         if needs_rays:
             raw = _shadow_raw(bvh, normal, depth, frame_inputs, carry,
                               settings)
@@ -771,6 +1158,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                                      settings.width, settings.height),
                 normal, -frame_inputs['sun_direction'], depth > 0.0,
                 carry['frame_index'])
+        passes.begin('Denoise')
         shadow_mask, new_carry['shadow_history'] = denoise_shadow(
             raw, gb['motion'], carry['shadow_history'],
             carry['shadow_valid'], depth, carry['prev_depth'])
@@ -789,29 +1177,53 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 sun_intensity=frame_inputs['sun_intensity'])
 
     # -- GI: the probe update on update frames, the probe field sampled
-    #    every frame ----------------------------------------------------------
+    #    every frame.  GI's own tree, its shade records and pair tables
+    #    come from the carry's cache unless an instance moved since they
+    #    were built (the first update frame after a move rebuilds them,
+    #    hold frames included: unlike the reference, whose update frames
+    #    serve a cache that only a move on that same frame rebuilds) -----
     gi_irradiance = None
     gi_aux = {}
+    mirror = {}
     if settings.enable_gi:
+        passes.begin('GI(DDGI)')
+        pairs_on = ddgi_mod._gi_pairs_enabled()
+
         def trace_inputs():
-            """The GI tree and its shade records (payloads index the
-            tree's pair stream)."""
+            """The GI tree, its shade records (payloads index the tree's
+            pair stream) and, under TR_GI_PAIRS=1 with a cache for them,
+            the pair route's tables (None: trace_probe_block builds
+            them)."""
             if gi_own_tree:
-                tree = (refit_sah(rt_static_gi, inst_world)
-                        if isinstance(rt_static_gi, RtStaticSah)
-                        else refit_bvh(rt_static_gi, inst_world))
-                streams = _rt_streams(
-                    base_pi if gi_pair_inst is None else gi_pair_inst,
-                    base_pm if gi_pair_meshlet is None else gi_pair_meshlet,
-                    rt_static_gi, mask_pair_inst, mask_pair_meshlet)
+                if current('gi', 'gi_bvh_cache'):
+                    tree = carry['gi_bvh_cache']
+                    shade = carry['gi_shade_cache']
+                else:
+                    tree, shade = _gi_build(scene, rt_static_gi, g_streams,
+                                            inst_world)
+                    if 'gi_bvh_cache' in carry:
+                        mark('gi', 'gi_bvh_cache')
+                        new_carry.update(gi_bvh_cache=tree,
+                                         gi_shade_cache=shade)
             else:
-                tree, streams = bvh, (rt_pi, rt_pm)
-            v0, v1, v2, _ = world_triangles(scene, inst_world, *streams)
-            return tree, ddgi_mod.build_shade_records(scene, *streams, v0,
-                                                      v1, v2)
-        gi_irradiance, gi_carry, gi_aux = _gi_pass(
+                v0, v1, v2, _ = (tris if tris is not None else
+                                 world_triangles(scene, inst_world, rt_pi,
+                                                 rt_pm))
+                tree, shade = bvh, ddgi_mod.build_shade_records(
+                    scene, rt_pi, rt_pm, v0, v1, v2)
+            # the pair tables are current on their own key: a frame with
+            # the pair route off leaves them as they were
+            tables = None
+            if pairs_on and 'gi_mt_cache' in carry:
+                if current('mt', 'gi_mt_cache'):
+                    tables = carry['gi_mt_cache']
+                else:
+                    tables = new_carry['gi_mt_cache'] = mt_tables(tree)
+                    mark('mt', 'gi_mt_cache')
+            return tree, shade, tables
+        gi_irradiance, gi_carry, gi_aux, mirror = _gi_pass(
             ddgi_volume, trace_inputs, depth, wp, normal, frame_inputs,
-            carry, settings, sky_fn, sun_vis_fn)
+            carry, host, settings, sky_fn, sun_vis_fn)
         new_carry.update(gi_carry)
 
     # -- ReSTIR DI: the emissive triangles of the RT pair stream as lights,
@@ -819,6 +1231,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     restir_light = None
     restir_aux = {}
     if settings.enable_restir:
+        passes.begin('ReSTIR')
         if tris is None:
             tris = world_triangles(scene, inst_world, rt_pi, rt_pm)
         lights = restir_mod.collect_emissive_lights(
@@ -836,11 +1249,14 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     # -- AmbientOcclusion (GTAO) ----------------------------------------------
     ao = None
     if settings.enable_ao:
+        passes.begin('AmbientOcclusion')
         ao = _ambient_occlusion(depth, normal, frame_inputs,
                                 carry['frame_index'], settings.ao_radius,
                                 settings.ao_half_res)
 
     # -- Deferred lighting + sky --------------------------------------------
+    passes.begin('DeferredLighting')
+
     def lighting(g, **kw):
         return deferred_lighting(
             g, frame_inputs['cam_pos'], frame_inputs['inv_view_proj'],
@@ -859,6 +1275,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     #    package, frame.py:1170-1232) --------------------------------------
     if (settings.enable_transparency and trans_pair_inst is not None
             and trans_pair_inst.shape[0] > 0):
+        passes.begin('TransparentForward(layer 0)')
         geo_t = geo_mod.meshlet_clip_triangles(
             scene, inst_world, frame_inputs['view_proj'], trans_pair_inst,
             trans_pair_meshlet)
@@ -869,7 +1286,9 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
         tstats = _raster_stats(setup_t, bins_t)
         layers = []
         peel = None
-        for _layer in range(max(settings.oit_layers, 1)):
+        for layer in range(max(settings.oit_layers, 1)):
+            if layer:
+                passes.begin(f'TransparentForward(layer {layer})')
             depth_t, tid_t, rec_t = fill_resolve_stream(
                 setup_t, records_t, bins_t, cfg_t, peel_depth=peel)
             # the reference resolves these layers with the per-pixel
@@ -881,11 +1300,13 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                 emit_planes=emit)
             layers.append((depth_t, lighting(gb_t), gb_t['alpha']))
             peel = depth_t
+        passes.begin('TransparentForward(composite)')
         for depth_t, hdr_t, alpha_t in reversed(layers):
             front = (depth_t > depth) & (depth_t > 0.0)
             blend = torch.where(front, alpha_t, 0.0)[..., None]
             hdr = hdr * (1.0 - blend) + hdr_t * blend
     if settings.show_gi_probes and settings.enable_gi:
+        passes.begin('ProbeOverlay')
         hdr = ddgi_mod.visualize_probes(
             hdr, depth, ddgi_volume, new_carry['ddgi_irradiance'],
             frame_inputs['view_proj_nojitter'], frame_inputs['cam_pos'],
@@ -916,10 +1337,12 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     #    target), TAA on HDR before the tonemap ---------------------------
     bloom_tex = None
     if settings.enable_bloom:
+        passes.begin('Bloom')
         bloom_tex = bloom_mod.bloom(hdr, num_mips=settings.bloom_mips)
         aux['bloom'] = bloom_tex
     exposure = carry['exposure']
     if settings.enable_auto_exposure:
+        passes.begin('AdaptLuminance')
         adapted, exp_aux = exposure_mod.adapt_exposure(hdr, exposure)
         exposure = torch.where(carry['frame_index'] == 0,
                                exp_aux['target_exposure'], adapted)
@@ -927,9 +1350,11 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     new_carry['exposure'] = exposure
     aa = hdr
     if settings.enable_taa:
+        passes.begin('TAA')
         aa, new_carry['taa_history'] = taa_resolve(
             hdr, gb['motion'], carry['taa_history'], carry['taa_valid'])
         new_carry['taa_valid'] = torch.ones_like(carry['taa_valid'])
+    passes.begin('PostProcess')
     if settings.debug_mode != 0:
         # the debug view in place of the lit image (reference package,
         # frame.py:1298-1305); the passes above still run and carry
@@ -942,6 +1367,12 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     else:
         image = compose_final(aa, exposure=exposure, bloom=bloom_tex,
                               bloom_strength=settings.bloom_strength)
+    passes.end()
+    aux['rebuilt'] = rebuilt
+    new_carry.host = replace(
+        host, frame_index=host.frame_index + 1, version=version,
+        built=built, nodes=nodes,
+        sun_vp=sm['sun_vp'] if 'sun_vp' in sm else host.sun_vp, **mirror)
     return image, new_carry, aux
 
 
@@ -1004,6 +1435,28 @@ _FI_TOTAL = sum(_FI_SIZES)
 
 _node_dev_cache: dict = {}
 
+# the fields whose host copies decide, on the host, whether the scene or
+# the sun moved
+_FI_HOST = _FI_NODES + ('sun_view_proj',) + _SUN_KEYS
+
+
+def host_frame_inputs(fi: dict) -> dict:
+    """frame_inputs' 'host' entry: f32 copies of the node TRS arrays, the
+    sun's fields and sun_view_proj that `fi` holds on the host (numpy, or
+    CPU tensors).  A field on the card has no host copy: the frame then
+    counts the scene or the sun as moved."""
+    out = {}
+    for k in _FI_HOST:
+        v = fi.get(k)
+        if v is None:
+            continue
+        if isinstance(v, torch.Tensor):
+            if v.device.type != 'cpu':
+                continue
+            v = v.detach().numpy()
+        out[k] = np.array(v, np.float32)
+    return out
+
 
 def _dev_cached(key: str, v, device):
     """The device tensor of a host array, cached by the array's identity
@@ -1026,9 +1479,9 @@ def pack_frame_inputs(fi: dict, device=None) -> dict:
     """Host frame_inputs (numpy, e.g. default_frame_inputs) -> the packed
     set on `device` (default: the CUDA device): 'fi_vec', the small
     fields as one f32 vector copied in one transfer, the node TRS arrays
-    through the identity cache, and any other key (a streaming manager's
-    residency overrides) as it is, numpy converted as
-    weights.frame_inputs_from_numpy converts it."""
+    through the identity cache, 'host' (host_frame_inputs), and any
+    other key (a streaming manager's residency overrides) as it is,
+    numpy converted as weights.frame_inputs_from_numpy converts it."""
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
     dev = resolve_device(device)
     vec = np.empty(_FI_TOTAL, np.float32)
@@ -1044,7 +1497,8 @@ def pack_frame_inputs(fi: dict, device=None) -> dict:
     out = {'fi_vec': host.to(dev, non_blocking=True)}
     for k in _FI_NODES:
         out[k] = _dev_cached(k, fi[k], dev)
-    known = {n for n, _ in _FI_PACK} | set(_FI_NODES)
+    out['host'] = host_frame_inputs(fi)
+    known = {n for n, _ in _FI_PACK} | set(_FI_NODES) | {'host'}
     rest = {k: v for k, v in fi.items() if k not in known}
     out.update({k: v for k, v in rest.items() if isinstance(v, torch.Tensor)})
     out.update(frame_inputs_from_numpy(
@@ -1093,7 +1547,9 @@ def make_render_fn(settings: RenderSettings, device=None,
                                  f"{fi['view_proj'].device}, the render "
                                  f"function on {dev}")
         else:
-            fi = frame_inputs_from_numpy(frame_inputs, dev)
+            fi = frame_inputs_from_numpy(
+                {k: v for k, v in frame_inputs.items() if k != 'host'}, dev)
+            fi['host'] = host_frame_inputs(frame_inputs)
         return render_frame(scene, pair_inst, pair_meshlet, fi, carry,
                             settings, raster_cfg=raster_cfg,
                             mask_raster_cfg=mask_raster_cfg,

@@ -25,11 +25,11 @@ Texel updates are small matrix products.  Probe textures are dense
 (P, T, C) tensors in the frame's carry.  A phased block is addressed
 with index tensors, so nothing here waits on the host.
 
-Not ported, each raising NotImplementedError naming its ROADMAP item:
-the block-pair route (TR_RT_CHUNKS=1), the corner-packed visibility
-fetch (TR_GI_VIS_PACK=1), cone layouts other than the default
-(TR_CONE_DIRS / TR_CONE_BRICK), `visualize_probes` and the unphased
-`trace_probes`.
+`visualize_probes` draws the probe overlay.  Not ported, each raising
+NotImplementedError naming its ROADMAP item: the block-pair route
+(TR_RT_CHUNKS=1), the corner-packed visibility fetch (TR_GI_VIS_PACK=1),
+cone layouts other than the default (TR_CONE_DIRS / TR_CONE_BRICK) and
+the unphased `trace_probes`.
 """
 
 from __future__ import annotations

@@ -45,6 +45,7 @@ import torch
 
 from toyrenderer_tpu_torch.ops import bvh_cuda
 from toyrenderer_tpu_torch.ops.bvh import LEAF_TRIS
+from toyrenderer_tpu_torch.utils.timing import profiler_range
 
 CHUNK_ROWS = 8                          # leaf rows per chunk
 CHUNK_TRIS = CHUNK_ROWS * LEAF_TRIS     # 96
@@ -242,25 +243,28 @@ def traverse_pairs(bvh, origins, directions, t_max, any_hit: bool = False,
                                        else (0, pad))
     o_p, d_p, cap_p, lv_p = (padded(x) for x in
                              (origins, directions, t_max, live_f))
-    sd = torch.where(torch.abs(d_p) < _EPS_DIR,
-                     torch.where(d_p < 0, -_EPS_DIR, _EPS_DIR), d_p)
-    ok_b = _block_boxes(o_p, 1.0 / sd, cap_p, lv_p > 0.0, boxes)  # (B, C)
+    # the box phase and the pair list: a profiler range of their own
+    # (tools/passes.py reports it inside the pass that traces)
+    with profiler_range('RT(pair boxes)'):
+        sd = torch.where(torch.abs(d_p) < _EPS_DIR,
+                         torch.where(d_p < 0, -_EPS_DIR, _EPS_DIR), d_p)
+        ok_b = _block_boxes(o_p, 1.0 / sd, cap_p, lv_p > 0.0, boxes)
 
-    # the pair list: the overlapping (block, chunk) flat indices in
-    # ascending order, capped at pcap; a block walks its pairs that lie
-    # inside the cap (the reference's rule: every pair of a block whose
-    # list ends past the cap is completed by the fallback, and only the
-    # block that straddles the cap walks part of its list)
-    pcap = max(-(-pair_factor * b // 1024) * 1024, 1024)
-    flat = torch.arange(b * c, device=dev)
-    keys = torch.where(ok_b.reshape(-1), flat, b * c)
-    pidx = torch.sort(keys).values[:pcap]
-    pchk = torch.where(pidx < b * c, pidx % c, 0).to(torch.int32)
-    counts = ok_b.sum(1)
-    ends = torch.cumsum(counts, 0)
-    starts = ends - counts
-    overflow = ends > pcap
-    n_walk = torch.clamp(torch.clamp(ends, max=pcap) - starts, min=0)
+        # the pair list: the overlapping (block, chunk) flat indices in
+        # ascending order, capped at pcap; a block walks its pairs that
+        # lie inside the cap (the reference's rule: every pair of a block
+        # whose list ends past the cap is completed by the fallback, and
+        # only the block that straddles the cap walks part of its list)
+        pcap = max(-(-pair_factor * b // 1024) * 1024, 1024)
+        flat = torch.arange(b * c, device=dev)
+        keys = torch.where(ok_b.reshape(-1), flat, b * c)
+        pidx = torch.sort(keys).values[:pcap]
+        pchk = torch.where(pidx < b * c, pidx % c, 0).to(torch.int32)
+        counts = ok_b.sum(1)
+        ends = torch.cumsum(counts, 0)
+        starts = ends - counts
+        overflow = ends > pcap
+        n_walk = torch.clamp(torch.clamp(ends, max=pcap) - starts, min=0)
     if stats is not None:
         stats.update(counts=counts, overflow=overflow, n_walk=n_walk,
                      pcap=pcap)

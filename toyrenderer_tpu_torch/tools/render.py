@@ -5,7 +5,8 @@ flag names for what the port renders.  It runs on the card unless
 --device says otherwise (`--device cpu` runs the plain versions).  The
 main RT tree is the complete tree of `bvh.build_rt_static` (the
 reference's default), built once at load for shadows or GI and refit
-every frame (TR_RT_SAH=1, the reference's SAH main tree, raises); GI
+when an instance moved (TR_RT_SAH=1, the reference's SAH main tree,
+raises); GI
 traces its own LOD-reduced SAH tree (`bvh_sah.build_rt_static_gi`; the
 complete tree with TR_GI_SAH=0).  Raster capacities are sized from the
 first view's content (engine/capacity.py).  `--vtstream mip|tile`
@@ -15,9 +16,13 @@ streams the atlas through engine/streaming.py's managers (pool budget
 layers) and splits it from the opaque set, `--restir` adds ReSTIR DI,
 `--debugview N` writes debug view N, `--showprobes` the probe overlay
 (with `--gi`), `--animate` plays the scene's glTF animation at 60 fps
-steps, `--orbit R` turns the camera R radians a frame.  Each frame's
-inputs go to the device in one copy (engine/frame.pack_frame_inputs).
-`--passtable` raises NotImplementedError naming its ROADMAP item.
+steps, `--orbit R` turns the camera R radians a frame, `--aniso N`
+samples N anisotropic taps, `--forcedlod L` draws every instance at LOD
+L, `--customscenescale S` scales the scene at load.  Each frame's inputs
+go to the device in one copy (engine/frame.pack_frame_inputs); the carry
+holds the frame's caches (the refit trees, the GI shade records, the sun
+map).  `--passtable` renders one more frame under the profiler and
+prints its per-pass device-ms table (tools/passes.py).
 
 Usage:
   python -m toyrenderer_tpu_torch.tools.render \\
@@ -36,13 +41,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# flag -> (is it asked for?, the ROADMAP queue item that ports it)
-_NOT_PORTED = (
-    ('--passtable', lambda a: a.passtable,
-     'queue 1 item 8 (tools: the per-pass timing table)'),
-)
-
-
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -51,6 +49,8 @@ def parse_args(argv=None):
                         "textured stress scene")
     p.add_argument("--displayresolution", default="1280x720",
                    help="WxH render resolution")
+    p.add_argument("--customscenescale", type=float, default=1.0,
+                   help="scale the scene by this factor at load")
     p.add_argument("--frames", type=int, default=1)
     p.add_argument("--output", default=str(Path(tempfile.gettempdir())
                                            / "toyrenderer_out.png"))
@@ -96,13 +96,16 @@ def parse_args(argv=None):
                    help="play the scene's animations at 60 fps frame steps")
     p.add_argument("--orbit", type=float, default=0.0,
                    help="turn the camera by this many radians a frame")
+    p.add_argument("--aniso", type=int, default=1,
+                   help="anisotropic filtering taps (1 = off; >1 uses "
+                        "the per-pixel sampler instead of quad taps)")
+    p.add_argument("--forcedlod", type=int, default=-1,
+                   help="draw every instance at this LOD (-1: by screen "
+                        "error)")
     p.add_argument("--passtable", action="store_true",
-                   help="the per-pass device-ms table (not ported)")
+                   help="print the per-pass device-ms table of one more "
+                        "frame, rendered under the profiler")
     args = p.parse_args(argv)
-    for flag, on, item in _NOT_PORTED:
-        if on(args):
-            raise NotImplementedError(f"{flag}: not ported yet (ROADMAP "
-                                      f"{item})")
     # the reference's switches that the port has no path for
     if args.shadows or args.gi or args.restir:
         from toyrenderer_tpu_torch.ops.bvh import check_main_tree_switch
@@ -113,34 +116,42 @@ def parse_args(argv=None):
     return args
 
 
-def main(argv=None) -> int:
-    """Parse argv, render, write the PNG (and the stats JSON); returns
-    0."""
-    from toyrenderer_tpu_torch.device import resolve_device
+def build(args, dev, stress=(64, 16), pair_frac=None, settings_kw=None,
+          norefit=False, log=print):
+    """The frame the CLI's flags ask for, on `dev`: a namespace of the
+    host scene (`host`), its device copy (`scene`), the opaque pair list
+    (`pairs`), the content-sized settings and raster configs
+    (`settings`, `cfg_kw`), render_frame's keyword arguments (`kw`),
+    init_carry's (`carry_kw`: the caches' topologies and pair streams),
+    the render function (`render`) and the first view (`view`).
+    `stress`: the stress scene's objects and sphere resolution;
+    `pair_frac`: under --culling, the early pair list's share of LOD0
+    (the reference bench's 0.6), else every pair; `settings_kw`: further
+    RenderSettings fields; `norefit`: no static RT topology (the frame
+    builds its tree every frame)."""
+    from types import SimpleNamespace
+
     from toyrenderer_tpu_torch.engine import (
-        RenderSettings, View, default_frame_inputs, init_carry,
-        make_render_fn, pack_frame_inputs)
+        RenderSettings, View, default_frame_inputs, make_render_fn)
     from toyrenderer_tpu_torch.engine import capacity
     from toyrenderer_tpu_torch.ops.geometry import static_meshlet_pairs
     from toyrenderer_tpu_torch.scene import load_scene
-    from toyrenderer_tpu_torch.scene.png import encode_png
     from toyrenderer_tpu_torch.weights import frame_inputs_from_numpy
 
-    args = parse_args(argv)
-    dev = resolve_device(args.device)
     w, h = (int(x) for x in args.displayresolution.split("x"))
-
     t0 = time.time()
     if args.scene == "stress":
         # the procedural textured scene (no assets): texture, VT and
         # culling demos
         from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
-        host = make_stress_scene(n_objects=64, sphere_res=16, textured=True)
+        host = make_stress_scene(n_objects=stress[0], sphere_res=stress[1],
+                                 textured=True)
     else:
-        host = load_scene(args.scene, use_cache=not args.nocache)
-    print(f"[scene] {args.scene}: {host.num_vertices} verts, "
-          f"{host.num_meshlets} meshlets, {host.num_instances} instances "
-          f"({time.time() - t0:.2f}s)")
+        host = load_scene(args.scene, scale=args.customscenescale,
+                          use_cache=not args.nocache)
+    log(f"[scene] {args.scene}: {host.num_vertices} verts, "
+        f"{host.num_meshlets} meshlets, {host.num_instances} instances "
+        f"({time.time() - t0:.2f}s)")
     scene = host.to_device(dev)
     mk_i, mk_m = static_meshlet_pairs(host, 'mask')
     has_mask = len(mk_i) > 0
@@ -154,6 +165,9 @@ def main(argv=None) -> int:
     else:
         opaque_filter = 'all'
     pi, pm = static_meshlet_pairs(host, opaque_filter)
+    if args.culling and pair_frac is not None:
+        cap = max(int(len(pi) * pair_frac), 256)
+        pi, pm = pi[:cap], pm[:cap]
 
     def on(a):
         return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
@@ -161,12 +175,12 @@ def main(argv=None) -> int:
     mask_kw = {}
     if has_mask:
         mask_kw = dict(mask_pair_inst=on(mk_i), mask_pair_meshlet=on(mk_m))
-        print(f"[alpha-test] {len(mk_i)} masked pairs")
+        log(f"[alpha-test] {len(mk_i)} masked pairs")
     trans_kw = {}
     if args.transparency:
         ti, tm = static_meshlet_pairs(host, 'blend')
         trans_kw = dict(trans_pair_inst=on(ti), trans_pair_meshlet=on(tm))
-        print(f"[transparency] {len(ti)} blend pairs")
+        log(f"[transparency] {len(ti)} blend pairs")
 
     settings = RenderSettings(
         width=w, height=h, debug_mode=args.debugview,
@@ -176,8 +190,9 @@ def main(argv=None) -> int:
         enable_shadows=args.shadows, shadow_technique=args.shadowtechnique,
         enable_ao=args.ao, enable_gi=args.gi, show_gi_probes=args.showprobes,
         enable_restir=args.restir, enable_transparency=args.transparency,
-        oit_layers=args.oitlayers,
-        use_bruteforce_raster=args.bruteforceraster)
+        oit_layers=args.oitlayers, forced_lod=args.forcedlod,
+        texture_aniso=args.aniso,
+        use_bruteforce_raster=args.bruteforceraster, **(settings_kw or {}))
 
     # content-sized raster capacities from the first view
     view = View.from_scene(host, w, h)
@@ -205,9 +220,9 @@ def main(argv=None) -> int:
     cfg_kw = {f"{prefix[k]}raster_cfg":
               capacity.sized_raster_config(settings, {k: v})
               for k, v in counts.items()}
-    print(f"[capacity] K={settings.max_tris_per_tile} "
-          f"B={settings.max_big_tris} pair_capacity="
-          f"{settings.pair_capacity}")
+    log(f"[capacity] K={settings.max_tris_per_tile} "
+        f"B={settings.max_big_tris} pair_capacity="
+        f"{settings.pair_capacity}")
 
     kw = dict(mask_kw, **trans_kw)
     volume = None
@@ -216,9 +231,9 @@ def main(argv=None) -> int:
         volume = volume_from_aabb(*host.world_aabb,
                                   rays_per_probe=args.giraysperprobe)
         kw['ddgi_volume'] = volume
-        print(f"[gi] probe grid {volume.counts}, {volume.num_probes} probes "
-              f"x {volume.rays_per_probe} rays")
-    if args.gi or args.shadows or args.restir:
+        log(f"[gi] probe grid {volume.counts}, {volume.num_probes} probes "
+            f"x {volume.rays_per_probe} rays")
+    if (args.gi or args.shadows or args.restir) and not norefit:
         # built for 'map' shadows too: the sun map draws the masked set
         # through the tree's coverage keep
         from toyrenderer_tpu_torch.ops.bvh import build_rt_static
@@ -226,10 +241,10 @@ def main(argv=None) -> int:
         kw['rt_static'] = build_rt_static(
             host, pi, pm, mask_pair_inst=mk_i if has_mask else None,
             mask_pair_meshlet=mk_m if has_mask else None, device=dev)
-        print(f"[rt] static topology (complete): "
-              f"{kw['rt_static'].payload.shape[0]} tri slots "
-              f"({time.time() - t0:.2f}s)")
-    if args.gi:
+        log(f"[rt] static topology (complete): "
+            f"{kw['rt_static'].payload.shape[0]} tri slots "
+            f"({time.time() - t0:.2f}s)")
+    if args.gi and 'rt_static' in kw:
         from toyrenderer_tpu_torch.ops.bvh_sah import (
             build_rt_static_gi, gi_sah_wanted)
         t0 = time.time()
@@ -241,13 +256,39 @@ def main(argv=None) -> int:
             device=dev)
         kw.update(rt_static_gi=gi_static, gi_pair_inst=g_pi,
                   gi_pair_meshlet=g_pm)
-        print(f"[rt] GI topology ({'sah' if gi_sah else 'complete'}, "
-              f"LOD{gi_lod}): "
-              f"{gi_static.payload.shape[0]} tri slots "
-              f"({time.time() - t0:.2f}s)")
+        log(f"[rt] GI topology ({'sah' if gi_sah else 'complete'}, "
+            f"LOD{gi_lod}): "
+            f"{gi_static.payload.shape[0]} tri slots "
+            f"({time.time() - t0:.2f}s)")
+    # init_carry's caches: the topologies and the pair streams the frame
+    # gets
+    carry_kw = {k: v for k, v in kw.items()
+                if k in ('rt_static', 'rt_static_gi', 'gi_pair_inst',
+                         'gi_pair_meshlet', 'mask_pair_inst',
+                         'mask_pair_meshlet')}
+    carry_kw.update(pair_inst=pair_inst, pair_meshlet=pair_meshlet)
+    return SimpleNamespace(
+        host=host, scene=scene, pairs=(pair_inst, pair_meshlet),
+        settings=settings, cfg_kw=cfg_kw, kw=kw, carry_kw=carry_kw,
+        volume=volume, view=view,
+        render=make_render_fn(settings, dev, **cfg_kw))
 
-    render = make_render_fn(settings, dev, **cfg_kw)
-    carry = init_carry(scene, settings, volume)
+
+def main(argv=None) -> int:
+    """Parse argv, render, write the PNG (and the stats JSON; with
+    --passtable the pass table of one more frame); returns 0."""
+    from toyrenderer_tpu_torch.device import resolve_device
+    from toyrenderer_tpu_torch.engine import (
+        default_frame_inputs, init_carry, pack_frame_inputs)
+    from toyrenderer_tpu_torch.scene.png import encode_png
+
+    args = parse_args(argv)
+    dev = resolve_device(args.device)
+    f = build(args, dev)
+    host, scene, view, render, kw = f.host, f.scene, f.view, f.render, f.kw
+    pair_inst, pair_meshlet = f.pairs
+    w, h = f.settings.width, f.settings.height
+    carry = init_carry(scene, f.settings, f.volume, **f.carry_kw)
 
     # virtual-texture streaming: the residency overrides ride
     # frame_inputs from frame 0, and each frame's feedback drives the
@@ -275,9 +316,8 @@ def main(argv=None) -> int:
         print(f"[anim] {player.data.num_channels} channels, "
               f"{player.data.duration:.2f}s")
     fb_key = 'vt_tile_feedback' if args.vtstream == 'tile' else 'tex_feedback'
-    rows = []
-    for i in range(args.frames):
-        mats = view.matrices()
+
+    def frame_inputs(i, mats):
         fi = default_frame_inputs(host, mats)
         if player is not None and player.enabled:
             t, r, s = player.evaluate(i / 60.0, host.node_translation,
@@ -287,6 +327,12 @@ def main(argv=None) -> int:
                       node_scale=np.asarray(s, np.float32))
         fi = pack_frame_inputs(fi, dev)
         fi.update(overrides)
+        return fi
+
+    rows = []
+    for i in range(args.frames):
+        mats = view.matrices()
+        fi = frame_inputs(i, mats)
         t0 = time.time()
         image, carry, aux = render(scene, pair_inst, pair_meshlet, fi, carry,
                                    **kw)
@@ -329,6 +375,17 @@ def main(argv=None) -> int:
     if args.stats:
         Path(args.stats).write_text(json.dumps(rows, indent=1))
         print(f"[stats] wrote {args.stats}")
+    if args.passtable:
+        # the per-pass device-ms table (the reference's per-renderer HUD
+        # table, Scene.cpp:530-562): one more frame under the profiler
+        from toyrenderer_tpu_torch.tools import passes
+        mats = view.matrices()
+        fi = frame_inputs(args.frames, mats)
+        table, (_, carry, _) = passes.profile(
+            lambda: render(scene, pair_inst, pair_meshlet, fi, carry, **kw),
+            dev)
+        for line in passes.table_lines(table):
+            print(f"[passes] {line}")
     return 0
 
 

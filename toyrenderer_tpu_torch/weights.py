@@ -60,20 +60,58 @@ def residency_from_numpy(overrides: dict, device=None) -> dict:
     return out
 
 
-def carry_from_numpy(carry: dict, device=None) -> dict:
+def _leaves(v) -> dict:
+    """The fields of a tree (either package's Bvh / BvhSah, or a dict of
+    them, as a snapshot stores one) as numpy arrays or statics."""
+    if isinstance(v, dict):
+        return v
+    return {k: getattr(v, k) for k in ('child_boxes', 'leaf_rows',
+                                       'level_offset', 'num_levels',
+                                       'node_rows', 'depth')
+            if hasattr(v, k)}
+
+
+def _tree_from_numpy(v, dev, sah_depth):
+    """A cached tree (Bvh or BvhSah, of either package, or a snapshot's
+    dict of its fields) -> the port's tree on `dev`; the reference's
+    BvhSah has no depth: `sah_depth` gives it."""
+    f = {k: (x if k in ('level_offset', 'num_levels', 'depth')
+             else np.asarray(x)) for k, x in _leaves(v).items()}
+    if 'node_rows' in f:
+        if 'depth' not in f:
+            if sah_depth is None:
+                raise ValueError("an SAH tree without its depth: give "
+                                 "carry_from_numpy the GI topology")
+            f['depth'] = sah_depth
+        return bvh_sah_from_numpy(f, dev)
+    return bvh_from_numpy(f, dev)
+
+
+def carry_from_numpy(carry: dict, device=None, rt_static_gi=None) -> dict:
     """Carry (prev_inst_world, prev_depth, exposure, frame_index, the
     HZB's tuple of mips under culling, the TAA and shadow histories and
-    their validity, ReSTIR's reservoir dict) as numpy -> tensors on
-    `device` (floats f32, integers i32)."""
+    their validity, ReSTIR's reservoir dict, the DDGI probes and the
+    caches: the refit trees rt_bvh_cache / gi_bvh_cache -- the reference
+    package's Bvh / BvhSah, the port's (on the CPU), or a snapshot's dict
+    of their fields --, the shade records gi_shade_cache, the pair tables
+    gi_mt_cache (a tuple), the sun map) as numpy -> tensors on `device`
+    (floats f32, integers i32).  The reference's BvhSah carries no depth:
+    `rt_static_gi` (the GI topology, an RtStaticSah) gives it.  The
+    result is a plain dict, with no host mirror (engine/frame.FrameCarry):
+    the frame reads one from the device, every cache stale."""
     dev = resolve_device(device)
+    sah_depth = (len(rt_static_gi.depth_ranges)
+                 if hasattr(rt_static_gi, 'depth_ranges') else None)
 
-    def conv(v):
+    def conv(k, v):
+        if k in ('rt_bvh_cache', 'gi_bvh_cache'):
+            return _tree_from_numpy(v, dev, sah_depth)
         if isinstance(v, tuple):
             return tuple(_tensor(m, dev) for m in v)
         if isinstance(v, dict):
             return {k: _tensor(m, dev) for k, m in v.items()}
         return _tensor(v, dev)
-    return {k: conv(v) for k, v in carry.items()}
+    return {k: conv(k, v) for k, v in carry.items()}
 
 
 def rt_static_from_numpy(arrays: dict, device=None) -> RtStatic:
