@@ -108,9 +108,33 @@ both main paths through the port's entry points at 1920x1080:
   98% of the launched kernels kept, each hand-written kernel in the pass
   that launches it; and tools/profile_stages.py once on the stress scene
   at the view's sized capacity (no drop), each K7 launch bit-equal to
-  the plain fill on its arguments.  The
+  the plain fill on its arguments (its bound printed).  The
   map-shadowed phase of slice 6 runs with the cached sun map: K2 2 on
   its first frame, 1 on each still frame after it.
+* slice 10, the reference's opt-in ray paths at 1920x1080: the chunk
+  route (TR_RT_CHUNKS=1) on the all-on update frame's probe rays and
+  their sun rays and on the glass frame's 2,073,600 ReSTIR rays -- the
+  chunk fold (K8, csrc/chunks.cu) held bit-equal against its plain
+  version on each launch (on a seeded sample of 1,024 blocks where the
+  plain fold would take over 30 s, which the line names), each route
+  call against the default route's kernel on the same rays (hit equal
+  on >= 99.99% of live rays, closest-hit t within 1e-5 relative, its
+  fallback launched once), the frames within 1 of the default route's
+  on >= 99.5% of the pixels, no synchronizing call from
+  engine/frame.py; the SAH main tree (TR_RT_SAH=1, built as the render
+  CLI builds it) on the shadowed, map-shadowed, all-on and glass frames
+  -- K3-SAH held against its plain walk on the shadow and ReSTIR rays
+  it now traces, the shadow hits equal to the complete tree's on >=
+  99.99% of live rays, each frame within 1 of the complete tree's on
+  >= 99.5%, a cached still frame bit-equal to the uncached one, the
+  cached chain's snapshot resumed bit-equal for 3 frames; the strip sun
+  rays (TR_SHADOW_GDIR=1) on the shadowed frame -- K5 held against its
+  plain version, the mask at half_angle=0 equal to the per-pixel
+  layout's, at the sun's cone < 5% of it differing; the packed
+  visibility fetch (TR_GI_VIS_PACK=1, its share within 1 printed) and
+  the cone layouts TR_CONE_DIRS=8 / 32 and TR_CONE_BRICK=128 (bit-equal
+  to the default layout) on the all-on update frame; every path's
+  median frame ms and device busy beside its default's.
 
 Each K6 line gives its even split's census (pairs_cuda.census: ray
 blocks with pairs, their largest and mean walk, work items and the grid,
@@ -251,7 +275,7 @@ KERNEL_SYMBOLS = (("fill_resolve_kernel", (0,)),
                   ("fill_peel_kernel", (1,)), ("fill_peel_exact_kernel", (1,)),
                   ("traverse_kernel", (2, 4, 5, 6)), ("warp_kernel", (3,)),
                   ("pairs_kernel", (7,)), ("fill_dense_kernel", (8,)),
-                  ("fill_dense_exact_kernel", (8,)))
+                  ("fill_dense_exact_kernel", (8,)), ("chunks_kernel", (9,)))
 
 
 def is_range(key: str) -> bool:
@@ -270,12 +294,16 @@ def trace(fn):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    before = launch_counts()
+    from toyrenderer_tpu_torch.ops import bvh_cuda
+
+    def counts():
+        return launch_counts() + [bvh_cuda.launches_by_kernel['K8']]
+    before = counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    launched = [a - b for a, b in zip(launch_counts(), before)]
+    launched = [a - b for a, b in zip(counts(), before)]
     events = prof.key_averages()
     # a frame's pass ranges (record_function) come back as device events
     # spanning their kernels: not kernels themselves
@@ -1809,7 +1837,8 @@ def slice8(dev, ctx: dict) -> dict:
     # the glass frame's state and its profiled frame, for slice 9's pass
     # table
     out['glass'] = dict(render=g_render, scene=g_scene, pairs=g_pairs,
-                        kw=g_kw, carry=g_carry, fi=g_next)
+                        kw=g_kw, carry=g_carry, fi=g_next, host=g_host,
+                        pairs_np=(gpi, gpm))
     del g_img, g_aux
     phase("slice 8 timing", step="glass frames and profile",
           seconds=f"{time.time() - t8:.1f}")
@@ -2439,18 +2468,614 @@ def slice9(dev, ctx: dict) -> dict:
                 f"{int((got[1] != want[1]).sum())} ids, depth max "
                 f"{float((got[0] - want[0]).abs().max())}")
     k7_calls = len(seen[dense_cuda])
+    k7_bound = dense_bound_ms(setup, dense_cuda.dense_inputs(*args))
     del seen, args, setup, table, want
     out['stages_k7'] = st_launches[8]
+    out['stages_k7_bound'] = k7_bound
     phase("profile_stages", scene="stress (192 objects)",
           size=f"{WIDTH}x{HEIGHT}", card=json.dumps(card),
           K=cfg_s.max_tris_per_tile, B=cfg_s.max_big_tris,
           binned_pairs=int(count.sum()), drops=0,
           k7_vs_plain=f"ids equal, depth bit-equal ({k7_calls} launches)",
+          k7_bound_ms=f"{k7_bound[0]:.4f}", k7_bound_by=k7_bound[1],
           launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7=json.dumps(
               st_launches),
           stages_ms=json.dumps({n: round(ms, 3) for n, ms, _ in rows}),
           notes=json.dumps({n: note for n, _, note in rows if note}))
     phase("slice 9 timing", step="all", seconds=f"{time.time() - t9:.1f}")
+    return out
+
+
+# f32 operations of one (pair, ray, triangle) test of the chunk fold
+# (K8): the reference's direct Moller-Trumbore -- the two cross products
+# (6 multiplies, 3 subtractions each), the four dot products (3
+# multiplies, 2 additions each), the three origin differences, the three
+# scalings by 1 / det, the |det| test, the reciprocal and its select,
+# u + v and the seven compares -- and the fold's compare
+OPS_PER_CHUNK_TEST = 2 * 9 + 4 * 5 + 3 + 3 + 4 + 1 + 7 + 2
+# bytes of one chunk-fold ray slot: read [o, d, t_max, live], write the
+# (t, payload) key
+CHUNK_SLOT_BYTES = 8 * 4 + 8
+PLAIN_LIMIT_S = 30.0             # a plain fold estimated longer: sampled
+K8_SAMPLE_BLOCKS = 1024
+PLAIN_CHUNK_BATCH = 1 << 24      # chunk_fold_plain's (pairs, 128, 96) batch
+
+
+def chunk_bound_ms(args) -> tuple[float, str]:
+    """Least time the card could take for one chunk fold (K8) on these
+    inputs: operations, every (walked pair, live ray of its block,
+    triangle) test; bytes, each distinct chunk walked (960 f32), the
+    walked pair-list entries, each block's start and count, and every
+    ray slot read and its key written once."""
+    import torch
+    from toyrenderer_tpu_torch.ops import rt_chunks
+    rays, data, pchk, starts, n_walk = args
+    live = (rays[..., 7] > 0).sum(1)
+    ops = (int((n_walk.long() * live).sum()) * rt_chunks.CHUNK_TRIS
+           * OPS_PER_CHUNK_TEST)
+    _, chunk = rt_chunks._walk(n_walk, starts, pchk)
+    bytes_ = (torch.unique(chunk).numel() * rt_chunks.CHUNK_FLOATS * 4
+              + chunk.numel() * 4 + rays.shape[0] * 8
+              + rays.shape[0] * rays.shape[1] * CHUNK_SLOT_BYTES)
+    return bound(ops, bytes_)
+
+
+def hold_k8(label, args) -> dict:
+    """One recorded launch of the chunk fold (K8) against
+    chunk_fold_plain on its arguments: best t and payload bit-equal.  The
+    plain fold runs first on a seeded sample of K8_SAMPLE_BLOCKS blocks;
+    where its time extrapolated to the whole launch exceeds
+    PLAIN_LIMIT_S, the kernel is held on that sample's rays (every pair
+    of a sampled block walked, the others' none) and the phase line says
+    so.  Prints a phase line; returns its err, ms (the profiler's device
+    time per launch), events ms, plain ms, bound and census."""
+    import torch
+    from toyrenderer_tpu_torch.ops import chunks_cuda, rt_chunks
+    rays, data, pchk, starts, n_walk = args
+    b = rays.shape[0]
+    got = chunks_cuda.launch(*args)
+    gen = torch.Generator().manual_seed(10)
+    keep = torch.zeros(b, dtype=torch.bool)
+    keep[torch.randperm(b, generator=gen)[:K8_SAMPLE_BLOCKS]] = True
+    keep = keep.to(rays.device)
+    sample = (rays, data, pchk, starts, torch.where(keep, n_walk, 0))
+    t = time.time()
+    want = rt_chunks.chunk_fold_plain(*sample, batch_elems=PLAIN_CHUNK_BATCH)
+    torch.cuda.synchronize()
+    sample_s = time.time() - t
+    total = int(n_walk.sum())
+    est_s = sample_s * total / max(int(sample[4].sum()), 1)
+    sampled = b > K8_SAMPLE_BLOCKS and est_s > PLAIN_LIMIT_S
+    plain_args = sample if sampled else args
+    rows = (keep.repeat_interleave(rt_chunks.BLOCK) if sampled
+            else torch.ones(b * rt_chunks.BLOCK, dtype=torch.bool,
+                            device=rays.device))
+    plain_wall = sample_s
+    if not sampled:
+        t = time.time()
+        want = rt_chunks.chunk_fold_plain(*args,
+                                          batch_elems=PLAIN_CHUNK_BATCH)
+        torch.cuda.synchronize()
+        plain_wall = time.time() - t
+    for k, (a, w) in enumerate(zip(got, want)):
+        if not torch.equal(a[rows], w[rows]):
+            raise AssertionError(f"K8 ({label}): output {k} differs on "
+                                 f"{int((a[rows] != w[rows]).sum())} rays")
+    live = rays[..., 7] > 0
+    st = dict(err=float((got[0][rows] - want[0][rows]).abs()
+                        .nan_to_num(0.0).max()),
+              ms=kernel_ms(lambda: chunks_cuda.launch(*args), KERNEL_REPS,
+                           "chunks_kernel"),
+              events_ms=cuda_ms(lambda: chunks_cuda.launch(*args),
+                                KERNEL_REPS),
+              plain_ms=cuda_ms(lambda: rt_chunks.chunk_fold_plain(
+                  *plain_args, batch_elems=PLAIN_CHUNK_BATCH), 1),
+              plain_scope=(f"{K8_SAMPLE_BLOCKS} seeded blocks of the launch"
+                           if sampled else "the whole launch"),
+              bound=chunk_bound_ms(args),
+              census=dict(blocks=b, blocks_with_pairs=int((n_walk > 0).sum()),
+                          pairs_walked=total, pair_list=pchk.shape[0],
+                          live_rays=int(live.sum()),
+                          rays_with_hit=int(torch.isfinite(got[0]).sum())))
+    phase("K8 vs plain", input=json.dumps(label),
+          compared=st['plain_scope'], t_payload="bit-equal",
+          census=json.dumps(st['census']),
+          plain_estimate_s=f"{est_s:.1f}", kernel_ms=f"{st['ms']:.4f}",
+          kernel_events_ms=f"{st['events_ms']:.4f}",
+          plain_ms=f"{st['plain_ms']:.1f}",
+          plain_first_wall_s=f"{plain_wall:.1f}",
+          bound_ms=f"{st['bound'][0]:.4f}", bound_by=st['bound'][1])
+    return st
+
+
+@contextlib.contextmanager
+def env(**switches):
+    """The environment switches set while open, restored after."""
+    old = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def chunk_calls():
+    """While open, each rt_chunks.traverse_chunks call appends (its
+    positional arguments, keyword arguments, result, stats, the launches
+    it made by kernel) to the yielded list."""
+    from toyrenderer_tpu_torch.ops import bvh_cuda, rt_chunks
+    real = rt_chunks.traverse_chunks
+    calls = []
+
+    def spy(*args, **kwargs):
+        before = dict(bvh_cuda.launches_by_kernel)
+        st = {}
+        res = real(*args, stats=st, **kwargs)
+        calls.append(dict(args=args, kw=kwargs, res=res, stats=st,
+                          launches={k: v - before[k] for k, v in
+                                    bvh_cuda.launches_by_kernel.items()}))
+        return res
+    rt_chunks.traverse_chunks = spy
+    try:
+        yield calls
+    finally:
+        rt_chunks.traverse_chunks = real
+
+
+def hold_chunk_route(label, call, fallback_kernel) -> dict:
+    """One recorded call of the chunk route (rt_chunks.traverse_chunks)
+    against the default route's kernel on the same rays in the same mode
+    (K3, or K3-SAH on the SAH tree): hit equal on >= 99.99% of the live
+    rays, closest-hit t within 1e-5 relative where both hit; the call's
+    fallback launched `fallback_kernel` once.  Times the whole route
+    (box phase, pair list, K8, fallback) beside that kernel.  Prints a
+    phase line; returns the census."""
+    import torch
+    from toyrenderer_tpu_torch.ops import bvh_cuda, rt_chunks
+    bvh, o, d, t_max = call['args'][:4]
+    any_hit, live = call['kw'].get('any_hit', False), call['kw'].get('live')
+    res, st = call['res'], call['stats']
+    fb = {k: v for k, v in call['launches'].items() if v and k != 'K8'}
+    if fb != {fallback_kernel: 1} or call['launches']['K8'] != 1:
+        raise AssertionError(f"chunk route ({label}): launches "
+                             f"{call['launches']}; want K8 1 and "
+                             f"{fallback_kernel} 1 (the fallback)")
+    ref = bvh_cuda.launch(bvh, o, d, t_max, any_hit, live)
+    alive = (torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+             if live is None else live > 0)
+    n_live = int(alive.sum())
+    hit_agree = float((res['hit'] == ref['hit'])[alive].float().mean())
+    both = res['hit'] & ref['hit'] & alive
+    rel = ((res['t'] - ref['t']).abs() / ref['t'])[both]
+    rel_max = float(rel.max()) if rel.numel() else 0.0
+    if hit_agree < 0.9999 or (not any_hit and rel_max > 1e-5):
+        raise AssertionError(f"chunk route ({label}) vs {fallback_kernel}: "
+                             f"hit equal on {hit_agree:.6f} of live rays, "
+                             f"t within {rel_max:.3g} relative")
+    counts, over = st['counts'], st['overflow']
+    out = dict(ray_slots=o.shape[0], live_rays=n_live,
+               blocks=counts.numel(), pcap=st['pcap'],
+               pairs=int(counts.sum()), pairs_walked=int(st['n_walk'].sum()),
+               overflow_blocks=int(over.sum()), hit_agree=hit_agree,
+               t_rel_max=rel_max,
+               route_ms=device_ms(lambda: rt_chunks.traverse_chunks(
+                   bvh, o, d, t_max, any_hit=any_hit, live=live), 3),
+               default_ms=kernel_ms(lambda: bvh_cuda.launch(
+                   bvh, o, d, t_max, any_hit, live), KERNEL_REPS,
+                   "traverse_kernel"),
+               tables_ms=device_ms(lambda: rt_chunks.chunk_table(bvh), 3))
+    phase("chunk route vs default route", input=json.dumps(label),
+          mode="any-hit" if any_hit else "closest-hit",
+          ray_slots=out['ray_slots'], live_rays=n_live,
+          blocks=out['blocks'], pair_capacity=out['pcap'],
+          pairs=out['pairs'], pairs_walked=out['pairs_walked'],
+          overflowed_blocks=out['overflow_blocks'],
+          fallback=f"{fallback_kernel} x1",
+          hit_equal_share=f"{hit_agree:.6f}",
+          t_max_rel_diff=("not compared (any-hit)" if any_hit
+                          else f"{rel_max:.3g}"),
+          route_device_ms=f"{out['route_ms']:.4f}",
+          default_kernel_same_rays_ms=f"{out['default_ms']:.4f}",
+          chunk_table_ms=f"{out['tables_ms']:.4f}")
+    return out
+
+
+def frame_times(render, scene, pairs, fi_np, carry, kw, reps=3):
+    """(median device ms of `reps` renders of one frame from the same
+    carry, by CUDA events; its device busy ms from the profiler)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        render(scene, *pairs, fi_np, carry, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    busy, _, _ = profile_frame(render, scene, pairs, fi_np, carry, kw)
+    return statistics.median(times), busy
+
+
+def within_1(a, b) -> tuple[float, int]:
+    """(share of pixels within 1 in every channel, the largest diff)."""
+    diff = (a.int() - b.int()).abs().amax(-1)
+    return float((diff <= 1).float().mean()), int(diff.max())
+
+
+def slice10(dev, ctx: dict) -> dict:
+    """Slice 10's phases, the reference's opt-in ray paths at 1920x1080:
+    the chunk route (TR_RT_CHUNKS=1) on the all-on update frame's probe
+    rays and their sun rays and on the glass frame's ReSTIR rays (K8
+    against chunk_fold_plain, each route call against the default
+    route's kernel on its rays, the frames against the default route's,
+    no synchronizing call from engine/frame.py); the SAH main tree
+    (TR_RT_SAH=1) on the shadowed, map-shadowed, all-on and glass frames
+    (K3-SAH on its new rays against the plain walk, the shadow hit mask
+    against the complete tree's, the frames against the complete tree's,
+    a cached still frame against the uncached one, a snapshot resumed);
+    the strip sun rays (TR_SHADOW_GDIR=1) on the shadowed frame (K5
+    against plain, the mask at half_angle=0 against the per-pixel
+    layout's, and at the real cone); the packed visibility fetch
+    (TR_GI_VIS_PACK=1) and the cone layouts on the all-on update frame;
+    each path's frame ms and device busy beside its default.  Returns
+    the numbers the kernels line adds."""
+    import torch
+
+    from toyrenderer_tpu_torch._build import BUILD_DIR
+    from toyrenderer_tpu_torch.engine import (
+        View, default_frame_inputs, init_carry, make_render_fn)
+    from toyrenderer_tpu_torch.engine.snapshot import load_state, save_state
+    from toyrenderer_tpu_torch.ops import bvh_cuda, bvh_sah, chunks_cuda
+    from toyrenderer_tpu_torch.ops import shadows as shadows_mod
+    host, scene, c_pairs, c_kw = (ctx['host'], ctx['scene'], ctx['c_pairs'],
+                                  ctx['c_kw'])
+    card, g = ctx['card'], ctx['glass']
+    a_set, a_kw, s_kw = ctx['a_set'], ctx['a_kw'], ctx['s_kw']
+    vol = a_kw['ddgi_volume']
+    out = dict(k8={}, routes={}, k3sah={}, k5={}, timing={})
+    t10 = time.time()
+    fis = pan_inputs(host, 5)
+
+    def timing(path, default_path, row):
+        out['timing'][path] = row
+        d = out['timing'].get(default_path)
+        phase("timing", path=path, card=json.dumps(card),
+              median_frame_ms=f"{row[0]:.3f}", device_busy_ms=f"{row[1]:.3f}",
+              default_path=default_path,
+              default_median_frame_ms=f"{d[0]:.3f}" if d else "-",
+              default_device_busy_ms=f"{d[1]:.3f}" if d else "-")
+
+    # 39. the all-on update frame (frame 3; frames 0-2 hold) by the
+    #     default route, then by the chunk route: K8 twice (the probe
+    #     rays closest-hit, their sun rays any-hit), each route call's
+    #     fallback K3-SAH once on the GI tree, the frame within 1 of the
+    #     default route's on >= 99.5% of the pixels, no synchronizing
+    #     call from engine/frame.py
+    a_render = make_render_fn(a_set, **c_kw)
+    a_carry = init_carry(scene, a_set, vol)
+    for fi in fis[:3]:
+        _, a_carry, aux = a_render(scene, *c_pairs, fi, a_carry, **a_kw)
+        if aux['ddgi_updated']:
+            raise AssertionError("slice 10: an all-on hold frame updated")
+    fi3 = fis[3]
+    img_d, carry_d, aux_d = a_render(scene, *c_pairs, fi3, a_carry, **a_kw)
+    if not aux_d['ddgi_updated']:
+        raise AssertionError("slice 10: all-on frame 3 did not update")
+    timing("all-on update frame", None,
+           frame_times(a_render, scene, c_pairs, fi3, a_carry, a_kw))
+    with env(TR_RT_CHUNKS='1'):
+        reset_launch_counts()
+        with recorded((chunks_cuda,)) as k8_seen, chunk_calls() as calls:
+            (img_c, carry_c, _), sync = sync_log(lambda: a_render(
+                scene, *c_pairs, fi3, a_carry, **a_kw))
+        launches = launch_counts() + [bvh_cuda.launches_by_kernel['K8']]
+        timing("all-on update frame, TR_RT_CHUNKS=1", "all-on update frame",
+               frame_times(a_render, scene, c_pairs, fi3, a_carry, a_kw))
+    if (launches[4] != 2 or launches[9] != 2 or len(calls) != 2
+            or [c['kw']['any_hit'] for c in calls] != [False, True]):
+        raise AssertionError(f"chunk frame: launches K1-K7, K8 {launches}, "
+                             f"route calls {len(calls)}; want K3-SAH 2, K8 2 "
+                             "and a closest-hit and an any-hit call")
+    mine = [s for s in sync if s.startswith("frame.py:")]
+    if mine:
+        raise AssertionError(f"chunk frame: synchronizing calls from "
+                             f"engine/frame.py {mine}")
+    for name, (args, _, _), call in zip(
+            ("all-on probe rays, closest-hit",
+             "all-on probe-hit sun rays, any-hit"), k8_seen[chunks_cuda],
+            calls):
+        out['k8'][name] = hold_k8(name, args)
+        out['routes'][name] = hold_chunk_route(name, call, 'K3-SAH')
+    del k8_seen, calls
+    close, max_diff = within_1(img_c, img_d)
+    if close < 0.995:
+        raise AssertionError(f"chunk frame vs default frame: within 1 on "
+                             f"{close:.5f} of pixels")
+    irr = (carry_c['ddgi_irradiance'] - carry_d['ddgi_irradiance']).abs()
+    phase("chunk frame vs default frame", path="all-on update frame",
+          within_1=f"{close:.6f}", max_diff=max_diff, min_share=0.995,
+          sync_calls=len(sync), sync_call_sites=json.dumps(sorted(set(sync))),
+          from_engine_frame=0,
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7_k8=json.dumps(launches),
+          probe_irradiance_diff_max=f"{float(irr.max()):.3g}")
+    out['k8_launches'] = launches[9]
+    del img_c, carry_c
+
+    # 40. the glass frame (slice 8's chain, its next frame) by the default
+    #     route and by the chunk route: ReSTIR's 2,073,600 visibility
+    #     rays through K8 (its fallback K3 once), the shadow rays through
+    #     K3 as before
+    g_args = (g['scene'], g['pairs'], g['fi'], g['carry'], g['kw'])
+
+    def g_frame(kw=None):
+        return g['render'](g['scene'], *g['pairs'], g['fi'], g['carry'],
+                           **(kw or g['kw']))
+    img_gd, _, _ = g_frame()
+    timing("glass frame", None, frame_times(
+        g['render'], g_args[0], g_args[1], g_args[2], g_args[3], g_args[4]))
+    with env(TR_RT_CHUNKS='1'):
+        reset_launch_counts()
+        with recorded((chunks_cuda,)) as k8_seen, chunk_calls() as calls:
+            (img_gc, _, _), sync = sync_log(g_frame)
+        launches = launch_counts() + [bvh_cuda.launches_by_kernel['K8']]
+        timing("glass frame, TR_RT_CHUNKS=1", "glass frame", frame_times(
+            g['render'], *g_args))
+    if (launches[2] != 2 or launches[9] != 1 or len(calls) != 1
+            or not calls[0]['kw']['any_hit']
+            or calls[0]['args'][1].shape[0] != WIDTH * HEIGHT):
+        raise AssertionError(f"glass chunk frame: launches K1-K7, K8 "
+                             f"{launches}; want K3 2 (shadows, the fallback) "
+                             "and K8 1 on every pixel's ReSTIR ray")
+    if [s for s in sync if s.startswith("frame.py:")]:
+        raise AssertionError(f"glass chunk frame: synchronizing calls {sync}")
+    name = "glass ReSTIR visibility rays, any-hit"
+    out['k8'][name] = hold_k8(name, k8_seen[chunks_cuda][0][0])
+    out['routes'][name] = hold_chunk_route(name, calls[0], 'K3')
+    out['k8_launches'] += launches[9]
+    del k8_seen, calls
+    close, max_diff = within_1(img_gc, img_gd)
+    if close < 0.995:
+        raise AssertionError(f"glass chunk frame vs default: within 1 on "
+                             f"{close:.5f}")
+    phase("chunk frame vs default frame", path="glass and emitters",
+          within_1=f"{close:.6f}", max_diff=max_diff, min_share=0.995,
+          sync_calls=len(sync), from_engine_frame=0,
+          launches_k1_k2_k3_k4_k3sah_k5_k3seeded_k6_k7_k8=json.dumps(launches))
+    del img_gc
+    phase("slice 10 timing", step="chunk route",
+          seconds=f"{time.time() - t10:.1f}")
+
+    # 41. the SAH main tree (TR_RT_SAH=1, as the render CLI builds it):
+    #     the courtyard's over the RT pair list and the masked pairs, the
+    #     glass scene's; each frame of the shadowed, map-shadowed, all-on
+    #     and glass paths rendered on both main trees from the same carry
+    t = time.time()
+    with env(TR_RT_SAH='1'):
+        sah = bvh_sah.build_rt_static_auto(
+            host, ctx['rpi'], ctx['rpm'], mask_pair_inst=ctx['mk_i'],
+            mask_pair_meshlet=ctx['mk_m'], device=dev)
+        g_sah = bvh_sah.build_rt_static_auto(g['host'], *g['pairs_np'],
+                                             device=dev)
+    sah_s = time.time() - t
+    if not (isinstance(sah, bvh_sah.RtStaticSah)
+            and isinstance(g_sah, bvh_sah.RtStaticSah)):
+        raise AssertionError("TR_RT_SAH=1 built no SAH main tree")
+    phase("SAH main tree", host_build_s=f"{sah_s:.2f}",
+          depth=len(sah.depth_ranges), glass_depth=len(g_sah.depth_ranges),
+          triangles=int((sah.payload >= 0).sum()),
+          n_mask_pairs=sah.n_mask_pairs,
+          masked_kept=int(sah.pair_keep.sum()),
+          complete_masked_kept=int(s_kw['rt_static'].pair_keep.sum()))
+    if not torch.equal(sah.pair_keep, s_kw['rt_static'].pair_keep):
+        raise AssertionError("SAH main tree: its masked keep differs from "
+                             "the complete tree's")
+    paths = (("shadowed", ctx['s_set'], s_kw, 2),
+             ("shadowed-map", ctx['m_set'], s_kw, 2),
+             ("all-on", a_set, a_kw, 4))
+    for name, st, kw, n in paths:
+        render = make_render_fn(st, **c_kw)
+        v = vol if st.enable_gi else None
+        kw_s = dict(kw, rt_static=sah)
+        carry = [init_carry(scene, st, v), init_carry(scene, st, v)]
+        shares = []
+        for i, fi in enumerate(fis[:n]):
+            imgs, seen = [], []
+            for r, kw_r in enumerate((kw, kw_s)):
+                reset_launch_counts()
+                with recorded((bvh_cuda,)) as rec:
+                    img, carry[r], aux = render(scene, *c_pairs, fi,
+                                                carry[r], **kw_r)
+                    torch.cuda.synchronize()
+                imgs.append(img)
+                seen.append((launch_counts(), rec[bvh_cuda]))
+            (lc, rc), (ls, rs) = seen
+            traced = lc[2] > 0
+            if ls[2] != 0 or ls[4] != lc[2] + lc[4]:
+                raise AssertionError(f"SAH main tree, {name} frame {i}: "
+                                     f"launches complete {lc}, SAH {ls}")
+            shares.append(within_1(imgs[1], imgs[0]))
+            if shares[-1][0] < 0.995:
+                raise AssertionError(f"SAH main tree, {name} frame {i}: "
+                                     f"within 1 on {shares[-1][0]:.5f}")
+            if name == "shadowed" and i == 1 and traced:
+                (ca, _, cres), (sa, _, sres) = rc[0], rs[0]
+                if not (torch.equal(ca[1], sa[1]) and torch.equal(ca[2],
+                                                                  sa[2])):
+                    raise AssertionError("SAH main tree: the shadow rays "
+                                         "differ from the complete tree's")
+                live = ca[5] > 0
+                agree = float((cres['hit'] == sres['hit'])[live].float()
+                              .mean())
+                if agree < 0.9999:
+                    raise AssertionError(f"SAH main tree: shadow hit equal "
+                                         f"on {agree:.6f} of live rays")
+                out['k3sah']["SAH main tree shadow rays, any-hit"] = \
+                    hold_trace("K3-SAH (main tree)", sa)
+                phase("SAH shadow mask vs complete tree", frame=i,
+                      live_rays=int(live.sum()),
+                      hit_equal_share=f"{agree:.6f}", min_share=0.9999)
+        timing(f"{name}, complete main tree", None, frame_times(
+            render, scene, c_pairs, fis[n], carry[0], kw))
+        timing(f"{name}, SAH main tree", f"{name}, complete main tree",
+               frame_times(render, scene, c_pairs, fis[n], carry[1], kw_s))
+        phase("SAH frame vs complete frame", path=name, frames=n,
+              within_1=json.dumps([round(s, 6) for s, _ in shares]),
+              max_diff=json.dumps([m for _, m in shares]), min_share=0.995,
+              bit_equal=all(s == 1.0 and m == 0 for s, m in shares))
+    # the glass frame: its ReSTIR and shadow rays on the SAH main tree
+    g_kw_s = dict(g['kw'], rt_static=g_sah)
+    reset_launch_counts()
+    with recorded((bvh_cuda,)) as rec:
+        img_gs, _, _ = g_frame(g_kw_s)
+        torch.cuda.synchronize()
+    ls = launch_counts()
+    if ls[2] != 0 or ls[4] != 2:
+        raise AssertionError(f"SAH glass frame: launches {ls}; want K3-SAH 2")
+    for label, (args, _, _) in zip(("glass shadow rays, any-hit",
+                                    "glass ReSTIR visibility rays, any-hit"),
+                                   rec[bvh_cuda]):
+        out['k3sah'][f"SAH main tree {label}"] = hold_trace(
+            "K3-SAH (main tree)", args)
+    close, max_diff = within_1(img_gs, img_gd)
+    if close < 0.995:
+        raise AssertionError(f"SAH glass frame: within 1 on {close:.5f}")
+    timing("glass frame, SAH main tree", "glass frame", frame_times(
+        g['render'], g_args[0], g_args[1], g_args[2], g_args[3], g_kw_s))
+    phase("SAH frame vs complete frame", path="glass and emitters",
+          within_1=f"{close:.6f}", max_diff=max_diff, min_share=0.995)
+    del img_gs, rec
+
+    # a cached still frame (the shadowed path: the SAH tree refit once,
+    # into the carry) against the uncached one, and the cached chain's
+    # snapshot resumed for 3 frames
+    st = ctx['s_set']
+    render = make_render_fn(st, **c_kw)
+    kw_s = dict(s_kw, rt_static=sah)
+    cached = init_carry(scene, st, rt_static=sah, pair_inst=c_pairs[0],
+                        pair_meshlet=c_pairs[1],
+                        rt_pair_inst=s_kw['rt_pair_inst'],
+                        rt_pair_meshlet=s_kw['rt_pair_meshlet'],
+                        **ctx['mask_kw'])
+    plain = init_carry(scene, st)
+    rebuilt = []
+    for _ in range(2):
+        img_u, plain, _ = render(scene, *c_pairs, fis[0], plain, **kw_s)
+        img_k, cached, aux = render(scene, *c_pairs, fis[0], cached, **kw_s)
+        rebuilt.append(aux['rebuilt'])
+        if not torch.equal(img_u, img_k):
+            raise AssertionError("SAH main tree: a cached still frame "
+                                 "differs from the uncached one")
+    if rebuilt != [['rt'], []] or not isinstance(cached['rt_bvh_cache'],
+                                                 bvh_sah.BvhSah):
+        raise AssertionError(f"SAH main tree cache: rebuilt {rebuilt}")
+    view = View.from_scene(host, WIDTH, HEIGHT)
+
+    def chain(carry, view, n):
+        imgs, reb = [], []
+        for _ in range(n):
+            mats = view.matrices()
+            img, carry, aux = render(scene, *c_pairs, default_frame_inputs(
+                host, mats), carry, **kw_s)
+            view.advance(mats)
+            view.rotate_yaw_pitch(SHADOW_YAW, 0.0)
+            imgs.append(img)
+            reb.append(aux['rebuilt'])
+        return imgs, reb, carry
+    _, _, cached = chain(cached, view, 2)
+    snap = BUILD_DIR / "chip_smoke_sah_snapshot.npz"
+    save_state(snap, cached, view)
+    view2 = View.from_scene(host, WIDTH, HEIGHT)
+    carry2 = load_state(snap, st, view2, device=dev)
+    a, ra, _ = chain(cached, view, 3)
+    b, rb, _ = chain(carry2, view2, 3)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)) or ra != rb:
+        raise AssertionError(f"SAH snapshot: resumed frames differ (rebuilt "
+                             f"{rb}, uninterrupted {ra})")
+    phase("SAH main tree cache and snapshot", path="shadowed",
+          still_frame_cached_bit_equal=True, rebuilt=json.dumps(rebuilt),
+          snapshot_resumed=3, snapshot_bit_equal=True,
+          snapshot_rebuilt=json.dumps(rb),
+          npz_mb=f"{snap.stat().st_size / 2 ** 20:.1f}")
+    snap.unlink()
+    phase("slice 10 timing", step="SAH main tree",
+          seconds=f"{time.time() - t10:.1f}")
+
+    # 42. the strip sun rays (TR_SHADOW_GDIR=1) on the shadowed frame:
+    #     K5 once (any-hit) held against its plain version and against
+    #     K3 on the expanded directions; the frame's shadow-ray setup
+    #     traced again at half_angle=0 in both layouts (equal masks) and
+    #     at the sun's cone (< 5% of the pixels differ, the reference's
+    #     bound, tests/test_shadows.py:185-191)
+    s_render = make_render_fn(ctx['s_set'], **c_kw)
+    s_carry = init_carry(scene, ctx['s_set'])
+    _, s_carry, _ = s_render(scene, *c_pairs, fis[0], s_carry, **s_kw)
+    img_sd, _, _ = s_render(scene, *c_pairs, fis[1], s_carry, **s_kw)
+    with env(TR_SHADOW_GDIR='1'):
+        reset_launch_counts()
+        with recorded((bvh_cuda,)) as rec, recorded(
+                (shadows_mod,), "trace_shadow_mask") as masks:
+            img_sg, _, _ = s_render(scene, *c_pairs, fis[1], s_carry, **s_kw)
+            torch.cuda.synchronize()
+        ls = launch_counts()
+        timing("shadowed, TR_SHADOW_GDIR=1", "shadowed, complete main tree",
+               frame_times(s_render, scene, c_pairs, fis[1], s_carry, s_kw))
+    if ls[2] != 0 or ls[5] != 1 or len(masks[shadows_mod]) != 1:
+        raise AssertionError(f"strip frame: launches {ls}; want K5 1, K3 0")
+    k5_args = rec[bvh_cuda][0][0]
+    out['k5']["strip sun rays, any-hit"] = hold_trace("K5 (strip sun rays)",
+                                                      k5_args)
+    out['k5_launches'] = ls[5]
+    m_args, m_kw, m_res = masks[shadows_mod][0]
+    flat = [shadows_mod.trace_shadow_mask(*m_args, **dict(
+        m_kw, half_angle=0.0, gdir=gd)) for gd in (False, True)]
+    if not torch.equal(*flat):
+        raise AssertionError("strip sun rays at half_angle=0: the mask "
+                             "differs from the per-pixel layout's on "
+                             f"{int((flat[0] != flat[1]).sum())} pixels")
+    per_px = shadows_mod.trace_shadow_mask(*m_args, **dict(m_kw, gdir=False))
+    differ = float((per_px != m_res).float().mean())
+    if differ >= 0.05:
+        raise AssertionError(f"strip sun rays: {differ:.4f} of the mask's "
+                             "pixels differ from the per-pixel cone's")
+    close, max_diff = within_1(img_sg, img_sd)
+    phase("strip sun rays", path="shadowed", frame=1,
+          mask_pixels=m_res.numel(), half_angle_0="masks equal",
+          cone_mask_differ_share=f"{differ:.5f}", max_share=0.05,
+          frame_within_1_of_per_pixel=f"{close:.6f}", max_diff=max_diff)
+    del img_sd, img_sg, rec, masks, flat, per_px
+
+    # 43. the all-on update frame with the packed visibility fetch
+    #     (printed: the share within 1 of the unpacked frame) and at the
+    #     cone layouts 8 and 32 directions, bricks of 128 probes: 256 rays
+    #     a probe are whole cones, so each equals the default layout's
+    for name, sw in (("TR_GI_VIS_PACK=1", dict(TR_GI_VIS_PACK='1')),
+                     ("TR_CONE_DIRS=8", dict(TR_CONE_DIRS='8')),
+                     ("TR_CONE_DIRS=32", dict(TR_CONE_DIRS='32')),
+                     ("TR_CONE_BRICK=128", dict(TR_CONE_BRICK='128'))):
+        with env(**sw):
+            reset_launch_counts()
+            img, carry, _ = a_render(scene, *c_pairs, fi3, a_carry, **a_kw)
+            ls = launch_counts()
+            row = frame_times(a_render, scene, c_pairs, fi3, a_carry, a_kw)
+        close, max_diff = within_1(img, img_d)
+        same = bool(torch.equal(img, img_d) and torch.equal(
+            carry['ddgi_irradiance'], carry_d['ddgi_irradiance']))
+        if "CONE" in name and not same:
+            raise AssertionError(f"{name}: the update frame differs from "
+                                 "the default layout's")
+        if ls[4] != 2:
+            raise AssertionError(f"{name}: launches {ls}; want K3-SAH 2")
+        timing(f"all-on update frame, {name}", "all-on update frame", row)
+        phase("layout frame vs default frame", path=f"all-on, {name}",
+              bit_equal=same, within_1=f"{close:.6f}", max_diff=max_diff,
+              gate=("bit-equal" if "CONE" in name else "printed"))
+    phase("slice 10 timing", step="all", seconds=f"{time.time() - t10:.1f}")
     return out
 
 
@@ -2479,8 +3104,8 @@ def main() -> int:
     from toyrenderer_tpu_torch.ops import geometry as geo_mod
     from toyrenderer_tpu_torch.ops import raster as raster_mod
     from toyrenderer_tpu_torch.ops import (
-        bvh_cuda, bvh_sah, ddgi, dense_cuda, pairs_cuda, peel_cuda,
-        raster_cuda, rt_pairs, warp_cuda)
+        bvh_cuda, bvh_sah, chunks_cuda, ddgi, dense_cuda, pairs_cuda,
+        peel_cuda, raster_cuda, rt_pairs, warp_cuda)
     from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
     from toyrenderer_tpu_torch.scene import load_scene
     from toyrenderer_tpu_torch.scene.gltf import (
@@ -2503,7 +3128,7 @@ def main() -> int:
     t = time.time()
     libs = {"fill_resolve": raster_cuda, "fill_peel": peel_cuda,
             "traverse": bvh_cuda, "warp": warp_cuda, "pairs": pairs_cuda,
-            "fill_dense": dense_cuda}
+            "fill_dense": dense_cuda, "chunks": chunks_cuda}
     with ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(m.kernel_library) for m in libs.values()]:
             f.result()
@@ -3678,10 +4303,17 @@ def main() -> int:
         small_vol=small_vol))
 
     # ===== the caches, GI's branch, the snapshot, pass tables (slice 9) ======
+    glass = s8.pop('glass')
     s9 = slice9(dev, dict(
         host=host, scene=scene, c_pairs=c_pairs, c_kw=c_kw, c_set=c_set,
         s_set=s_set, m_set=m_set, a_set=a_set, s_kw=s_kw, a_kw=a_kw,
-        mask_kw=mask_kw, card=card, glass=s8.pop('glass')))
+        mask_kw=mask_kw, card=card, glass=glass))
+
+    # ===== the reference's opt-in ray paths (slice 10) =====================
+    s10 = slice10(dev, dict(
+        host=host, scene=scene, c_pairs=c_pairs, c_kw=c_kw, s_set=s_set,
+        m_set=m_set, a_set=a_set, s_kw=s_kw, a_kw=a_kw, mask_kw=mask_kw,
+        card=card, glass=glass, rpi=rpi, rpm=rpm, mk_i=mk_i, mk_m=mk_m))
 
     # 32. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
@@ -3799,10 +4431,11 @@ def main() -> int:
              + [dict(row("masked set, init depth -2 left of x = 640",
                          k7_low, False), exact_units=k7_low['exact_units'])]
              )]
-    for name, line, st, n, path in (
-            ("traverse_sah", 250, k3s, a_launches[4], "all-on"),
+    for name, line, st, n, path, extra in (
+            ("traverse_sah", 250, k3s, a_launches[4], "all-on",
+             s10['k3sah']),
             ("traverse_gdir", 595, k5, k5_launches,
-             "all-on, TR_GI_GDIR=1")):
+             "all-on, TR_GI_GDIR=1", s10['k5'])):
         main = path == "all-on"
         kernels.append(dict(
             name=name, route="cuda", path=path,
@@ -3820,7 +4453,13 @@ def main() -> int:
                          ray_slots=v['ray_slots'], live_rays=v['live_rays'],
                          visits_mean=v['visits_mean'],
                          visits_max=v['visits_max'])
-                    for k, v in st.items()]))
+                    for k, v in st.items()]
+            + [dict(row(k, v, False), path=("TR_RT_SAH=1" if "SAH" in k
+                                            else "shadowed, TR_SHADOW_GDIR=1"),
+                    mrays_per_s=v['mrays_s'], ray_slots=v['ray_slots'],
+                    live_rays=v['live_rays'], visits_mean=v['visits_mean'],
+                    visits_max=v['visits_max'])
+               for k, v in extra.items()]))
     for name, src, line, st, n, path in (
             ("traverse_pairs", "pairs.cu", "rt_pairs.py:145", k6,
              p_launches[7], "all-on, TR_GI_PAIRS=1"),
@@ -3841,6 +4480,25 @@ def main() -> int:
     kernels[-2]['inputs'] = [
         dict(i, **{k: v for k, v in pair_route[i['input']].items()})
         for i in kernels[-2]['inputs']]
+    k8 = s10['k8']
+    kernels.append(dict(
+        name="chunk_fold", route="cuda", main_path=False,
+        path="TR_RT_CHUNKS=1 (all-on probe rays, glass ReSTIR rays)",
+        source="toyrenderer_tpu_torch/csrc/chunks.cu",
+        replaces="none: toyrenderer_tpu/ops/rt_chunks.py:101-242 is XLA",
+        launches=s10['k8_launches'],
+        max_abs_err=max(v['err'] for v in k8.values()),
+        ms=statistics.mean(v['ms'] for v in k8.values()),
+        plain_ms=statistics.mean(v['plain_ms'] for v in k8.values()),
+        bound_ms=statistics.mean(v['bound'][0] for v in k8.values()),
+        bound_by=max(k8.values(), key=lambda v: v['bound'][0])['bound'][1],
+        library_ms=None,
+        inputs=[dict(row(k, v, False), plain_scope=v['plain_scope'],
+                     census=v['census'], route=s10['routes'][k])
+                for k, v in k8.items()]))
+    dense_row = next(k for k in kernels if k['name'] == "fill_dense")
+    dense_row['stages_bound_ms'], dense_row['stages_bound_by'] = \
+        s9['stages_k7_bound']
     print(json.dumps({"kernels": kernels,
                       "wall_s": round(time.time() - t_start, 1)}),
           flush=True)

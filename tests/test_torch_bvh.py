@@ -266,6 +266,11 @@ def test_traverse_auto_routes():
     res = TBC.traverse_auto(tb, o, d, 50.0, pairs=True)
     assert TBC.launches_by_kernel == before
     assert torch.equal(res['hit'], want['hit'])
-    for kw in (dict(chunked=True), dict(sp_mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TBC.traverse_auto(tb, o, d, 50.0, **kw)
+    # the chunk route (K8's plain fold on the CPU): the same hits, the
+    # same Moller-Trumbore arithmetic
+    res = TBC.traverse_auto(tb, o, d, 50.0, chunked=True)
+    assert TBC.launches_by_kernel == before
+    assert torch.equal(res['hit'], want['hit'])
+    assert torch.equal(res['t'], want['t'])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TBC.traverse_auto(tb, o, d, 50.0, sp_mesh=object())

@@ -32,6 +32,9 @@ package's, on inputs made from a seed with numpy.
   a phased block with relocated and inactive probes: radiance within
   1e-4, distances within 1e-5, hits and the lifecycle's inputs equal.
   The reference's lockstep traversal gets a step budget no ray reaches.
+* The opt-in routes, with those tolerances: the unphased `trace_probes`,
+  the sampler with TR_GI_VIS_PACK=1 and the probe block with
+  TR_RT_CHUNKS=1 (the chunk route in both packages).
 """
 
 import numpy as np
@@ -277,7 +280,7 @@ def test_update_probes_matches_reference(cornell):
 
 
 @pytest.mark.parametrize("vis", [True, False])
-def test_sampling_matches_reference(cornell, vis):
+def test_sampling_matches_reference(cornell, vis, vis_pack=False):
     jvol, tvol = cornell['jvol'], cornell['tvol']
     irr, dist, off, _ = _probe_state(jvol, 5)
     rng = np.random.default_rng(9)
@@ -289,10 +292,11 @@ def test_sampling_matches_reference(cornell, vis):
     if vis:
         want = np.asarray(JD.sample_irradiance_visibility(
             jvol, *(jnp.asarray(a) for a in (irr, dist, wp, n)),
-            probe_offset=jnp.asarray(off), vis_pool=2, vis_pack=False))
+            probe_offset=jnp.asarray(off), vis_pool=2, vis_pack=vis_pack))
         got = TD.sample_irradiance_visibility(
             tvol, *(torch.from_numpy(a) for a in (irr, dist, wp, n)),
-            probe_offset=torch.from_numpy(off), vis_pool=2).numpy()
+            probe_offset=torch.from_numpy(off), vis_pool=2,
+            vis_pack=vis_pack).numpy()
     else:
         want = np.asarray(JD.sample_irradiance(
             jvol, jnp.asarray(irr), jnp.asarray(wp).reshape(-1, 3),
@@ -315,11 +319,10 @@ def _sky_t(d):
     return (d * 0.5 + 0.5) * torch.tensor([0.4, 0.6, 1.2])
 
 
-@pytest.mark.parametrize("gdir", [False, True])
-def test_trace_probe_block_matches_reference(cornell, gdir, monkeypatch):
-    monkeypatch.setenv('TR_GI_GDIR', '1' if gdir else '0')
-    sh, js, ts = cornell['sh'], cornell['js'], cornell['ts']
-    jvol, tvol = cornell['jvol'], cornell['tvol']
+def _gi_trees(cornell):
+    """(reference tree, port tree, shade records): cornell's GI tree (the
+    reference's complete tree on the CPU), carried across."""
+    sh, js = cornell['sh'], cornell['js']
     rts, gpi, gpm, _ = jax_gi_static(sh, 'all')
     iw = _jax_inst_world(sh)
     jbvh = JB.refit_bvh(rts, jnp.asarray(iw))
@@ -328,48 +331,96 @@ def test_trace_probe_block_matches_reference(cornell, gdir, monkeypatch):
                                level_offset=jbvh.level_offset,
                                num_levels=jbvh.num_levels), 'cpu')
     v = JB.world_triangles(js, jnp.asarray(iw), gpi, gpm)
-    shade = JD.build_shade_records(js, gpi, gpm, *v[:3])
-    irr, _, off, state = _probe_state(jvol, 7)
-    sun = np.asarray([0.3, 0.8, 0.52], np.float32)
-    sun /= np.linalg.norm(sun)
-    col = np.asarray([1.0, 0.95, 0.9], np.float32)
-    inten = np.asarray([3.0], np.float32)
-    num_phases, frame = 2, 5
-    want = JD.trace_probe_block(
-        jvol, jbvh, shade, jnp.asarray(irr), jnp.asarray(sun),
-        jnp.asarray(col), jnp.asarray(inten), jnp.asarray(frame, jnp.int32),
-        _sky_j, num_phases, max_steps=4096, probe_offset=jnp.asarray(off),
-        probe_state=jnp.asarray(state))
-    got = TD.trace_probe_block(
-        tvol, tbvh, torch.from_numpy(np.asarray(shade)),
-        torch.from_numpy(irr), torch.from_numpy(sun), torch.from_numpy(col),
-        torch.from_numpy(inten), torch.tensor(frame, dtype=torch.int32),
-        _sky_t, num_phases, probe_offset=torch.from_numpy(off),
-        probe_state=torch.from_numpy(state))
-    rad, dist, dirs, start, life = got
-    np.testing.assert_allclose(dirs.numpy(), np.asarray(want[2]), atol=2e-6)
-    assert int(start) == int(want[3])
+    return jbvh, tbvh, JD.build_shade_records(js, gpi, gpm, *v[:3])
+
+
+SUN = (np.asarray([0.3, 0.8, 0.52], np.float32)
+       / np.linalg.norm(np.asarray([0.3, 0.8, 0.52], np.float32)))
+SUN_COL = np.asarray([1.0, 0.95, 0.9], np.float32)
+SUN_INT = np.asarray([3.0], np.float32)
+
+
+def _hold_probe_trace(got, want):
+    """radiance within 1e-4, distances within 1e-5, hits equal."""
     w_dist = np.asarray(want[1])
     hit = w_dist < 1e4
-    np.testing.assert_array_equal(dist.numpy() < 1e4, hit)
+    np.testing.assert_array_equal(got[1].numpy() < 1e4, hit)
     assert 0.05 < hit.mean() < 0.99
-    np.testing.assert_allclose(dist.numpy(), w_dist, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(rad.numpy(), np.asarray(want[0]), rtol=1e-4,
-                               atol=1e-4)
-    for k, v_ in life.items():
+    np.testing.assert_allclose(got[1].numpy(), w_dist, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               atol=2e-6)
+
+
+def hold_probe_block(cornell, frame=5):
+    """trace_probe_block of both packages on one phased block with
+    relocated and inactive probes (as the switches in the environment and
+    the reference module's attributes stand); returns the port's
+    result."""
+    jvol, tvol = cornell['jvol'], cornell['tvol']
+    jbvh, tbvh, shade = _gi_trees(cornell)
+    irr, _, off, state = _probe_state(jvol, 7)
+    num_phases = 2
+    want = JD.trace_probe_block(
+        jvol, jbvh, shade, jnp.asarray(irr), jnp.asarray(SUN),
+        jnp.asarray(SUN_COL), jnp.asarray(SUN_INT),
+        jnp.asarray(frame, jnp.int32), _sky_j, num_phases, max_steps=4096,
+        probe_offset=jnp.asarray(off), probe_state=jnp.asarray(state))
+    got = TD.trace_probe_block(
+        tvol, tbvh, torch.from_numpy(np.asarray(shade)),
+        torch.from_numpy(irr), torch.from_numpy(SUN),
+        torch.from_numpy(SUN_COL), torch.from_numpy(SUN_INT),
+        torch.tensor(frame, dtype=torch.int32), _sky_t, num_phases,
+        probe_offset=torch.from_numpy(off),
+        probe_state=torch.from_numpy(state))
+    _hold_probe_trace(got, want)
+    assert int(got[3]) == int(want[3])
+    for k, v_ in got[4].items():
         np.testing.assert_allclose(v_.numpy(), np.asarray(want[4][k]),
                                    rtol=1e-5, atol=1e-5, err_msg=k)
+    return got
 
 
-def test_unported_routes_raise(cornell, monkeypatch):
-    vol = cornell['tvol']
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.trace_probes(vol)
-    monkeypatch.setenv('TR_GI_VIS_PACK', '1')
-    z = torch.zeros((2, 2, 3))
-    with pytest.raises(NotImplementedError, match="TR_GI_VIS_PACK"):
-        TD.sample_irradiance_visibility(vol, None, None, z, z)
-    monkeypatch.setenv('TR_RT_CHUNKS', '1')
-    with pytest.raises(NotImplementedError, match="TR_RT_CHUNKS"):
-        TD.trace_probe_block(vol, None, None, torch.zeros(1), None, None,
-                             None, torch.tensor(0), None, 1)
+@pytest.mark.parametrize("gdir", [False, True])
+def test_trace_probe_block_matches_reference(cornell, gdir, monkeypatch):
+    monkeypatch.setenv('TR_GI_GDIR', '1' if gdir else '0')
+    hold_probe_block(cornell)
+
+
+def hold_trace_probes(cornell):
+    """The unphased trace_probes of both packages on cornell's GI tree
+    (the reference's lockstep traversal with a step budget no ray
+    reaches); returns the port's result."""
+    jvol, tvol = cornell['jvol'], cornell['tvol']
+    jbvh, tbvh, shade = _gi_trees(cornell)
+    irr, _, _, _ = _probe_state(jvol, 3)
+    want = JD.trace_probes(
+        jvol, jbvh, shade, jnp.asarray(irr), jnp.asarray(SUN),
+        jnp.asarray(SUN_COL), jnp.asarray(SUN_INT),
+        jnp.asarray(4, jnp.int32), _sky_j, max_steps=4096)
+    got = TD.trace_probes(
+        tvol, tbvh, torch.from_numpy(np.asarray(shade)),
+        torch.from_numpy(irr), torch.from_numpy(SUN),
+        torch.from_numpy(SUN_COL), torch.from_numpy(SUN_INT),
+        torch.tensor(4, dtype=torch.int32), _sky_t)
+    _hold_probe_trace(got, want)
+    assert got[0].shape == (tvol.num_probes, tvol.rays_per_probe, 3)
+    return got
+
+
+@pytest.mark.parametrize("route", ["trace_probes", "vis_pack", "chunks"])
+def test_opt_in_routes_match_reference(cornell, monkeypatch, route):
+    """The reference's opt-in probe paths: the unphased `trace_probes`,
+    the corner-packed visibility fetch (TR_GI_VIS_PACK=1, read by the
+    sampler in both packages; the tolerances of
+    test_sampling_matches_reference) and the chunk route's probe block
+    (TR_RT_CHUNKS=1)."""
+    if route == "trace_probes":
+        hold_trace_probes(cornell)
+    elif route == "vis_pack":
+        monkeypatch.setenv('TR_GI_VIS_PACK', '1')
+        test_sampling_matches_reference(cornell, True, vis_pack=None)
+    else:
+        monkeypatch.setenv('TR_RT_CHUNKS', '1')
+        hold_probe_block(cornell)

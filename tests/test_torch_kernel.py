@@ -19,7 +19,9 @@ bit-equal, for the same reason (each ray walks the tree in the plain
 version's order, whichever warp runs it); K6's best t and ordinal
 bit-equal (each form summed in the plain version's order; the 39
 coefficients mt_tables zeroes add nothing to a ray with finite
-features, and a ray without them sums all 16 terms).  The K1, K2 and
+features, and a ray without them sums all 16 terms); K8's best t and
+payload bit-equal (the reference's Moller-Trumbore in its order, the
+first least slot of a pair, the least payload across pairs).  The K1, K2 and
 K7 inputs include ones off the frames' domain (init or occluder depths
 below -1, NaN depths), where the kernels walk exactly as the plain
 versions do.
@@ -38,12 +40,14 @@ from toyrenderer_tpu_torch.engine import streaming
 from toyrenderer_tpu_torch.ops import bvh as B
 from toyrenderer_tpu_torch.ops import bvh_cuda as BC
 from toyrenderer_tpu_torch.ops import bvh_sah as BS
+from toyrenderer_tpu_torch.ops import chunks_cuda as CC
 from toyrenderer_tpu_torch.ops import geometry as G
 from toyrenderer_tpu_torch.ops import pairs_cuda as PRC
 from toyrenderer_tpu_torch.ops import peel_cuda as PC
 from toyrenderer_tpu_torch.ops import rt_pairs as RP
 from toyrenderer_tpu_torch.ops import raster as R
 from toyrenderer_tpu_torch.ops import raster_cuda as RC
+from toyrenderer_tpu_torch.ops import rt_chunks as RT
 from toyrenderer_tpu_torch.ops import warp_cuda as WC
 from toyrenderer_tpu_torch.ops.gbuffer import pack_resolve_records
 from toyrenderer_tpu_torch.scene import load_scene
@@ -871,3 +875,48 @@ def test_streamed_frame_matches_plain_version(cuda_device, mode):
         assert (np.isfinite(fb_c) != np.isfinite(fb_p)).sum() <= (
             0.02 * both.sum()), fb_key
         ov = mgr.update(fb_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PAIR_LISTS))
+def test_chunk_fold_edge_cases(cuda_device, case):
+    """K8 on the hand-made pair lists of test_pair_fold_edge_cases over a
+    soup whose every triangle appears twice (so each pair holds equal-t
+    slots and the two-level tie rule decides), with dead rays, an
+    all-dead warp, short t_max and a live ray with a non-finite origin
+    or direction: best t and payload bit-equal to chunk_fold_plain."""
+    rng = np.random.default_rng(9)
+    n = 4000
+    v0 = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    v1 = v0 + rng.normal(0, 0.9, (n, 3)).astype(np.float32)
+    v2 = v0 + rng.normal(0, 0.9, (n, 3)).astype(np.float32)
+    tris = [torch.from_numpy(np.concatenate([v, v])).to(cuda_device)
+            for v in (v0, v1, v2)]
+    bvh = B.build_bvh(*tris, torch.ones(2 * n, dtype=torch.bool,
+                                        device=cuda_device))
+    _, data = RT.chunk_table(bvh)
+    counts, cap = PAIR_LISTS[case]
+    pchk, starts, n_walk = (x.to(cuda_device) for x in pair_list(
+        counts, cap, data.shape[0], seed=len(case)))
+    nb = len(counts)
+    g = torch.Generator(device='cpu').manual_seed(3)
+    o = torch.rand(nb, RT.BLOCK, 3, generator=g) * 8 - 4
+    d = torch.randn(nb, RT.BLOCK, 3, generator=g)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    t_max = torch.where(torch.rand(nb, RT.BLOCK, 1, generator=g) < 0.2,
+                        2.0, 1e4)
+    live = (torch.rand(nb, RT.BLOCK, 1, generator=g) > 0.15).float()
+    live[0, 64:96] = 0.0
+    o[0, 5, 1] = float('inf')
+    d[nb - 1, 40, 2] = float('nan')
+    live[0, 5] = live[nb - 1, 40] = 1.0
+    rays = torch.cat([o, d, t_max, live], -1).to(cuda_device).contiguous()
+    before = dict(BC.launches_by_kernel)
+    got = CC.launch(rays, data, pchk, starts, n_walk)
+    torch.cuda.synchronize()
+    assert BC.launches_by_kernel == dict(before, K8=before['K8'] + 1)
+    want = RT.chunk_fold_plain(rays, data, pchk, starts, n_walk)
+    assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
+    assert torch.equal(got[1], want[1]), int((got[1] != want[1]).sum())
+    if int(n_walk.sum()):
+        assert bool(torch.isfinite(got[0]).any())

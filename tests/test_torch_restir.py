@@ -14,7 +14,8 @@ material is emissive):
   The reference traces on the CPU with its XLA lockstep walk, cut at
   max_steps=64; the port's walk is not cut, so a further test holds the
   two walks' hits equal on the view's visibility rays.
-* With TR_RT_CHUNKS=1 the port raises, naming its ROADMAP item.
+* With TR_RT_CHUNKS=1 (the chunk route in both packages), the same
+  three frames, to the same tolerances.
 """
 
 import numpy as np
@@ -120,6 +121,14 @@ def test_restir_di_matches_reference(stress):
                          in ('wp', 'normal', 'albedo', 'hit')),
                          torch.tensor(0, dtype=torch.int32))
     assert probe[0].shape == (H, W, 3)
+    hold_restir_frames(stress, jl, tl)
+
+
+def hold_restir_frames(stress, jl, tl):
+    """Three frames of restir_di in both packages, the reservoir threaded
+    and spatial reuse on: radiance within 1e-4 relative, reservoirs
+    equal (light ids exactly)."""
+    s = stress['surf']
     jres = {k: jnp.zeros((H, W), jnp.int32 if k == 'li' else jnp.float32)
             for k in ('li', 'r1', 'r2', 'w', 'm')}
     tres = {k: torch.from_numpy(np.array(v)) for k, v in jres.items()}
@@ -181,11 +190,10 @@ def test_restir_visibility_rays_match_reference_walk(stress):
     assert 0.01 < float(out['hit'].float().mean()) < 0.99
 
 
-def test_restir_chunked_route_raises(stress, monkeypatch):
-    _, tl = _lights(stress)
-    s = stress['surf']
+def test_restir_chunked_route_matches_reference(stress, monkeypatch):
+    """With TR_RT_CHUNKS=1 the visibility rays take the chunk route in
+    both packages (K8's plain fold here): the same frames, with the
+    tolerances of test_restir_di_matches_reference."""
+    jl, tl = _lights(stress)
     monkeypatch.setenv('TR_RT_CHUNKS', '1')
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        TR.restir_di(stress['tbvh'], tl, *(torch.from_numpy(s[k]) for k in
-                                          ('wp', 'normal', 'albedo', 'hit')),
-                     torch.tensor(0, dtype=torch.int32))
+    hold_restir_frames(stress, jl, tl)

@@ -90,18 +90,21 @@ def test_png_decodes_courtyard_textures_like_pil():
         np.testing.assert_array_equal(decode_png(raw), want)
 
 
-def _encode_png(img: np.ndarray, filters, color_type: int,
-                depth: int = 8, interlace: int = 0) -> bytes:
-    """Minimal PNG writer applying the given per-row filter types."""
-    h, w, ch = img.shape
-    data = img.astype(np.int32)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def _filter_rows(data: np.ndarray, filters, bpp: int, row0: int = 0):
+    """Filtered scanlines of (H, row bytes) bytes, row y with filter type
+    filters[(row0 + y) % len(filters)]; bpp: the bytes a filter steps."""
+    data = data.astype(np.int32)
     rows = []
-    for y in range(h):
-        f = filters[y % len(filters)]
-        cur = data[y].reshape(-1)
-        up = data[y - 1].reshape(-1) if y else np.zeros_like(cur)
-        left = np.concatenate([np.zeros(ch, np.int32), cur[:-ch]])
-        ul = np.concatenate([np.zeros(ch, np.int32), up[:-ch]])
+    for y in range(data.shape[0]):
+        f = filters[(row0 + y) % len(filters)]
+        cur = data[y]
+        up = data[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
         if f == 0:
             out = cur
         elif f == 1:
@@ -117,12 +120,46 @@ def _encode_png(img: np.ndarray, filters, color_type: int,
                             np.where(pb <= pc, up, ul))
             out = cur - pred
         rows.append(bytes([f]) + (out & 0xFF).astype(np.uint8).tobytes())
+    return rows
+
+
+def _pack_rows(img: np.ndarray, depth: int) -> np.ndarray:
+    """Samples (H, W, C) -> (H, row bytes) u8 at `depth` bits a sample."""
+    h, w, ch = img.shape
+    flat = img.reshape(h, w * ch).astype(np.uint16)
+    if depth == 16:
+        return np.stack([flat >> 8, flat & 0xFF], -1).reshape(
+            h, -1).astype(np.uint8)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    bits = ((flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1)
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1)
+
+
+def _encode_png(img: np.ndarray, filters, color_type: int,
+                depth: int = 8, interlace: int = 0, chunks=()) -> bytes:
+    """Minimal PNG writer: samples (H, W, C) (u16 at depth 16) packed at
+    `depth` bits, each scanline with the given filter types in turn; the
+    seven Adam7 passes when `interlace`; `chunks` ((kind, data), e.g.
+    PLTE and tRNS) before IDAT."""
+    h, w, ch = img.shape
+    bpp = max(1, ch * depth // 8)
+    if interlace:
+        rows, n = [], 0
+        for r0, c0, dr, dc in _ADAM7:
+            sub = img[r0::dr, c0::dc]
+            if sub.size:
+                rows += _filter_rows(_pack_rows(sub, depth), filters, bpp, n)
+                n += sub.shape[0]
+    else:
+        rows = _filter_rows(_pack_rows(img, depth), filters, bpp)
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
     head = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, interlace)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", head)
+            + b"".join(chunk(k, d) for k, d in chunks)
             + chunk(b"IDAT", zlib.compress(b"".join(rows)))
             + chunk(b"IEND", b""))
 
@@ -139,21 +176,44 @@ def test_png_all_five_filters_match_pil(channels, color_type):
     np.testing.assert_array_equal(got[..., :channels], img)
 
 
-@pytest.mark.parametrize("kw", [dict(color_type=3), dict(depth=16),
-                                dict(interlace=1), dict(color_type=0)])
-def test_png_rejects_unsupported_kinds(kw):
-    img = np.zeros((4, 4, 4), np.uint8)
-    raw = _encode_png(img, [0], **{**dict(color_type=6), **kw})
-    with pytest.raises(PngError):
-        decode_png(raw)
+@pytest.mark.parametrize("kw", [
+    dict(color_type=3, chunks=((b"PLTE", bytes(range(48))),)),
+    dict(depth=16), dict(interlace=1), dict(color_type=0)],
+    ids=["palette", "16-bit", "interlaced", "grey"])
+def test_png_kinds_match_pil(kw):
+    """The kinds the decoder once refused: palette, 16-bit, interlaced
+    and grey, at Pillow's convert("RGBA"), bit for bit (every kind:
+    tests/test_torch_image_kinds.py)."""
+    kw = {**dict(color_type=6), **kw}
+    rng = np.random.default_rng(11)
+    ch = {0: 1, 3: 1, 6: 4}[kw['color_type']]
+    hi = {3: 16, 0: 256}.get(kw['color_type'], 1 << kw.get('depth', 8))
+    img = rng.integers(0, hi, size=(13, 9, ch)).astype(
+        np.uint16 if kw.get('depth') == 16 else np.uint8)
+    raw = _encode_png(img, [0, 1, 2, 3, 4], **kw)
+    want = np.asarray(Image.open(io.BytesIO(raw)).convert("RGBA"))
+    np.testing.assert_array_equal(decode_png(raw), want)
 
 
-def test_texture_loader_raises_on_dds():
+def test_texture_loader_decodes_dds():
+    """A DDS texture (RGBA8, legacy header) decodes as the reference's
+    loader decodes it (scene/dds.py, its copy)."""
+    from toyrenderer_tpu.scene.dds import load_dds
     from toyrenderer_tpu_torch.scene.gltf import GltfTexture
     from toyrenderer_tpu_torch.scene.textures import _decode_image
-    tex = GltfTexture(uri=None, image_bytes=b"DDS " + bytes(124))
-    with pytest.raises(NotImplementedError, match="DDS"):
-        _decode_image(tex)
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, size=(8, 16, 4), dtype=np.uint8)
+    head = np.zeros(31, np.uint32)
+    head[0], head[1], head[2], head[3] = 124, 0x100F, 8, 16
+    head[18] = 32                                  # pixel format size
+    head[20], head[22] = 0x41, 32                  # RGB | alpha, 32 bits
+    head[23:27] = (0xFF, 0xFF00, 0xFF0000, 0xFF000000)
+    raw = b"DDS " + head.tobytes() + img.tobytes()
+    want = load_dds(raw)
+    got = _decode_image(GltfTexture(uri=None, image_bytes=raw))
+    assert isinstance(got, list) and len(got) == len(want) == 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[0], img)
 
 
 def test_port_imports_nothing_of_jax_or_the_reference():

@@ -167,9 +167,34 @@ def test_trace_shadow_mask_matches_reference(surface):
         _agree(got, want)
         lit_side = (depth > 0) & ((n * to_light).sum(-1) > 0)
         assert 0.0 < got[lit_side].mean() < 1.0    # some lit, some shadowed
-    with pytest.raises(NotImplementedError):
-        TS.trace_shadow_mask(tb, t(wp), t(n), t(depth > 0), t(to_light),
-                             torch.tensor(0, dtype=torch.int32), gdir=True)
+    # the strip layout (TR_SHADOW_GDIR=1: one cone sample per 64x2 strip,
+    # traced through the grouped-direction route) against the
+    # reference's, read from the switch in both packages
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TR_SHADOW_GDIR", "1")
+    try:
+        want = np.asarray(JS.trace_shadow_mask(
+            jb, jnp.asarray(wp), jnp.asarray(n), jnp.asarray(depth > 0),
+            jnp.asarray(to_light), jnp.asarray(3, jnp.int32),
+            max_steps=4096))
+        got = TS.trace_shadow_mask(
+            tb, t(wp), t(n), t(depth > 0), t(to_light),
+            torch.tensor(3, dtype=torch.int32)).numpy()
+    finally:
+        mp.undo()
+    _agree(got, want)
+    per_px = TS.trace_shadow_mask(tb, t(wp), t(n), t(depth > 0), t(to_light),
+                                  torch.tensor(3, dtype=torch.int32),
+                                  gdir=False).numpy()
+    # the reference's own bound (tests/test_shadows.py:185-191): the
+    # strip noise moves < 5% of the pixels against the per-pixel cone
+    assert (got != per_px).mean() < 0.05
+    # at half_angle=0 both layouts trace the sun direction itself
+    flat = [TS.trace_shadow_mask(tb, t(wp), t(n), t(depth > 0), t(to_light),
+                                 torch.tensor(3, dtype=torch.int32),
+                                 half_angle=0.0, gdir=g).numpy()
+            for g in (False, True)]
+    np.testing.assert_array_equal(flat[0], flat[1])
 
 
 def _jax_half_res_raw(jb, fi, depth, n, frame, checkerboard):

@@ -64,7 +64,7 @@ from toyrenderer_tpu_torch.ops import shadowmap
 from toyrenderer_tpu_torch.ops import shadows as shadows_mod
 from toyrenderer_tpu_torch.ops import sky as sky_mod
 from toyrenderer_tpu_torch.ops.bvh import (
-    build_bvh, check_main_tree_switch, refit_bvh, world_triangles)
+    build_bvh, refit_bvh, world_triangles)
 from toyrenderer_tpu_torch.ops.bvh_sah import RtStaticSah, refit_sah
 from toyrenderer_tpu_torch.ops.denoise import depth_aware_blur, denoise_shadow
 from toyrenderer_tpu_torch.ops.gbuffer import (
@@ -342,8 +342,9 @@ def _pair_streams(pair_inst, pair_meshlet, rt_static, rt_static_gi,
     return rt, gi
 
 
-def _refit_gi(rts, inst_world):
-    """The GI tree refit from its topology (SAH or complete)."""
+def _refit_tree(rts, inst_world):
+    """A tree refit from its topology, SAH or complete (reference
+    package, frame.py:420-427): the main tree's and the GI tree's."""
     if isinstance(rts, RtStaticSah):
         return refit_sah(rts, inst_world)
     return refit_bvh(rts, inst_world)
@@ -352,7 +353,7 @@ def _refit_gi(rts, inst_world):
 def _gi_build(scene, rts_gi, streams, inst_world):
     """(the GI tree, its shade records): payloads index the GI pair
     stream."""
-    tree = _refit_gi(rts_gi, inst_world)
+    tree = _refit_tree(rts_gi, inst_world)
     v0, v1, v2, _ = world_triangles(scene, inst_world, *streams)
     shade = ddgi_mod.build_shade_records(scene, *streams, v0, v1, v2)
     return tree, shade
@@ -441,7 +442,7 @@ def init_carry(scene, settings: RenderSettings, ddgi_volume=None,
     pairs_on = ddgi_mod._gi_pairs_enabled()
     eye = carry['prev_inst_world']
     if needs_rt and rt_static is not None:
-        tree = refit_bvh(rt_static, eye)
+        tree = _refit_tree(rt_static, eye)
         carry['rt_bvh_cache'] = _zeros_like(tree)
         if settings.enable_gi and not gi_own_tree and pairs_on:
             carry['gi_mt_cache'] = _zeros_like(mt_tables(tree))
@@ -824,8 +825,10 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     place of settings.raster_config(), for the same width and height;
     mask_raster_cfg / trans_raster_cfg: the masked set's and the blend
     set's, each sized for its set (default: raster_cfg).
-    rt_static: the static RT topology (ops/bvh.build_rt_static over the
-    RT pair list, the masked set appended), for RT shadows, ReSTIR's
+    rt_static: the static RT topology over the RT pair list, the masked
+    set appended -- the complete tree of ops/bvh.build_rt_static or the
+    SAH tree of ops/bvh_sah.build_rt_static_sah (both from
+    bvh_sah.build_rt_static_auto, by TR_RT_SAH) --, for RT shadows, ReSTIR's
     visibility rays and GI when it has no tree of its own; the frame
     refits it (with the carry's rt_bvh_cache: only when an instance
     moved).  Without it those rebuild the tree every frame
@@ -906,8 +909,6 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
     """render_frame's body: its arguments, with the ranges `passes`,
     which render_frame closes whether or not the frame raises."""
     check_settings(settings)
-    if rt_static is not None:
-        check_main_tree_switch()
     needs_rays, gi_own_tree, needs_rt, gi_sun_map, _ = _tree_needs(
         settings, rt_static_gi)
     if settings.enable_gi and ddgi_volume is None:
@@ -1090,7 +1091,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
         if current('rt', 'rt_bvh_cache'):
             bvh = carry['rt_bvh_cache']
         else:
-            bvh = refit_bvh(rt_static, inst_world)
+            bvh = _refit_tree(rt_static, inst_world)
             mark('rt', 'rt_bvh_cache')
             if 'rt_bvh_cache' in carry:
                 new_carry['rt_bvh_cache'] = bvh

@@ -28,7 +28,6 @@ The traversal (K3) is ops/bvh_cuda.py.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -37,17 +36,6 @@ import torch
 LEAF_TRIS = 12
 ARITY = 8
 _BIG = 3e37             # empty-box sentinel (far point once sealed)
-
-
-def check_main_tree_switch():
-    """The reference's TR_RT_SAH=1 puts the main RT tree (shadow rays,
-    the sun map's masked keep) on an SAH tree (its
-    bvh_sah.build_rt_static_auto, bvh_sah.py:438-460); the port's frame
-    refits only the complete tree."""
-    if os.environ.get('TR_RT_SAH', '0') == '1':
-        raise NotImplementedError(
-            "TR_RT_SAH=1 (an SAH main RT tree): not ported yet (ROADMAP "
-            "queue 1 item 7)")
 
 
 @dataclass

@@ -60,10 +60,10 @@ _EPS_DIR = 1e-12
 # launches of the CUDA kernels since the last reset, by the TPU kernel
 # each flavour replaces (K3: the complete tree, K3-SAH: the SAH tree, K5:
 # grouped directions on either tree, K3-seeded: seeded packets on the
-# complete tree; K6: the pair route's fold, ops/pairs_cuda.py); the plain
-# versions never count
+# complete tree; K6: the pair route's fold, ops/pairs_cuda.py; K8: the
+# chunk route's fold, ops/chunks_cuda.py); the plain versions never count
 launches_by_kernel = {'K3': 0, 'K3-SAH': 0, 'K5': 0, 'K3-seeded': 0,
-                      'K6': 0}
+                      'K6': 0, 'K8': 0}
 
 
 def reset_launches():
@@ -401,19 +401,23 @@ def traverse_auto(bvh, origins, directions, t_max, any_hit: bool = False,
     direction kernel when N is a multiple of 128, as the reference does;
     otherwise the per-ray `directions` are traced.  `pairs` routes to
     the pair route (ops/rt_pairs.traverse_pairs, K6) with `pair_tables`
-    (its mt_tables, built by the caller once per refit).  The reference
+    (its mt_tables, built by the caller once per refit); `chunked` to the
+    chunk route (ops/rt_chunks.traverse_chunks, K8), which builds its
+    chunk table, and takes precedence over `pairs`, as the reference's
+    probe trace gives it (its ddgi.py:665, 718-730).  The reference
     takes the pair route only on the TPU (or in interpret mode) and
     falls through to its lockstep traversal elsewhere; the port takes
-    its accelerator branch on every device, so on the CPU the pair route
-    runs its plain fold.  `max_steps` is accepted and, as for the
-    reference's kernel, does not bound the walk.  The reference's other
-    routes are not ported yet and raise, naming their ROADMAP item."""
-    for on, what in (
-            (sp_mesh is not None, "sp_mesh (multi-device rays): ROADMAP "
-             "queue 1 item 10"),
-            (chunked, "chunked (ops/rt_chunks.py): ROADMAP queue 1 item 7")):
-        if on:
-            raise NotImplementedError(f"traverse_auto {what}")
+    its accelerator branch on every device, so on the CPU the routes run
+    their plain folds.  `max_steps` is accepted and, as for the
+    reference's kernel, does not bound the walk.  `sp_mesh` (multi-device
+    rays) is not ported yet and raises, naming its ROADMAP item."""
+    if sp_mesh is not None:
+        raise NotImplementedError("traverse_auto sp_mesh (multi-device "
+                                  "rays): ROADMAP queue 1 item 10")
+    if chunked:
+        from toyrenderer_tpu_torch.ops import rt_chunks
+        return rt_chunks.traverse_chunks(bvh, origins, directions, t_max,
+                                         any_hit=any_hit, live=live)
     if pairs:
         from toyrenderer_tpu_torch.ops import rt_pairs
         return rt_pairs.traverse_pairs(bvh, origins, directions, t_max,

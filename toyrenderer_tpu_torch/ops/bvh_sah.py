@@ -254,6 +254,21 @@ def build_rt_static_sah(scene_host, pair_inst, pair_meshlet,
         depth_ranges=tuple(ranges), n_mask_pairs=n_mask)
 
 
+def build_rt_static_auto(scene_host, pair_inst, pair_meshlet,
+                         rest_inst_world=None, mask_pair_inst=None,
+                         mask_pair_meshlet=None, device=None):
+    """The main RT tree's frozen topology (reference bvh_sah.py:438):
+    the SAH tree with TR_RT_SAH=1, else the complete tree of
+    ops/bvh.build_rt_static.  The reference builds the SAH tree only on
+    the TPU, because its SAH walk is a Pallas kernel; the port takes
+    that branch on every device."""
+    build = (build_rt_static_sah if os.environ.get('TR_RT_SAH', '0') == '1'
+             else build_rt_static)
+    return build(scene_host, pair_inst, pair_meshlet, rest_inst_world,
+                 mask_pair_inst=mask_pair_inst,
+                 mask_pair_meshlet=mask_pair_meshlet, device=device)
+
+
 def gi_sah_wanted() -> bool:
     """TR_GI_SAH: '1' (the default) builds the GI tree with SAH, any
     other value the complete tree (reference bvh_sah.py:489)."""

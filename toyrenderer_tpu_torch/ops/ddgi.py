@@ -15,21 +15,24 @@ test.  Shading samples the field trilinearly with backface and
 Chebyshev-visibility weights.
 
 The rays run through ops/bvh_cuda.traverse_auto (K3-SAH on the GI tree,
-K3 on the complete tree), laid out in cones (16 neighbouring directions
-x a brick of probes), or with TR_GI_GDIR=1 in 32-direction x 128-probe
+K3 on the complete tree), laid out in cones (TR_CONE_DIRS neighbouring
+directions, 16 by default, x a brick of at most TR_CONE_BRICK probes,
+256 by default), or with TR_GI_GDIR=1 in 32-direction x 128-probe
 blocks whose every 128 rays share a direction, for the grouped-direction
-kernel K5, or with TR_GI_PAIRS=1 direction-major, 128 probes of one
-direction to a block, through the pair route (ops/rt_pairs.py, K6),
-whose tables trace_probe_block builds once for both of its traces.
-Texel updates are small matrix products.  Probe textures are dense
-(P, T, C) tensors in the frame's carry.  A phased block is addressed
-with index tensors, so nothing here waits on the host.
+kernel K5, or direction-major, 128 probes of one direction to a block,
+with TR_RT_CHUNKS=1 through the chunk route (ops/rt_chunks.py, K8) or
+with TR_GI_PAIRS=1 through the pair route (ops/rt_pairs.py, K6), whose
+tables trace_probe_block builds once for both of its traces; the chunk
+route takes precedence, as in the reference.  Texel updates are small
+matrix products.  Probe textures are dense (P, T, C) tensors in the
+frame's carry.  A phased block is addressed with index tensors, so
+nothing here waits on the host.
 
-`visualize_probes` draws the probe overlay.  Not ported, each raising
-NotImplementedError naming its ROADMAP item: the block-pair route
-(TR_RT_CHUNKS=1), the corner-packed visibility fetch (TR_GI_VIS_PACK=1),
-cone layouts other than the default (TR_CONE_DIRS / TR_CONE_BRICK) and
-the unphased `trace_probes`.
+`trace_probes` traces the whole volume at once (the reference's unphased
+trace); the frame traces a block a frame with `trace_probe_block`.  With
+TR_GI_VIS_PACK=1 the sampler fetches the 8 corners' distance moments at
+one shared texel (`_sample`).  `visualize_probes` draws the probe
+overlay.  Every switch is read at call time.
 """
 
 from __future__ import annotations
@@ -52,10 +55,10 @@ DIST_RES = 16         # distance texels per probe side
 VAR_WINDOW = 16       # kMinimumVariabilitySamples (GIRenderer.cpp:162)
 HYSTERESIS = 0.5      # GIRenderer.cpp:115
 
-# the cone layout: CONE_DIRS neighbouring directions x a brick of at most
-# CONE_BRICK probes per block of the ray stream (it groups similar rays
-# so a warp walks the tree coherently; a ray's result does not depend on
-# its slot)
+# the default cone layout: CONE_DIRS neighbouring directions x a brick of
+# at most CONE_BRICK probes per block of the ray stream (it groups similar
+# rays so a warp walks the tree coherently; a ray's result does not depend
+# on its slot); TR_CONE_DIRS / TR_CONE_BRICK change it (cone_layout)
 CONE_DIRS = 16
 CONE_BRICK = 256
 # the gdir layout: 32 cone directions x 128 probes, so every 128
@@ -169,28 +172,22 @@ def _gi_pairs_enabled() -> bool:
     return os.environ.get('TR_GI_PAIRS', '0') == '1'
 
 
-def check_cone_layout():
-    """The reference reads its cone layout from TR_CONE_DIRS /
-    TR_CONE_BRICK (its ddgi.py:137-139); the port has only the default
-    16 x 256."""
-    for var, want in (('TR_CONE_DIRS', CONE_DIRS),
-                      ('TR_CONE_BRICK', CONE_BRICK)):
-        got = os.environ.get(var)
-        if got is not None and int(got) != want:
-            raise NotImplementedError(
-                f"{var}={got} (a cone layout other than {CONE_DIRS} "
-                f"directions x {CONE_BRICK} probes): not ported yet "
-                "(ROADMAP queue 1 item 7)")
+def _gi_chunks_enabled() -> bool:
+    """TR_RT_CHUNKS=1: the probe rays take the chunk route (K8), read at
+    call time as the reference reads it (ddgi.py:190-197)."""
+    return os.environ.get('TR_RT_CHUNKS', '0') == '1'
 
 
-def _check_routes():
-    """The reference's opt-in probe-ray routes and layouts that are not
-    ported."""
-    if os.environ.get('TR_RT_CHUNKS', '0') == '1':
-        raise NotImplementedError(
-            "TR_RT_CHUNKS=1 (the block-pair traversal): not ported yet "
-            "(ROADMAP queue 1 item 7)")
-    check_cone_layout()
+def _gi_vis_pack_enabled() -> bool:
+    return os.environ.get('TR_GI_VIS_PACK', '0') == '1'
+
+
+def cone_layout() -> tuple[int, int]:
+    """(directions per cone, the largest brick of probes): TR_CONE_DIRS
+    and TR_CONE_BRICK, 16 and 256 when unset (the reference reads them
+    once, at import: its ddgi.py:137-139)."""
+    return (int(os.environ.get('TR_CONE_DIRS', str(CONE_DIRS))),
+            int(os.environ.get('TR_CONE_BRICK', str(CONE_BRICK))))
 
 
 def _cone_block(x, r: int, pbp: int, brick: int, dirs: int):
@@ -209,10 +206,12 @@ def _cone_unblock(x, r: int, pbp: int, brick: int, dirs: int):
 
 def _brick_for(pb: int) -> int:
     """The smallest multiple of 32 (at least 64) that covers pb probes in
-    ceil(pb / CONE_BRICK) bricks: padding wastes < 32 probes a brick."""
-    nb = -(-pb // CONE_BRICK)
+    ceil(pb / brick) bricks, at most the layout's brick (cone_layout):
+    padding wastes < 32 probes a brick."""
+    cone_brick = cone_layout()[1]
+    nb = -(-pb // cone_brick)
     per = -(-pb // nb)
-    return min(CONE_BRICK, max(64, -(-per // 32) * 32))
+    return min(cone_brick, max(64, -(-per // 32) * 32))
 
 
 def _frame_rotation(frame_index) -> torch.Tensor:
@@ -243,11 +242,62 @@ def _oct_texel_dirs(res: int, device) -> torch.Tensor:
 
 # -- tracing ------------------------------------------------------------------
 
-def trace_probes(*args, **kwargs):
-    """The unphased probe trace: no caller in the frame, not ported."""
-    raise NotImplementedError(
-        "ddgi.trace_probes (the unphased trace; the frame uses "
-        "trace_probe_block): not ported yet (ROADMAP queue 1 item 7)")
+def _probe_route() -> dict:
+    """traverse_auto's route switches for the probe rays: the chunk route
+    with TR_RT_CHUNKS=1, else the pair route with TR_GI_PAIRS=1 (the
+    reference's precedence, its ddgi.py:280-281, 665)."""
+    chunks = _gi_chunks_enabled()
+    return dict(chunked=chunks, pairs=_gi_pairs_enabled() and not chunks)
+
+
+def trace_probes(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
+                 sun_dir_to_light, sun_color, sun_intensity, frame_index,
+                 sky_fn, max_steps: int = 64, sun_vis_fn=None,
+                 sp_mesh=None):
+    """Trace rays_per_probe rays from every probe (the reference's
+    unphased trace, its ddgi.py:252-323): direction-major, closest hit
+    through traverse_auto (the chunk or pair route when their switches
+    are on), each hit shaded by the sun (an any-hit shadow ray, or
+    `sun_vis_fn(points)`), its emission and the previous field's
+    irradiance.  Returns (radiance (P, R, 3), distance (P, R),
+    directions (R, 3))."""
+    dev = prev_irradiance.device
+    p = volume.num_probes
+    r = volume.rays_per_probe
+    dirs = (torch.from_numpy(_fibonacci_sphere(r)).to(dev)
+            @ _frame_rotation(frame_index).T)
+    pos = volume.probe_positions(dev)
+    origins = pos.repeat(r, 1)                         # (R * P, 3)
+    d_all = dirs.repeat_interleave(p, dim=0)
+    route = _probe_route()
+    res = traverse_auto(bvh, origins, d_all.contiguous(),
+                        t_max=volume.max_ray_distance, max_steps=max_steps,
+                        sp_mesh=sp_mesh, **route)
+    hit, t = res['hit'], res['t']
+    rec = shade_rec[torch.clamp(res['tri'], min=0).long()]
+    n_w, albedo, emissive = rec[:, 0:3], rec[:, 3:6], rec[:, 6:9]
+    # two-sided shading normal (probe rays hit backfaces too)
+    n_w = torch.where(torch.sum(n_w * d_all, -1, keepdim=True) > 0, -n_w,
+                      n_w)
+    hit_pos = origins + d_all * t[:, None]
+    if sun_vis_fn is not None:
+        sun_vis = sun_vis_fn(hit_pos + n_w * 1e-2)
+    else:
+        sh = traverse_auto(bvh, (hit_pos + n_w * 1e-2).contiguous(),
+                           sun_dir_to_light.expand(hit_pos.shape)
+                           .contiguous(), t_max=1e4, max_steps=max_steps,
+                           any_hit=True, sp_mesh=sp_mesh, **route)
+        sun_vis = 1.0 - sh['hit'].to(torch.float32)
+    ndotl = torch.clamp(torch.sum(n_w * sun_dir_to_light, -1), min=0.0)
+    direct = (albedo / math.pi) * (ndotl * sun_vis)[:, None] * (
+        sun_color * sun_intensity)
+    bounce = sample_irradiance(volume, prev_irradiance, hit_pos,
+                               n_w) * albedo / math.pi
+    radiance = torch.where(hit[:, None], direct + emissive + bounce,
+                           sky_fn(d_all))
+    dist = torch.where(hit, t, 1e4)
+    return (radiance.reshape(r, p, 3).transpose(0, 1),
+            dist.reshape(r, p).T, dirs)
 
 
 def visualize_probes(hdr, depth, volume: DdgiVolume, irradiance,
@@ -347,11 +397,12 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
     Inactive probes keep only FIXED_RAYS live rays.  Returns (radiance
     (Pb, R, 3), distance (Pb, R), directions (R, 3), block start (an
     int64 tensor scalar), the lifecycle's inputs for
-    update_probe_block).  With TR_GI_PAIRS=1 both traces take the pair
+    update_probe_block).  With TR_RT_CHUNKS=1 both traces take the chunk
+    route in direction-major order (the cone layout still orders the
+    directions and pads the block); else with TR_GI_PAIRS=1 the pair
     route, with `pair_tables` (rt_pairs.mt_tables of `bvh`, built here
     for both traces when None), in direction-major order with the block
     padded to whole 128-probe blocks."""
-    _check_routes()
     dev = prev_irradiance.device
     p = volume.num_probes
     pb = -(-p // num_phases)
@@ -361,10 +412,12 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
 
     r = volume.rays_per_probe
     base = _fibonacci_sphere(r)
-    use_pairs = _gi_pairs_enabled()
+    route = _probe_route()
+    use_pairs = route['pairs']
     if use_pairs and pair_tables is None:
         pair_tables = mt_tables(bvh)
-    cone_ok = r % CONE_DIRS == 0 and not use_pairs
+    cone_dirs = cone_layout()[0]
+    cone_ok = r % cone_dirs == 0 and not use_pairs
     if cone_ok:
         base = base[_cone_order(r)]
     dirs = torch.from_numpy(base).to(dev) @ _frame_rotation(frame_index).T
@@ -375,7 +428,7 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
     state = (probe_state[blk] if probe_state is not None
              else torch.ones(pb, device=dev))
     use_gdir = cone_ok and r % GDIR_DIRS == 0 and _gi_gdir_enabled()
-    ndirs = GDIR_DIRS if use_gdir else CONE_DIRS
+    ndirs = GDIR_DIRS if use_gdir else cone_dirs
     brick = GDIR_BRICK if use_gdir else _brick_for(pb)
     if cone_ok:
         pbp = -(-pb // brick) * brick
@@ -394,10 +447,10 @@ def trace_probe_block(volume: DdgiVolume, bvh, shade_rec, prev_irradiance,
             * pad_live.repeat(r))
 
     def trace(o, d, lv, **kw):
-        if use_pairs:
+        if use_pairs or route['chunked']:
             return traverse_auto(bvh, o.contiguous(), d.contiguous(),
-                                 live=lv, sp_mesh=sp_mesh, pairs=True,
-                                 pair_tables=pair_tables, **kw)
+                                 live=lv, sp_mesh=sp_mesh,
+                                 pair_tables=pair_tables, **route, **kw)
         if not cone_ok:
             return traverse_auto(bvh, o.contiguous(), d.contiguous(),
                                  live=lv, sp_mesh=sp_mesh, **kw)
@@ -589,14 +642,13 @@ def sample_irradiance_visibility(volume: DdgiVolume, irradiance, distance,
     """Trilinear x backface x Chebyshev-visibility irradiance (..., 3).
     probe_offset: (P, 3) relocation offsets (the weights measure from the
     relocated probes).  vis_pool > 1 (image-shaped inputs): each corner's
-    visibility factor is evaluated vis_pool x coarser and expanded."""
-    if vis_pack or (vis_pack is None
-                    and os.environ.get('TR_GI_VIS_PACK', '0') == '1'):
-        raise NotImplementedError(
-            "TR_GI_VIS_PACK=1 (the corner-packed visibility fetch): not "
-            "ported yet (ROADMAP queue 1 item 7)")
+    visibility factor is evaluated vis_pool x coarser and expanded.
+    vis_pack (None: TR_GI_VIS_PACK=1): the 8 corners' distance moments
+    are fetched at one shared texel, the direction from the cell centre
+    (see _sample)."""
     return _sample(volume, irradiance, distance, world_pos, normal,
-                   probe_offset=probe_offset, vis_pool=vis_pool)
+                   probe_offset=probe_offset, vis_pool=vis_pool,
+                   vis_pack=vis_pack)
 
 
 def mean_pool(x, f: int):
@@ -607,14 +659,18 @@ def mean_pool(x, f: int):
 
 
 def _sample(volume, irradiance, distance, world_pos, normal,
-            probe_offset=None, vis_pool: int = 1, _vis_only: bool = False):
+            probe_offset=None, vis_pool: int = 1, _vis_only: bool = False,
+            vis_pack=None):
     """The probe sampler.  The 8 trilinear corners' probe ids differ from
     the base probe's by fixed strides and share one octahedral texel, so
     the irradiance is fetched as one row of an (P * 64, 8) table of
     RGB9E5-packed corners, and the relocation offsets as one (P, 16) row
     of f16 pairs; distance moments stay per corner (each corner's texel
-    is the direction to that corner) as one f16 pair each.  With
-    _vis_only, returns the 8 visibility factors (..., 8)."""
+    is the direction to that corner) as one f16 pair each, or with
+    vis_pack (None: TR_GI_VIS_PACK=1) as one row of a (P * 256, 8)
+    corner-packed table at the texel of the direction from the cell's
+    centre to the point, shared by the 8 corners.  With _vis_only,
+    returns the 8 visibility factors (..., 8)."""
     shape = world_pos.shape[:-1]
     dev = world_pos.device
     vis_coarse = None
@@ -627,10 +683,13 @@ def _sample(volume, irradiance, distance, world_pos, normal,
                                                          keepdim=True),
                                 min=1e-6)
         vis = _sample(volume, None, distance, wp_c, n_c,
-                      probe_offset=probe_offset, _vis_only=True)
+                      probe_offset=probe_offset, _vis_only=True,
+                      vis_pack=vis_pack)
         vis_coarse = vis.repeat_interleave(vis_pool, 0).repeat_interleave(
             vis_pool, 1).reshape(-1, 8)
         distance = None                       # the corner loop reads it
+    if vis_pack is None:
+        vis_pack = _gi_vis_pack_enabled()
     wp = world_pos.reshape(-1, 3)
     n = normal.reshape(-1, 3)
     origin = torch.tensor(volume.origin, dtype=torch.float32, device=dev)
@@ -676,7 +735,21 @@ def _sample(volume, irradiance, distance, world_pos, normal,
             dim=-1)                                    # (P, 16)
         off_rows = off_pack[base_pid]
     if distance is not None:
-        dist_pack = P.pack_half2_u32(distance).reshape(-1)   # (P * 256,)
+        dist_pack = P.pack_half2_u32(distance)              # (P, 256)
+        if vis_pack:
+            # the 8 corners' moments at the texel of the direction from
+            # the cell centre: one row gather
+            dist8 = torch.stack([dist_pack[corner_rows(s)] for s in strides],
+                                -1).reshape(p_n * DIST_RES * DIST_RES, 8)
+            dc = origin + (g0.to(torch.float32) + 0.5) * spacing - wp
+            dcn = dc / torch.clamp(torch.linalg.vector_norm(
+                dc, dim=-1, keepdim=True), min=1e-6)
+            ct = torch.clamp((P.oct_encode(-dcn) * DIST_RES).to(torch.int64),
+                             0, DIST_RES - 1)
+            drows = dist8[base_pid * (DIST_RES * DIST_RES)
+                          + ct[:, 1] * DIST_RES + ct[:, 0]]
+        else:
+            dist_pack = dist_pack.reshape(-1)                # (P * 256,)
 
     acc = torch.zeros((wp.shape[0], 3), device=dev)
     wacc = torch.zeros((wp.shape[0], 1), device=dev)
@@ -701,13 +774,16 @@ def _sample(volume, irradiance, distance, world_pos, normal,
                          min=0.0) ** 2 + 0.05
         w = w * wn
         if distance is not None:
-            duv = P.oct_encode(-dir_p)
-            dt = torch.clamp((duv * DIST_RES).to(torch.int64), 0,
-                             DIST_RES - 1)
-            dtex = dt[:, 1] * DIST_RES + dt[:, 0]
-            pid_k = torch.clamp(base_pid + strides[k], 0, p_n - 1)
-            d2 = P.unpack_half2_u32(
-                dist_pack[pid_k * (DIST_RES * DIST_RES) + dtex])
+            if vis_pack:
+                d2 = P.unpack_half2_u32(drows[:, k])
+            else:
+                duv = P.oct_encode(-dir_p)
+                dt = torch.clamp((duv * DIST_RES).to(torch.int64), 0,
+                                 DIST_RES - 1)
+                dtex = dt[:, 1] * DIST_RES + dt[:, 0]
+                pid_k = torch.clamp(base_pid + strides[k], 0, p_n - 1)
+                d2 = P.unpack_half2_u32(
+                    dist_pack[pid_k * (DIST_RES * DIST_RES) + dtex])
             md, md2 = d2[:, 0], d2[:, 1]
             var = torch.clamp(md2 - md * md, min=1e-6)
             cheb = var / (var + torch.clamp(dist_p - md, min=0.0) ** 2)

@@ -193,12 +193,12 @@ def unpack_keys(keys):
     return best_t, best_ord.to(torch.int32)
 
 
-def _block_boxes(o, inv, cap, live, boxes):
-    """(n, C) bool -> reduced to blocks: (n / 128, C), True where a live
+def _block_boxes(o, inv, cap, live, boxes, block: int = BLOCK):
+    """(n, C) bool -> reduced to blocks: (n / block, C), True where a live
     ray of the block enters chunk c's box before its t_max; one axis at
     a time, a tile of rays at a time."""
     n, c = o.shape[0], boxes.shape[0]
-    rows = max(BLOCK, _BOX_ELEMS // max(c, 1) // BLOCK * BLOCK)
+    rows = max(block, _BOX_ELEMS // max(c, 1) // block * block)
     out = []
     for s in range(0, n, rows):
         os_, is_ = o[s:s + rows], inv[s:s + rows]
@@ -211,8 +211,27 @@ def _block_boxes(o, inv, cap, live, boxes):
             tf = torch.minimum(tf, torch.maximum(t0, t1))
         ok = ((tf >= tn) & (tn <= cap[s:s + rows, None])
               & live[s:s + rows, None])
-        out.append(ok.reshape(-1, BLOCK, c).any(1))
+        out.append(ok.reshape(-1, block, c).any(1))
     return torch.cat(out)
+
+
+def pair_list(ok_b, pair_factor: int):
+    """The (block, chunk) pair list of a (B, C) overlap matrix, without a
+    host read: (pchk, counts, starts, overflow, pcap).  pchk (min(pcap,
+    B * C),) i32 holds the chunk of each listed pair, the overlapping
+    flat indices b * C + c in ascending order, capped at pcap =
+    pair_factor * B rounded up to 1024 (0 past the list); counts (B,)
+    each block's pairs, starts (B,) its first position in the list,
+    overflow (B,) bool whether its pairs end past the cap."""
+    b, c = ok_b.shape
+    pcap = max(-(-pair_factor * b // 1024) * 1024, 1024)
+    flat = torch.arange(b * c, device=ok_b.device)
+    keys = torch.where(ok_b.reshape(-1), flat, b * c)
+    pidx = torch.sort(keys).values[:pcap]
+    pchk = torch.where(pidx < b * c, pidx % c, 0).to(torch.int32)
+    counts = ok_b.sum(1)
+    ends = torch.cumsum(counts, 0)
+    return pchk, counts, ends - counts, ends > pcap, pcap
 
 
 def traverse_pairs(bvh, origins, directions, t_max, any_hit: bool = False,
@@ -255,16 +274,9 @@ def traverse_pairs(bvh, origins, directions, t_max, any_hit: bool = False,
         # lie inside the cap (the reference's rule: every pair of a block
         # whose list ends past the cap is completed by the fallback, and
         # only the block that straddles the cap walks part of its list)
-        pcap = max(-(-pair_factor * b // 1024) * 1024, 1024)
-        flat = torch.arange(b * c, device=dev)
-        keys = torch.where(ok_b.reshape(-1), flat, b * c)
-        pidx = torch.sort(keys).values[:pcap]
-        pchk = torch.where(pidx < b * c, pidx % c, 0).to(torch.int32)
-        counts = ok_b.sum(1)
-        ends = torch.cumsum(counts, 0)
-        starts = ends - counts
-        overflow = ends > pcap
-        n_walk = torch.clamp(torch.clamp(ends, max=pcap) - starts, min=0)
+        pchk, counts, starts, overflow, pcap = pair_list(ok_b, pair_factor)
+        n_walk = torch.clamp(torch.clamp(starts + counts, max=pcap)
+                             - starts, min=0)
     if stats is not None:
         stats.update(counts=counts, overflow=overflow, n_walk=n_walk,
                      pcap=pcap)

@@ -5,13 +5,16 @@ Counterpart of toyrenderer_tpu/ops/shadows.py (reference:
 source/ShadowMaskRenderer.cpp + shadowmask.hlsl:65-145, inline-RT shadow
 rays with blue-noise cone sampling for the soft sun): one any-hit ray
 per pixel through the tree (ops/bvh_cuda.py, K3), cone-sampled by
-interleaved-gradient noise rotated per frame.  The denoiser is
+interleaved-gradient noise rotated per frame; with TR_SHADOW_GDIR=1 one
+cone sample per 64x2 strip, so the rays trace through the grouped-
+direction kernel K5.  The denoiser is
 ops/denoise.py.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -78,10 +81,14 @@ def _from_blocks(v, h: int, w: int, blk: int = RAY_BLOCK):
     return x.transpose(1, 2).reshape(hp, wp)[:h, :w]
 
 
+def _shadow_gdir_enabled() -> bool:
+    return os.environ.get('TR_SHADOW_GDIR', '0') == '1'
+
+
 def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
                       frame_index, half_angle: float = SUN_ANGULAR_RADIUS,
                       normal_bias: float = 2e-2, t_max: float = 1e4,
-                      max_steps: int = 96, gdir: bool = False):
+                      max_steps: int = 96, gdir: bool | None = None):
     """1 spp cone-sampled sun visibility per pixel.
 
     world_pos, normal (H, W, 3), hit_mask (H, W) bool, sun_dir_to_light
@@ -89,25 +96,40 @@ def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
     from the sun are 0, sky pixels 1.  Only the rays of lit-side
     geometry trace (the others are dead rays: their value comes from
     the facing and sky terms).  max_steps is accepted; it does not bound
-    the traversal (see bvh_cuda.traverse_auto).  gdir (one cone sample
-    per 64x2 strip, for the grouped-direction kernel K5) is not ported
-    yet."""
-    if gdir:
-        raise NotImplementedError(
-            "trace_shadow_mask gdir (the sun rays' strip layout for the "
-            "grouped-direction kernel K5, TR_SHADOW_GDIR): "
-            "ROADMAP queue 1 item 7")
+    the traversal (see bvh_cuda.traverse_auto).  gdir (None: read
+    TR_SHADOW_GDIR, as the reference does): one cone sample per 64x2
+    strip of the 64x64 ray blocks, so every 128 rays share a direction
+    and trace through the grouped-direction kernel K5, its directions
+    in the `group_dirs` side table."""
     h, w = hit_mask.shape
+    if gdir is None:
+        gdir = _shadow_gdir_enabled()
     origins = world_pos + normal * normal_bias
-    r1 = interleaved_gradient_noise(h, w, frame_index)
-    r2 = interleaved_gradient_noise(h, w, frame_index + 17)
-    dirs = cone_sample(sun_dir_to_light.expand(world_pos.shape), r1, r2,
-                       half_angle)
+    gd = None
+    if gdir:
+        hp = -(-h // RAY_BLOCK) * RAY_BLOCK
+        wp = -(-w // RAY_BLOCK) * RAY_BLOCK
+        sh, sw = hp // 2, wp // RAY_BLOCK
+        r1 = interleaved_gradient_noise(sh, sw, frame_index)
+        r2 = interleaved_gradient_noise(sh, sw, frame_index + 17)
+        strips = cone_sample(sun_dir_to_light.expand(sh, sw, 3), r1, r2,
+                             half_angle)                  # (hp/2, wp/64, 3)
+        dirs = strips.repeat_interleave(2, 0).repeat_interleave(
+            RAY_BLOCK, 1)[:h, :w]
+        # strip (ty * 32 + j, tx) -> group (block-major, then row pair)
+        gd = strips.reshape(hp // RAY_BLOCK, RAY_BLOCK // 2, wp // RAY_BLOCK,
+                            3).transpose(1, 2).reshape(-1, 3).contiguous()
+    else:
+        r1 = interleaved_gradient_noise(h, w, frame_index)
+        r2 = interleaved_gradient_noise(h, w, frame_index + 17)
+        dirs = cone_sample(sun_dir_to_light.expand(world_pos.shape), r1, r2,
+                           half_angle)
     ndotl = torch.sum(normal * sun_dir_to_light, -1)
     live = _to_blocks((hit_mask & (ndotl > 0.0)).to(torch.float32))
     res = traverse_auto(bvh, _to_blocks(origins).contiguous(),
                         _to_blocks(dirs).contiguous(), t_max=t_max,
-                        max_steps=max_steps, any_hit=True, live=live)
+                        max_steps=max_steps, any_hit=True, live=live,
+                        group_dirs=gd)
     lit = 1.0 - _from_blocks(res['hit'].to(torch.float32), h, w)
     lit = torch.where(ndotl <= 0.0, 0.0, lit)
     return torch.where(hit_mask, lit, 1.0)

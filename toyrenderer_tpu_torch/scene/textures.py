@@ -2,7 +2,11 @@
 
 The port's copy of toyrenderer_tpu/scene/textures.py: the same atlas, row
 for row, so both packages sample the same texels.  Images decode with the
-port's own PNG reader (scene/png.py); an image it cannot decode raises.
+port's own readers -- DDS (scene/dds.py), every PNG kind (scene/png.py)
+and baseline JPEG (scene/jpeg.py) -- to the reference's pixels, and
+images above MAX_TEXTURE_DIM downscale as the reference's do
+(scene/resize.py).  An image that cannot be decoded is left missing, as
+in the reference, and counted (`decode_failures`).
 
 Atlas entries are MATERIAL MAP SETS, not single textures: each textured
 material contributes one entry whose texel rows interleave all four glTF
@@ -14,13 +18,22 @@ map the BRDF needs.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from toyrenderer_tpu_torch.device import resolve_device
+from toyrenderer_tpu_torch.scene.dds import load_dds
+from toyrenderer_tpu_torch.scene.jpeg import decode_jpeg
 from toyrenderer_tpu_torch.scene.png import SIGNATURE, decode_png
+from toyrenderer_tpu_torch.scene.resize import resize_rgba, target_size
+
+
+class DecodeError(ValueError):
+    """Image data that cannot be decoded (the reference cannot either)."""
+
 
 MAX_TEXTURE_DIM = 1024
 MAX_MIPS = 11
@@ -99,31 +112,76 @@ class TextureAtlas:
             tex_min_mip=on(self.min_resident_mip))
 
 
-def _decode_image(tex) -> np.ndarray | None:
-    """GltfTexture -> (H, W, 4) u8 RGBA; None when it names no image.
+# magic bytes of image formats the reference package decodes (through its
+# imaging library) and the port does not yet: such a texture raises
+_UNPORTED_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+                     (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                     (b"\x00\x00\x01\x00", "ICO"))
 
-    Raises NotImplementedError for DDS, for formats other than PNG and
-    for images above MAX_TEXTURE_DIM (the reference package resamples
-    those with an imaging library the port does not use)."""
-    base_dir = getattr(tex, 'base_dir', None)
-    if tex.image_bytes is not None:
-        raw = tex.image_bytes
-    elif tex.uri is not None and base_dir is not None:
-        raw = (base_dir / tex.uri).read_bytes()
+# the textures the loader could not decode (the reference package leaves
+# them missing too), by name, since the process started
+decode_failures: list[str] = []
+
+
+def _read_image(raw: bytes) -> np.ndarray | list:
+    """Image bytes -> (H, W, 4) u8 RGBA, or a DDS file's mip list (the
+    mips above MAX_TEXTURE_DIM dropped, the chain kept aligned, as the
+    reference does).  Raises DecodeError for data the reference cannot
+    decode either, NotImplementedError for a format it decodes that the
+    port does not."""
+    if raw[:4] == b"DDS ":
+        mips = load_dds(raw)
+        if mips is None:
+            raise DecodeError("DDS format not supported")
+        return [m for m in mips
+                if max(m.shape[:2]) <= MAX_TEXTURE_DIM] or mips[-1:]
+    if raw[:8] == SIGNATURE:
+        img = decode_png(raw)
+    elif raw[:3] == b"\xff\xd8\xff":
+        img = decode_jpeg(raw)
     else:
-        return None
-    if raw[:8] != SIGNATURE:
-        kind = 'DDS' if raw[:4] == b'DDS ' else repr(raw[:4])
-        raise NotImplementedError(
-            f"texture format {kind}: the port decodes PNG only "
-            "(ROADMAP: scene loader queue)")
-    img = decode_png(raw)
-    if max(img.shape[:2]) > MAX_TEXTURE_DIM:
-        raise NotImplementedError(
-            f"texture {img.shape[1]}x{img.shape[0]} exceeds "
-            f"{MAX_TEXTURE_DIM}: downscaling is not ported "
-            "(ROADMAP: scene loader queue)")
+        for magic, name in _UNPORTED_FORMATS:
+            if raw.startswith(magic):
+                raise NotImplementedError(
+                    f"texture format {name}: the port decodes DDS, PNG and "
+                    "baseline JPEG (ROADMAP queue 1 item 6)")
+        if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
+            raise NotImplementedError(
+                "texture format WebP: the port decodes DDS, PNG and "
+                "baseline JPEG (ROADMAP queue 1 item 6)")
+        raise DecodeError(f"unknown image format {raw[:4]!r}")
+    h, w = img.shape[:2]
+    if max(h, w) > MAX_TEXTURE_DIM:
+        img = resize_rgba(img, *target_size(w, h, MAX_TEXTURE_DIM))
     return img
+
+
+def _decode_image(tex) -> np.ndarray | list | None:
+    """GltfTexture -> (H, W, 4) u8 RGBA, a DDS mip list, or None: when it
+    names no image, or, as in the reference package (its
+    textures.py:109-139), when its image cannot be read or decoded
+    (truncated or corrupt data, a DDS format without a decoder); each
+    such texture is appended to `decode_failures` with a warning naming
+    it.  Images above MAX_TEXTURE_DIM are downscaled as the reference
+    does (scene/resize.py).  A format the reference decodes and the port
+    does not yet (progressive, arithmetic-coded or 12-bit JPEG, GIF, BMP,
+    TIFF, WebP) raises NotImplementedError."""
+    base_dir = getattr(tex, 'base_dir', None)
+    try:
+        if tex.image_bytes is not None:
+            raw = tex.image_bytes
+        elif tex.uri is not None and base_dir is not None:
+            raw = (base_dir / tex.uri).read_bytes()
+        else:
+            return None
+        return _read_image(raw)
+    except (OSError, ValueError) as e:   # DecodeError, PngError, JpegError
+        name = (tex.uri if tex.uri is not None
+                else f"embedded image ({len(tex.image_bytes)} bytes)")
+        decode_failures.append(name)
+        warnings.warn(f"texture {name} not decoded ({e}): left missing, as "
+                      "the reference leaves it", stacklevel=2)
+        return None
 
 
 def _pack_rgba8(img: np.ndarray) -> np.ndarray:
@@ -248,16 +306,19 @@ def build_atlas(doc=None, material_maps: list[dict] | None = None,
         wrap = int(ent.get('wrap', WRAP_REPEAT))
         wraps[ei] = wrap
         # resolution = the base map's (or the largest present map's)
-        ref = ent.get('base')
+        # a DDS map is its mip list: its first (finest kept) mip is the
+        # map, whose chain build_mips makes as for any image
+        maps = {k: v[0] if isinstance(v, list) else v
+                for k, v in ((k, ent.get(k)) for k in keys)}
+        ref = maps['base']
         if ref is None:
-            sizes = [v.shape[:2] for v in (ent.get(k) for k in keys)
-                     if v is not None]
+            sizes = [v.shape[:2] for v in maps.values() if v is not None]
             ref_hw = max(sizes, key=lambda s: s[0] * s[1])
         else:
             ref_hw = ref.shape[:2]
         per_map_mips = []
         for mi_k, k in enumerate(keys):
-            img = ent.get(k)
+            img = maps[k]
             if img is None:
                 img = np.broadcast_to(
                     _NEUTRAL[mi_k], (1, 1, 4)).copy()

@@ -3,10 +3,10 @@
 Counterpart of toyrenderer_tpu/tools/render.py, with the reference's
 flag names for what the port renders.  It runs on the card unless
 --device says otherwise (`--device cpu` runs the plain versions).  The
-main RT tree is the complete tree of `bvh.build_rt_static` (the
-reference's default), built once at load for shadows or GI and refit
-when an instance moved (TR_RT_SAH=1, the reference's SAH main tree,
-raises); GI
+main RT tree is built once at load for shadows, GI or ReSTIR by
+`bvh_sah.build_rt_static_auto` (the complete tree, the reference's
+default; the SAH tree with TR_RT_SAH=1) and refit when an instance
+moved; GI
 traces its own LOD-reduced SAH tree (`bvh_sah.build_rt_static_gi`; the
 complete tree with TR_GI_SAH=0).  Raster capacities are sized from the
 first view's content (engine/capacity.py).  `--vtstream mip|tile`
@@ -105,15 +105,7 @@ def parse_args(argv=None):
     p.add_argument("--passtable", action="store_true",
                    help="print the per-pass device-ms table of one more "
                         "frame, rendered under the profiler")
-    args = p.parse_args(argv)
-    # the reference's switches that the port has no path for
-    if args.shadows or args.gi or args.restir:
-        from toyrenderer_tpu_torch.ops.bvh import check_main_tree_switch
-        check_main_tree_switch()
-    if args.gi:
-        from toyrenderer_tpu_torch.ops.ddgi import check_cone_layout
-        check_cone_layout()
-    return args
+    return p.parse_args(argv)
 
 
 def build(args, dev, stress=(64, 16), pair_frac=None, settings_kw=None,
@@ -236,12 +228,15 @@ def build(args, dev, stress=(64, 16), pair_frac=None, settings_kw=None,
     if (args.gi or args.shadows or args.restir) and not norefit:
         # built for 'map' shadows too: the sun map draws the masked set
         # through the tree's coverage keep
-        from toyrenderer_tpu_torch.ops.bvh import build_rt_static
+        from toyrenderer_tpu_torch.ops.bvh_sah import (
+            RtStaticSah, build_rt_static_auto)
         t0 = time.time()
-        kw['rt_static'] = build_rt_static(
+        kw['rt_static'] = build_rt_static_auto(
             host, pi, pm, mask_pair_inst=mk_i if has_mask else None,
             mask_pair_meshlet=mk_m if has_mask else None, device=dev)
-        log(f"[rt] static topology (complete): "
+        kind = ('sah' if isinstance(kw['rt_static'], RtStaticSah)
+                else 'complete')
+        log(f"[rt] static topology ({kind}): "
             f"{kw['rt_static'].payload.shape[0]} tri slots "
             f"({time.time() - t0:.2f}s)")
     if args.gi and 'rt_static' in kw:

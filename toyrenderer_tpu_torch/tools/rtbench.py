@@ -44,8 +44,7 @@ from toyrenderer_tpu_torch.ops import geometry as G
 from toyrenderer_tpu_torch.ops.bvh import build_rt_static, refit_bvh
 from toyrenderer_tpu_torch.ops.bvh_sah import build_rt_static_sah, refit_sah
 from toyrenderer_tpu_torch.ops.ddgi import (
-    CONE_BRICK, CONE_DIRS, GDIR_BRICK, GDIR_DIRS, _cone_block, _cone_order,
-    check_cone_layout)
+    GDIR_BRICK, GDIR_DIRS, _cone_block, _cone_order, cone_layout)
 from toyrenderer_tpu_torch.scene import load_scene
 
 COURTYARD = (Path(__file__).resolve().parent.parent.parent / "resources"
@@ -61,8 +60,9 @@ def _blocked(x, r, pbp, brick, dirs):
 def ray_sets(n_rays, aabb_lo, aabb_hi, sun_dir):
     """Shadow-style and probe-style ray sets over the scene bounds, as
     numpy arrays: ((sh_o, sh_d), (pr_o, pr_d), (gd_o, gd_d, gd_g)) --
-    the reference's, element for element."""
-    check_cone_layout()
+    the reference's, element for element, in the cone layout of
+    TR_CONE_DIRS / TR_CONE_BRICK (ddgi.cone_layout)."""
+    cone_dirs, cone_brick = cone_layout()
     ext = aabb_hi - aabb_lo
     side = int(np.sqrt(n_rays))
 
@@ -93,7 +93,7 @@ def ray_sets(n_rays, aabb_lo, aabb_hi, sun_dir):
     dirs = np.stack([r * np.cos(phi), r * np.sin(phi), z],
                     -1)[_cone_order(n_dirs)]
     n_probes = n_rays // n_dirs
-    pbp = -(-n_probes // CONE_BRICK) * CONE_BRICK
+    pbp = -(-n_probes // cone_brick) * cone_brick
     side_p = max(int(round(pbp ** (1.0 / 3.0))), 1)
     ii = np.arange(pbp)
     px = (ii % side_p + 0.5) / side_p
@@ -110,8 +110,8 @@ def ray_sets(n_rays, aabb_lo, aabb_hi, sun_dir):
     gd_o = _blocked(og, n_dirs, pbg, GDIR_BRICK, GDIR_DIRS)
     gd_d = _blocked(dg, n_dirs, pbg, GDIR_BRICK, GDIR_DIRS)
     gd_g = gd_d.reshape(-1, GDIR_BRICK, 3)[:, 0].copy()
-    pr_o = _blocked(pr_o, n_dirs, pbp, CONE_BRICK, CONE_DIRS)
-    pr_d = _blocked(pr_d, n_dirs, pbp, CONE_BRICK, CONE_DIRS)
+    pr_o = _blocked(pr_o, n_dirs, pbp, cone_brick, cone_dirs)
+    pr_d = _blocked(pr_d, n_dirs, pbp, cone_brick, cone_dirs)
     return (sh_o[:n_rays], sh_d[:n_rays]), (pr_o, pr_d), (gd_o, gd_d, gd_g)
 
 
