@@ -136,6 +136,33 @@ both main paths through the port's entry points at 1920x1080:
   to the default layout) on the all-on update frame; every path's
   median frame ms and device busy beside its default's.
 
+* slice 11, the multi-device frame and the last tools: meshes of 4
+  repeated cards (and, where torch.cuda.device_count() > 1, of distinct
+  ones; the `meshes` line says which ran): the culled courtyard's early
+  fill at 1920x1080 through parallel.sp_raster.raster_frame_sp (4 bands
+  of 17 tile rows) against the single K1 fill on the same setup (ids on
+  >= 99.9%, depth within rtol 1e-5 / atol 1e-6 on >= 99.9% of the
+  pixels where they agree, the largest difference printed, drops 0), each
+  band's K1 launch bit-equal to the plain fill on its inputs, the band
+  launches' ms beside the single launch's; the culled, all-on update and
+  glass (2 OIT layers) frames on each mesh against the 1-device mesh
+  (ids on >= 99.9%, depth as the sharded raster's; the culled image
+  within 1 on >= 99.9%, the traced frames' -- all-on, glass -- within 2
+  on >= 99.5%, the reference's own bar for its sharded traced frame;
+  drops 0; the all-on update's probes bit-equal), the glass frame also
+  against the frame without a mesh (the peel bound reaches the bands;
+  within 2 on >= 99.5%), each frame's
+  busy beside the frame without a mesh; traverse_auto with a mesh of 4
+  on the frame's shadow rays (K3) and its probe rays in the gdir layout
+  (K5), through the pair route (K6) and the chunk route (K8), each
+  bit-equal to the unsharded call; 2 views on a ('dp', 'sp') = (2, 2)
+  mesh, each within 1 of its view alone on >= 99.9%; tools/fillbench.py
+  (its JSON line), tools/rtbench.py --scene stress (its rows' Mrays/s),
+  and tools/shell.py on Cornell (--port 0 --max-frames 3) with
+  /frame.jpg and /stats.json fetched over localhost, the JPEG decoded by
+  the port's decoder within SHELL_PSNR dB of the frame.  The mesh
+  frames' and sharded calls' launches add to the kernels line's counts.
+
 Each K6 line gives its even split's census (pairs_cuda.census: ray
 blocks with pairs, their largest and mean walk, work items and the grid,
 runs, and the runs' warps that skip the arithmetic for want of a live
@@ -3079,6 +3106,473 @@ def slice10(dev, ctx: dict) -> dict:
     return out
 
 
+# ===== slice 11: the multi-device frame, the last tools =====================
+SP = 4                           # the sharded raster's bands (68 tile rows)
+VIEWS = 2                        # the view batch's views, on a (2, 2) mesh
+SHELL_PSNR = 30.0                # /frame.jpg against the frame it encodes
+
+
+@contextlib.contextmanager
+def ray_calls():
+    """While open, each traverse_auto call of the frame's shadow and
+    probe traces (ops/shadows.py, ops/ddgi.py import it by name) appends
+    (the calling module's name, its positional arguments, its keyword
+    arguments) to the yielded list; the calls run as in any frame."""
+    from toyrenderer_tpu_torch.ops import bvh_cuda, ddgi, shadows
+    real = bvh_cuda.traverse_auto
+    calls = []
+
+    def spy(module):
+        def call(*args, **kwargs):
+            calls.append((module, args, kwargs))
+            return real(*args, **kwargs)
+        return call
+    ddgi.traverse_auto, shadows.traverse_auto = spy('ddgi'), spy('shadows')
+    try:
+        yield calls
+    finally:
+        ddgi.traverse_auto = shadows.traverse_auto = real
+
+
+@contextlib.contextmanager
+def sp_calls():
+    """While open, each parallel.sp_raster.raster_frame_sp call appends
+    (args, kwargs, result) to the yielded list."""
+    from toyrenderer_tpu_torch.parallel import sp_raster
+    real = sp_raster.raster_frame_sp
+    calls = []
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+    sp_raster.raster_frame_sp = spy
+    try:
+        yield calls
+    finally:
+        sp_raster.raster_frame_sp = real
+
+
+def counted(fn):
+    """(fn()'s result, the launches K1 K2 K3 K4 K3-SAH K5 K3-seeded K6 K7
+    K8 it made): every count set to 0 just before, read just after."""
+    import torch
+    from toyrenderer_tpu_torch.ops import bvh_cuda
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts() + [bvh_cuda.launches_by_kernel['K8']]
+
+
+LAUNCH_NAMES = ('K1', 'K2', 'K3', 'K4', 'K3-SAH', 'K5', 'K3-seeded', 'K6',
+                'K7', 'K8')
+
+
+def hold_band(name, inp) -> dict:
+    """One band's K1 launch against the plain fill on its inputs (ids and
+    depth bit-equal, planes as compare_fill holds them); its ms by CUDA
+    events, the plain version's and the bound.  Prints a phase line."""
+    from toyrenderer_tpu_torch.ops import raster_cuda
+    got = raster_cuda.launch(inp)
+    want = raster_cuda.fill_resolve_plain(inp)
+    won = want[1] != raster_cuda.init_planes(inp)[1]
+    err = compare_fill(got, want, won)
+    st = dict(err=err, ms=cuda_ms(lambda: raster_cuda.launch(inp),
+                                  KERNEL_REPS),
+              plain_ms=cuda_ms(lambda: raster_cuda.fill_resolve_plain(inp),
+                               1),
+              bound=fill_bound_ms(inp, want[1], won))
+    phase("K1 vs plain", input=json.dumps(name), won_px=int(won.sum()),
+          pairs_walked=int(inp.lay['counts_eff'].sum()),
+          band_rows=inp.cfg.tiles_y, ids="equal", depth="bit-equal",
+          planes_max_abs=f"{err:.3g}", ms=f"{st['ms']:.4f}",
+          plain_ms=f"{st['plain_ms']:.1f}", bound_ms=f"{st['bound'][0]:.4f}",
+          bound_by=st['bound'][1])
+    return st
+
+
+def sharded_frame(label, render, scene, pairs, fi, carry, kw, meshes,
+                  plain=None, traced=False) -> dict:
+    """One frame rendered on each mesh of `meshes` ({name: Mesh}) and, for
+    the glass frame, without a mesh (`plain`: True), each against the
+    1-device mesh's frame: ids on >= 99.9% of the pixels, depth within
+    rtol 1e-5 / atol 1e-6 on >= 99.9% of those (the sharded raster's
+    bar, a band's edge constants round twice more), no drop on any.  The
+    image within 1 on >= 99.9% of the pixels; a frame whose passes trace
+    rays from the depth or carry history (`traced`: RT shadows, GTAO,
+    ReSTIR, TAA) within 2 on >= 99.5%, the reference's own bar for its
+    sharded traced frame (tests/test_parallel.py:224-226): a ray from a
+    depth that moved by the band's rounding can flip, and the denoiser's
+    blur spreads a flipped ray over ~30 pixels (both shares printed).
+    The launches of each mesh frame counted.  Returns {name: (image, aux,
+    carry, launches)} and the frame without a mesh as 'none'."""
+    import torch
+    out = {}
+    for name, mesh in meshes.items():
+        (img, carry2, aux), n = counted(lambda: render(
+            scene, *pairs, fi, carry, sp_mesh=(mesh, 'sp'), **kw))
+        out[name] = (img, aux, carry2, n)
+    if plain:
+        (img, carry2, aux), n = counted(lambda: render(
+            scene, *pairs, fi, carry, **kw))
+        out['none'] = (img, aux, carry2, n)
+    ref = out['x1']
+    for name, (img, aux, _, n) in out.items():
+        drops = drops_of(aux)
+        if any(drops):
+            raise AssertionError(f"{label} on {name}: drops {drops}")
+        if n[0] == 0:
+            raise AssertionError(f"{label} on {name}: no K1 launch")
+        agree = aux['tri_id'] == ref[1]['tri_id']
+        ids = float(agree.float().mean())
+        depth = float(torch.isclose(aux['depth'][agree],
+                                    ref[1]['depth'][agree], rtol=1e-5,
+                                    atol=1e-6).float().mean())
+        close, worst = within_1(img, ref[0])
+        close2 = float(((img.int() - ref[0].int()).abs().amax(-1) <= 2)
+                       .float().mean())
+        ok = close2 >= 0.995 if traced else close >= 0.999
+        if ids < 0.999 or depth < 0.999 or not ok:
+            raise AssertionError(
+                f"{label}: {name} vs x1: ids {ids:.5f}, depth {depth:.5f}, "
+                f"within 1 on {close:.5f}, within 2 on {close2:.5f}")
+        # the traced passes' own agreement (the shadow mask, AO)
+        passes = {f"{k}_within_1e3": "%.6f" % float(
+            ((aux[k] - ref[1][k]).abs() <= 1e-3).float().mean())
+            for k in ('shadow', 'ao') if k in aux}
+        phase("sharded frame", path=json.dumps(label), mesh=name,
+              ids_agree=f"{ids:.6f}", depth_within_1e5=f"{depth:.6f}",
+              **passes,
+              within_1_of_x1=f"{close:.6f}", within_2_of_x1=f"{close2:.6f}",
+              gate="within 2 on 99.5%" if traced else "within 1 on 99.9%",
+              max_diff=worst,
+              launches=json.dumps(dict(zip(LAUNCH_NAMES, n))), drops=drops)
+    return out
+
+
+def hold_sharded_rays(label, args, kw, mesh, kernel) -> dict:
+    """A recorded traverse_auto call again with sp_mesh = (mesh, 'sp')
+    against the call without: every output bit-equal; the sharded call's
+    launches of `kernel` (one a slice, and a route's fallback in each
+    slice) counted; both timed by CUDA events.  Prints a phase line."""
+    import torch
+    from toyrenderer_tpu_torch.ops import bvh_cuda
+    kw = {k: v for k, v in kw.items() if k != 'sp_mesh'}
+    want, _ = counted(lambda: bvh_cuda.traverse_auto(*args, **kw))
+    got, n = counted(lambda: bvh_cuda.traverse_auto(
+        *args, sp_mesh=(mesh, 'sp'), **kw))
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"sharded rays ({label}): {k} differs at "
+                                 f"{int((got[k] != want[k]).sum())} rays")
+    launches = n[LAUNCH_NAMES.index(kernel)]
+    if launches < mesh.shape['sp']:
+        raise AssertionError(f"sharded rays ({label}): {kernel} launched "
+                             f"{launches} times on {mesh.shape['sp']} "
+                             "slices")
+    st = dict(launches=launches, all_launches=dict(zip(LAUNCH_NAMES, n)),
+              rays=int(args[1].shape[0]),
+              ms=cuda_ms(lambda: bvh_cuda.traverse_auto(
+                  *args, sp_mesh=(mesh, 'sp'), **kw), 3),
+              unsharded_ms=cuda_ms(lambda: bvh_cuda.traverse_auto(
+                  *args, **kw), 3))
+    phase("sharded rays", input=json.dumps(label), kernel=kernel,
+          rays=st['rays'], slices=mesh.shape['sp'], outputs="bit-equal",
+          launches=json.dumps(st['all_launches']), ms=f"{st['ms']:.4f}",
+          unsharded_ms=f"{st['unsharded_ms']:.4f}")
+    return st
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+    err = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(err, 1e-12)))
+
+
+def slice11(dev, ctx: dict) -> dict:
+    """Slice 11's phases: the multi-device frame and the last tools.
+    Meshes of SP repeated cards (and, with more than one card, of
+    distinct ones): the culled courtyard's early fill through
+    parallel.sp_raster.raster_frame_sp against the single K1 fill on the
+    same setup (ids on >= 99.9%, depth where they agree, drops 0), each
+    band's K1 launch bit-equal to the plain fill; the culled, all-on
+    update and glass frames on each mesh against the 1-device mesh
+    (within 1 on >= 99.9%), the glass frame also against the frame
+    without a mesh (the peel bound reaches the bands); the frame's
+    shadow rays (K3), probe rays in the gdir layout (K5), through the
+    pair route (K6) and the chunk route (K8) sharded, bit-equal to the
+    unsharded call; VIEWS views on a ('dp', 'sp') = (2, 2) mesh, each
+    within 1 of its view alone; fillbench, rtbench --scene stress and
+    the shell on Cornell (/frame.jpg and /stats.json over localhost).
+    Returns the numbers the kernels line adds."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from toyrenderer_tpu_torch.engine import init_carry, make_render_fn
+    from toyrenderer_tpu_torch.ops import raster_cuda
+    from toyrenderer_tpu_torch.parallel import (
+        Mesh, make_sp_frame_renderer, make_view_batch_renderer, sp_raster)
+    from toyrenderer_tpu_torch.scene.jpeg import decode_jpeg
+    from toyrenderer_tpu_torch.tools import fillbench, rtbench, shell
+    host, scene, c_pairs, c_kw = (ctx['host'], ctx['scene'], ctx['c_pairs'],
+                                  ctx['c_kw'])
+    c_set, mask_kw, card, g = (ctx['c_set'], ctx['mask_kw'], ctx['card'],
+                               ctx['glass'])
+    a_set, a_kw = ctx['a_set'], ctx['a_kw']
+    t11 = time.time()
+    out = dict(bands={}, rays={}, launches=dict.fromkeys(LAUNCH_NAMES, 0),
+               timing={})
+    meshes = {'x1': Mesh([dev], ('sp',)),
+              f'x{SP} repeated': Mesh([dev] * SP, ('sp',))}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        k = 4 if n_cards >= 4 else 2
+        meshes[f'x{k} distinct'] = Mesh(
+            [torch.device('cuda', i) for i in range(k)], ('sp',))
+    phase("meshes", cards=n_cards, ran=json.dumps(
+        {k: [str(d) for d in m.devices.reshape(-1)]
+         for k, m in meshes.items()}))
+    main = meshes[f'x{SP} repeated']
+
+    def add(n):
+        for k, v in zip(LAUNCH_NAMES, n):
+            out['launches'][k] += v
+
+    def timing(path, render, scene_, pairs, fi, carry, kw):
+        """The frame's device busy on the main mesh beside the frame
+        without a mesh (profiled), and its CUDA-event ms."""
+        row = {}
+        for name, extra in (('mesh', dict(sp_mesh=(main, 'sp'))),
+                            ('none', {})):
+            full = dict(kw, **extra)
+            busy, _, _ = profile_frame(render, scene_, pairs, fi, carry, full)
+            ms = cuda_ms(lambda: render(scene_, *pairs, fi, carry, **full), 1)
+            row[name] = (busy, ms)
+        out['timing'][path] = row
+        phase("sharded frame timing", path=json.dumps(path),
+              card=json.dumps(card),
+              mesh=f"x{SP} repeated", busy_ms=f"{row['mesh'][0]:.3f}",
+              event_ms=f"{row['mesh'][1]:.3f}",
+              no_mesh_busy_ms=f"{row['none'][0]:.3f}",
+              no_mesh_event_ms=f"{row['none'][1]:.3f}")
+
+    # 46. the culled courtyard frame (frame 0: the early phase draws the
+    #     whole 60% list) through make_sp_frame_renderer on each mesh; its
+    #     early fill's setup again through raster_frame_sp and the single
+    #     K1 fill
+    fis = pan_inputs(host, 4)
+    c_render = make_render_fn(c_set, **c_kw)
+    sp_render = {name: make_sp_frame_renderer(m, c_set, **c_kw)
+                 for name, m in meshes.items()}
+
+    def c_frame(scene_, a, b, fi, carry, sp_mesh=None, **kw):
+        if sp_mesh is None:
+            return c_render(scene_, a, b, fi, carry, **kw)
+        name = next(k for k, m in meshes.items() if m is sp_mesh[0])
+        return sp_render[name](scene_, a, b, fi, carry, **kw)
+    c_carry = init_carry(scene, c_set)
+    with sp_calls() as calls:
+        culled = sharded_frame("culled", c_frame, scene, c_pairs, fis[0],
+                               c_carry, mask_kw, meshes)
+    add(culled[f'x{SP} repeated'][3])
+    early = next(c for c in calls if c[0][3] is main)
+    setup, records, cfg = early[0][:3]
+    bins = raster_cuda.bin_pairs_with_budget(setup, cfg)
+    (z1, id1, _), n1 = counted(lambda: raster_cuda.fill_resolve_stream(
+        setup, records, bins, cfg, padded_io=True))
+    with recorded((raster_cuda,)) as seen:
+        (z4, id4, _, stats), n4 = counted(lambda: sp_raster.raster_frame_sp(
+            setup, records, cfg, main, 'sp', padded_io=True))
+    add(n4)
+    z1c, id1c = raster_cuda.crop_image(z1, cfg), raster_cuda.crop_image(
+        id1, cfg)
+    z4c, id4c = raster_cuda.crop_image(z4, cfg), raster_cuda.crop_image(
+        id4, cfg)
+    # depth where the ids agree: within tests/test_parallel.py's bounds
+    # (rtol 1e-5, atol 1e-6) on >= 99.9% of those pixels, as the ids: a
+    # band's edge constants take two more f32 roundings, which move the
+    # depth of a small, far triangle by more (the largest is printed)
+    agree = id1c == id4c
+    share = float(agree.float().mean())
+    z_close = torch.isclose(z4c[agree], z1c[agree], rtol=1e-5, atol=1e-6)
+    depth_share = float(z_close.float().mean())
+    won = agree & (id1c >= 0)
+    z_rel = float(((z4c - z1c).abs() / z1c.abs().clamp(min=1e-30))[won]
+                  .max()) if bool(won.any()) else 0.0
+    drops = int(stats['dropped'])
+    if (share < 0.999 or depth_share < 0.999 or drops or n4[0] != SP
+            or n1[0] != 1):
+        raise AssertionError(f"sharded raster: ids agree on {share:.5f}, "
+                             f"depth on {depth_share:.5f} of those, drops "
+                             f"{drops}, K1 launches {n4[0]} (single "
+                             f"{n1[0]})")
+    single_inp = raster_cuda.fill_inputs(setup, records, bins, cfg,
+                                         padded_io=True)
+    single_ms = cuda_ms(lambda: raster_cuda.launch(single_inp), KERNEL_REPS)
+    band_ms = []
+    for i, (args, _, _) in enumerate(seen[raster_cuda]):
+        st = hold_band(f"culled early fill, band {i} of {SP}", args[0])
+        out['bands'][f"culled early fill, band {i} of {SP}"] = st
+        band_ms.append(st['ms'])
+    phase("sharded raster", path="culled, early fill", bands=SP,
+          ids_agree=f"{share:.6f}",
+          depth_within_1e5_of_agreeing=f"{depth_share:.6f}",
+          depth_max_rel_diff=f"{z_rel:.3g}",
+          drops=drops, binned_pairs=int(stats['binned_pairs']),
+          single_binned_pairs=int(bins['counts'].sum()),
+          band_pairs=json.dumps([int(a[0].lay['counts_eff'].sum())
+                                 for a, _, _ in seen[raster_cuda]]),
+          band_ms=json.dumps([round(m, 4) for m in band_ms]),
+          band_ms_sum=f"{sum(band_ms):.4f}", single_ms=f"{single_ms:.4f}",
+          card=json.dumps(card))
+    out['single_k1_ms'], out['band_ms'] = single_ms, band_ms
+    del seen, calls, early
+    timing("culled", c_render, scene, c_pairs, fis[0], c_carry, mask_kw)
+    phase("slice 11 timing", step="sharded raster, culled frame",
+          seconds=f"{time.time() - t11:.1f}")
+
+    # 47. the all-on update frame (frames 0-2 hold) on each mesh; its
+    #     shadow and probe rays recorded from the frame without a mesh,
+    #     then the same frame under TR_GI_GDIR=1, TR_GI_PAIRS=1 and
+    #     TR_RT_CHUNKS=1 for the K5, K6 and K8 calls
+    vol = a_kw['ddgi_volume']
+    a_render = make_render_fn(a_set, **c_kw)
+    a_carry = init_carry(scene, a_set, vol)
+    for fi in fis[:3]:
+        _, a_carry, _ = a_render(scene, *c_pairs, fi, a_carry, **a_kw)
+    allon = sharded_frame("all-on update frame", a_render, scene, c_pairs,
+                          fis[3], a_carry, a_kw, meshes, traced=True)
+    add(allon[f'x{SP} repeated'][3])
+    if not allon['x1'][1]['ddgi_updated']:
+        raise AssertionError("slice 11: all-on frame 3 did not update")
+    # the probe update sees no raster: its rays, sharded, are the same
+    for name in meshes:
+        if not torch.equal(allon[name][2]['ddgi_irradiance'],
+                           allon['x1'][2]['ddgi_irradiance']):
+            raise AssertionError(f"all-on update frame on {name}: probe "
+                                 "irradiance differs from x1's")
+    phase("sharded probes", path="all-on update frame",
+          irradiance="bit-equal on every mesh")
+    with ray_calls() as rc:
+        a_render(scene, *c_pairs, fis[3], a_carry, **a_kw)
+    shadow = next(c[1:] for c in rc if c[0] == 'shadows')
+    for label, switch, kernel, pick in (
+            ("all-on probe rays, TR_GI_GDIR=1", 'TR_GI_GDIR', 'K5',
+             lambda kw: kw.get('group_dirs') is not None),
+            ("all-on probe rays, TR_GI_PAIRS=1", 'TR_GI_PAIRS', 'K6',
+             lambda kw: kw.get('pairs')),
+            ("all-on probe rays, TR_RT_CHUNKS=1", 'TR_RT_CHUNKS', 'K8',
+             lambda kw: kw.get('chunked'))):
+        with env(**{switch: '1'}), ray_calls() as rc2:
+            a_render(scene, *c_pairs, fis[3], a_carry, **a_kw)
+            call = next(c[1:] for c in rc2 if c[0] == 'ddgi'
+                        and pick(c[2]) and not c[2].get('any_hit'))
+            st = hold_sharded_rays(label, *call, main, kernel)
+        out['rays'][label] = st
+        add(list(st['all_launches'].values()))
+    st = hold_sharded_rays("shadow rays (all-on update frame)", *shadow,
+                           main, 'K3')
+    out['rays']["shadow rays"] = st
+    add(list(st['all_launches'].values()))
+    del rc
+    timing("all-on update frame", a_render, scene, c_pairs, fis[3], a_carry,
+           a_kw)
+    phase("slice 11 timing", step="all-on frame and sharded rays",
+          seconds=f"{time.time() - t11:.1f}")
+
+    # 48. the glass frame (2 OIT layers) on each mesh and without a mesh:
+    #     the mesh frames match the frame without one (the peel bound
+    #     reaches every band)
+    glass = sharded_frame("glass and emitters", g['render'], g['scene'],
+                          g['pairs'], g['fi'], g['carry'], g['kw'], meshes,
+                          plain=True, traced=True)
+    add(glass[f'x{SP} repeated'][3])
+    for name in meshes:
+        close, worst = within_1(glass[name][0], glass['none'][0])
+        close2 = float(((glass[name][0].int() - glass['none'][0].int())
+                        .abs().amax(-1) <= 2).float().mean())
+        if close2 < 0.995:
+            raise AssertionError(f"glass frame on {name} vs no mesh: "
+                                 f"within 2 on {close2:.5f}")
+        phase("glass frame on a mesh vs no mesh", mesh=name,
+              within_1=f"{close:.6f}", within_2=f"{close2:.6f}",
+              max_diff=worst,
+              oit_layers=2, trans_binned_pairs=int(
+                  glass[name][1]['raster_trans_binned_pairs']))
+    timing("glass and emitters", g['render'], g['scene'], g['pairs'],
+           g['fi'], g['carry'], g['kw'])
+
+    # 49. the view batch: VIEWS culled views on a ('dp', 'sp') = (2, 2)
+    #     mesh, each against its view alone
+    grid = Mesh(np.asarray([[dev, dev], [dev, dev]], object), ('dp', 'sp'))
+    views = [fis[0], fis[3]]
+    batch = make_view_batch_renderer(grid, c_set, **c_kw)
+    (imgs, _), n = counted(lambda: batch(
+        scene, *c_pairs, views, [init_carry(scene, c_set) for _ in views],
+        **mask_kw))
+    add(n)
+    for k, fi in enumerate(views):
+        alone, _, _ = c_render(scene, *c_pairs, fi, init_carry(scene, c_set),
+                               **mask_kw)
+        close, worst = within_1(imgs[k], alone)
+        if close < 0.999:
+            raise AssertionError(f"view batch view {k}: within 1 on "
+                                 f"{close:.5f}")
+        phase("view batch", view=k, mesh="dp 2 x sp 2",
+              within_1_of_alone=f"{close:.6f}", max_diff=worst,
+              launches=json.dumps(dict(zip(LAUNCH_NAMES, n))))
+    phase("slice 11 timing", step="glass frame and view batch",
+          seconds=f"{time.time() - t11:.1f}")
+
+    # 50. the tools: fillbench (courtyard, 1080p), rtbench --scene stress,
+    #     the shell on Cornell with its frames fetched over localhost
+    fb = fillbench.run(["--reps", "3"])
+    if any(fb['dropped'].values()) or not 0 < fb['coverage'] <= 1:
+        raise AssertionError(f"fillbench: {fb}")
+    phase("fillbench", line=json.dumps(fb))
+    rows = rtbench.run(["--scene", "stress", "--reps", "3"])
+    phase("rtbench stress", card=json.dumps(card), rows=json.dumps(
+        {r['name']: round(r['mrays_s'], 2) for r in rows}))
+    got = {}
+
+    def fetch(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read()
+
+    def on_frame(n, image):
+        if n == 3:
+            got['jpg'], got['stats'] = (fetch(got['port'], "/frame.jpg"),
+                                        fetch(got['port'], "/stats.json"))
+            got['image'] = image
+    res = {}
+    th = threading.Thread(target=lambda: res.update(rc=shell.main(
+        ["--scene", str(ROOT / "resources" / "cornell.gltf"), "--port", "0",
+         "--max-frames", "3"], on_ready=lambda p: got.update(port=p),
+        on_frame=on_frame)))
+    th.start()
+    th.join(timeout=300)
+    if th.is_alive() or res.get('rc') != 0 or 'jpg' not in got:
+        raise AssertionError(f"shell: rc {res.get('rc')}, fetched "
+                             f"{sorted(got)}")
+    (s1, jpg), (s2, stats) = got['jpg'], got['stats']
+    dec = decode_jpeg(jpg)[..., :3]
+    quality = psnr(dec, got['image'])
+    stats = json.loads(stats)
+    if s1 != 200 or s2 != 200 or quality < SHELL_PSNR or dec.shape != \
+            got['image'].shape:
+        raise AssertionError(f"shell: status {s1} {s2}, PSNR {quality:.2f}")
+    phase("shell", scene="cornell", frames=3, jpeg_bytes=len(jpg),
+          psnr_db=f"{quality:.2f}", psnr_floor=SHELL_PSNR,
+          stats=json.dumps(stats['stats']))
+    phase("slice 11 timing", step="all", seconds=f"{time.time() - t11:.1f}")
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -4315,6 +4809,12 @@ def main() -> int:
         m_set=m_set, a_set=a_set, s_kw=s_kw, a_kw=a_kw, mask_kw=mask_kw,
         card=card, glass=glass, rpi=rpi, rpm=rpm, mk_i=mk_i, mk_m=mk_m))
 
+    # ===== the multi-device frame and the last tools (slice 11) ============
+    s11 = slice11(dev, dict(
+        host=host, scene=scene, c_pairs=c_pairs, c_kw=c_kw, c_set=c_set,
+        mask_kw=mask_kw, a_set=a_set, a_kw=a_kw, card=card, glass=glass))
+    sl = s11['launches']
+
     # 32. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main
     #     path (each launched once a frame), every input listed beside it;
@@ -4352,7 +4852,7 @@ def main() -> int:
              replaces="toyrenderer_tpu/ops/raster_pallas.py:294",
              launches=k1_default + k1_culled + s_launches[0]
              + a_launches[0] + p_k1 + s8['glass_launches'][0]
-             + s8['packed_launches'][0],
+             + s8['packed_launches'][0] + sl['K1'],
              max_abs_err=max(s['err'] for s in [*main_in, *split.values(),
                                                  *plaza_k1.values(),
                                                  *s8['k1'].values()]),
@@ -4368,13 +4868,16 @@ def main() -> int:
              + [dict(row(k, v, True), path="plaza streamed")
                 for k, v in plaza_k1.items()]
              + [dict(row(k, v, True), path="glass and emitters")
-                for k, v in s8['k1'].items()]),
+                for k, v in s8['k1'].items()]
+             + [dict(row(k, v, True), path=f"sharded raster (x{SP} bands)",
+                     single_fill_ms=s11['single_k1_ms'])
+                for k, v in s11['bands'].items()]),
         dict(name="fill_peel", route="cuda",
              source="toyrenderer_tpu_torch/csrc/fill_peel.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:778",
              launches=k2_default + k2_culled + s_launches[1]
              + a_launches[1] + m_launches[1] + p_k2
-             + s8['packed_launches'][1],
+             + s8['packed_launches'][1] + sl['K2'],
              max_abs_err=max(v['err'] for v in k2.values()),
              ms=k2['occluder']['ms'], plain_ms=k2['occluder']['plain_ms'],
              bound_ms=k2['occluder']['bound'][0],
@@ -4387,7 +4890,7 @@ def main() -> int:
              source="toyrenderer_tpu_torch/csrc/traverse.cu",
              replaces="toyrenderer_tpu/ops/bvh_pallas.py:250",
              launches=s_launches[2] + a_launches[2]
-             + s8['glass_launches'][2],
+             + s8['glass_launches'][2] + sl['K3'],
              max_abs_err=max(v['err'] for v in [*k3.values(),
                                                 *s8['k3'].values()]),
              ms=k3['any-hit']['ms'], plain_ms=k3['any-hit']['plain_ms'],
@@ -4404,7 +4907,7 @@ def main() -> int:
              source="toyrenderer_tpu_torch/csrc/warp.cu",
              replaces="toyrenderer_tpu/ops/warp_pallas.py:41",
              launches=s_launches[3] + a_launches[3]
-             + s8['glass_launches'][3],
+             + s8['glass_launches'][3] + sl['K4'],
              max_abs_err=max(v['err'] for v in k4.values()),
              ms=statistics.mean(v['ms'] for v in k4.values()),
              plain_ms=statistics.mean(v['plain_ms'] for v in k4.values()),
@@ -4417,7 +4920,7 @@ def main() -> int:
              path="raster.rasterize, tools/profile_stages.py",
              source="toyrenderer_tpu_torch/csrc/fill_dense.cu",
              replaces="toyrenderer_tpu/ops/raster_pallas.py:66",
-             launches=k7_launches[8] + s9['stages_k7'],
+             launches=k7_launches[8] + s9['stages_k7'] + sl['K7'],
              max_abs_err=max(v['err'] for v in [*k7.values(), k7_low]),
              ms=statistics.mean(v['ms'] for v in k7.values()),
              plain_ms=statistics.mean(v['plain_ms'] for v in k7.values()),
@@ -4432,9 +4935,9 @@ def main() -> int:
                          k7_low, False), exact_units=k7_low['exact_units'])]
              )]
     for name, line, st, n, path, extra in (
-            ("traverse_sah", 250, k3s, a_launches[4], "all-on",
-             s10['k3sah']),
-            ("traverse_gdir", 595, k5, k5_launches,
+            ("traverse_sah", 250, k3s, a_launches[4] + sl['K3-SAH'],
+             "all-on", s10['k3sah']),
+            ("traverse_gdir", 595, k5, k5_launches + sl['K5'],
              "all-on, TR_GI_GDIR=1", s10['k5'])):
         main = path == "all-on"
         kernels.append(dict(
@@ -4462,9 +4965,9 @@ def main() -> int:
                for k, v in extra.items()]))
     for name, src, line, st, n, path in (
             ("traverse_pairs", "pairs.cu", "rt_pairs.py:145", k6,
-             p_launches[7], "all-on, TR_GI_PAIRS=1"),
+             p_launches[7] + sl['K6'], "all-on, TR_GI_PAIRS=1"),
             ("traverse_seeded", "traverse.cu", "bvh_pallas.py:250", k3seed,
-             rb_launches['K3-seeded'], "rtbench binned")):
+             rb_launches['K3-seeded'] + sl['K3-seeded'], "rtbench binned")):
         kernels.append(dict(
             name=name, route="cuda", path=path, main_path=False,
             source=f"toyrenderer_tpu_torch/csrc/{src}",
@@ -4486,7 +4989,7 @@ def main() -> int:
         path="TR_RT_CHUNKS=1 (all-on probe rays, glass ReSTIR rays)",
         source="toyrenderer_tpu_torch/csrc/chunks.cu",
         replaces="none: toyrenderer_tpu/ops/rt_chunks.py:101-242 is XLA",
-        launches=s10['k8_launches'],
+        launches=s10['k8_launches'] + sl['K8'],
         max_abs_err=max(v['err'] for v in k8.values()),
         ms=statistics.mean(v['ms'] for v in k8.values()),
         plain_ms=statistics.mean(v['plain_ms'] for v in k8.values()),
@@ -4496,6 +4999,17 @@ def main() -> int:
         inputs=[dict(row(k, v, False), plain_scope=v['plain_scope'],
                      census=v['census'], route=s10['routes'][k])
                 for k, v in k8.items()]))
+    # slice 11's sharded calls beside the kernel each launches
+    by_kernel = {'K3': "traverse", 'K5': "traverse_gdir",
+                 'K6': "traverse_pairs", 'K8': "chunk_fold"}
+    for label, st in s11['rays'].items():
+        kname = next(by_kernel[k] for k in by_kernel
+                     if st['all_launches'][k] and (
+                         k != 'K3' or label == "shadow rays"))
+        k_row = next(k for k in kernels if k['name'] == kname)
+        k_row.setdefault('sharded', []).append(dict(
+            input=label, slices=SP, rays=st['rays'], ms=st['ms'],
+            unsharded_ms=st['unsharded_ms'], launches=st['all_launches']))
     dense_row = next(k for k in kernels if k['name'] == "fill_dense")
     dense_row['stages_bound_ms'], dense_row['stages_bound_by'] = \
         s9['stages_k7_bound']

@@ -235,9 +235,8 @@ def test_traverse_plain_matches_reference(trees, name, any_hit):
 
 
 def test_traverse_auto_routes():
-    """CPU tensors run the plain version (no launch counted); the
-    reference's routes that are not ported raise, naming their ROADMAP
-    item."""
+    """CPU tensors run the plain version (no launch counted) on every
+    route; an sp_mesh that is not a (Mesh, axis) pair raises."""
     rng = np.random.default_rng(1)
     v0 = rng.uniform(-3, 3, (200, 3)).astype(np.float32)
     tris = np.stack([v0, v0 + rng.uniform(-.5, .5, (200, 3)),
@@ -272,5 +271,7 @@ def test_traverse_auto_routes():
     assert TBC.launches_by_kernel == before
     assert torch.equal(res['hit'], want['hit'])
     assert torch.equal(res['t'], want['t'])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # sp_mesh is a (Mesh, axis) pair (tests/test_torch_parallel.py
+    # traces through it); anything else raises
+    with pytest.raises(TypeError, match="sp_mesh"):
         TBC.traverse_auto(tb, o, d, 50.0, sp_mesh=object())

@@ -8,7 +8,8 @@ rtbench.py).
 * `main` on the CPU (the plain versions) at 16,384 rays without the SAH
   tree runs and prints the five complete-tree rows; the binned rows hit
   what the per-ray rows hit, also with each TR_BIN_* knob set.
-* `--scene stress` raises, naming its ROADMAP item.
+* `--scene stress` (the default) with no objects raises; its rows run
+  in tests/test_torch_tools.py.
 """
 
 import re
@@ -77,5 +78,5 @@ def test_bin_knobs_reach_traverse_binned(monkeypatch, capsys):
 
 
 def test_stress_scene_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        TR.main(["--scene", "stress", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--objects"):
+        TR.main(["--scene", "stress", "--objects", "0", "--device", "cpu"])

@@ -16,6 +16,11 @@ Layout mirrors the reference package:
   ops/      geometry, raster, culling, gbuffer, shading, RT tree and
             shadows, denoise, post; each kernel's wrapper (*_cuda.py)
   engine/   View, RenderSettings, render_frame
+  parallel/ a device Mesh; one frame's raster sharded by tile rows
+            (each band a K1 fill on its device), its rays in slices,
+            a batch of views over ('dp', 'sp')
+  tools/    the render CLI, the HTTP viewer (shell), the benches
+            (rtbench, fillbench, passes), the scene generator
   csrc/     CUDA sources, built by nvcc at first use into build/
 """
 

@@ -392,31 +392,38 @@ traverse_kernel(const __grid_constant__ Tree tree,
 
 // The launch: as many blocks as the SMs keep resident at this stack
 // size (no more than the slots need), the counter reset first.  The
-// residency is asked once per instance and stack size.
+// residency is asked once per instance, device and stack size (the
+// shared-memory attribute is set on the current device).
+constexpr int kMaxDevices = 64;
+
 template <bool kAnyHit, bool kSah, bool kGroupDirs, bool kSeeded>
 cudaError_t launch_one(const Tree& tree, const Rays& rays, int* counter,
                        int stack_n, cudaStream_t s, int* warps) {
   auto kernel = traverse_kernel<kAnyHit, kSah, kGroupDirs, kSeeded>;
   const int smem = kWarps * 32 * stack_n * static_cast<int>(sizeof(int));
-  static int known_smem = -1, resident = 0;
+  static int known_smem[kMaxDevices], resident[kMaxDevices];
+  static bool asked[kMaxDevices];
   cudaError_t err;
-  if (smem != known_smem) {
+  int device = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!asked[device] || smem != known_smem[device]) {
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    int per_sm = 0, device = 0, sms = 0;
+    int per_sm = 0, sms = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                         kThreads, smem);
     if (err != cudaSuccess) return err;
-    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
     if (err != cudaSuccess) return err;
-    known_smem = smem;
-    resident = per_sm * sms;
+    known_smem[device] = smem;
+    resident[device] = per_sm * sms;
+    asked[device] = true;
   }
   const int need = (rays.n + kThreads - 1) / kThreads;
-  const int blocks = max(1, min(need, resident));
+  const int blocks = max(1, min(need, resident[device]));
   *warps = blocks * kWarps;
   err = cudaMemsetAsync(counter, 0, sizeof(int), s);
   if (err != cudaSuccess) return err;

@@ -180,3 +180,27 @@ def sized_raster_config(settings, counts: dict) -> raster_mod.RasterConfig:
     if cfg.pair_capacity is not None and pairs > cfg.pair_capacity:
         fracs['pair_capacity'] = _round_up(pairs * PAIR_MARGIN, 128, 4096)
     return dataclasses.replace(cfg, **fracs)
+
+
+def band_config(cfg: raster_mod.RasterConfig,
+                n_bands: int) -> raster_mod.RasterConfig:
+    """The RasterConfig of one of `n_bands` horizontal bands of `cfg`'s
+    tile rows (parallel/sp_raster.py): the band's height, and the frame's
+    own pair budget.  A band bins the frame's pairs of its own tile rows
+    (a triangle clipped to the band keeps its tiles there), so a band
+    whose pairs fit the frame's budget walks all of them: every pair the
+    single fill walks there, and more where the single fill's budget ran
+    out before the band's rows.  The
+    reference divides the budget by the bands, max(cap // n, 256)
+    (its sp_raster.py:43-44), so a band holding more than its share drops
+    pairs the single fill keeps.  K, B and the class caps (fractions of
+    the set's triangle slots, the same in every band) stay the frame's.
+    One band is the frame itself (its height unpadded: the edges then
+    translate by exactly nothing).  Requires tiles_y % n_bands == 0."""
+    if n_bands < 1 or cfg.tiles_y % n_bands:
+        raise ValueError(f"tiles_y={cfg.tiles_y} must divide by the "
+                         f"{n_bands} bands (pad the render height)")
+    if n_bands == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, height=cfg.tiles_y // n_bands * cfg.tile_h)

@@ -477,22 +477,62 @@ def _raster_stats(setup, bins):
 
 
 def _raster_with_records(scene, geo, cfg, inst_world, inst_adj,
-                         prev_inst_world, prev_vp, **fill_kw):
+                         prev_inst_world, prev_vp, sp_mesh=None, **fill_kw):
     """setup + bin + fused fill+resolve of one triangle set.  Returns
     (setup, records, depth, tri_id, interpolant planes, raster stats);
     fill_kw goes to fill_resolve_stream (init planes, emit_base,
-    padded_io)."""
+    padded_io).  With sp_mesh = (mesh, axis), the tile rows shard over
+    the axis (parallel.sp_raster.raster_frame_sp, reference package
+    frame.py:359-369)."""
     setup = raster_mod.setup_triangles(geo, cfg)
     records = pack_resolve_records(setup, scene, inst_world, inst_adj,
                                    prev_inst_world, prev_vp)
+    if sp_mesh is not None:
+        from toyrenderer_tpu_torch.parallel.sp_raster import raster_frame_sp
+        depth, tri_id, interp, stats = raster_frame_sp(
+            setup, records, cfg, *sp_mesh, **fill_kw)
+        return setup, records, depth, tri_id, interp, stats
     bins = bin_pairs_with_budget(setup, cfg)
     depth, tri_id, interp = fill_resolve_stream(setup, records, bins, cfg,
                                                 **fill_kw)
     return setup, records, depth, tri_id, interp, _raster_stats(setup, bins)
 
 
+class _LayerFill:
+    """The peeled fills of one triangle set, binned once: `fill(peel)`
+    is one fused fill + resolve behind the exclusive bound `peel` (None:
+    the first layer), unpadded; `bins` the single device's pair stream
+    (None on a mesh, whose bands bin their own)."""
+
+    def __init__(self, setup, records, cfg, sp_mesh):
+        self.setup, self.records, self.cfg = setup, records, cfg
+        self.sp_mesh = sp_mesh
+        self.bins = self.bands = None
+        if sp_mesh is None:
+            self.bins = bin_pairs_with_budget(setup, cfg)
+        else:
+            from toyrenderer_tpu_torch.parallel.sp_raster import shard_bands
+            self.bands = shard_bands(setup, records, cfg, *sp_mesh)
+
+    def stats(self) -> dict:
+        if self.bands is None:
+            return _raster_stats(self.setup, self.bins)
+        from toyrenderer_tpu_torch.parallel.sp_raster import band_stats
+        return band_stats(self.setup, self.bands, self.sp_mesh[0].first)
+
+    def __call__(self, peel):
+        if self.bands is None:
+            return fill_resolve_stream(self.setup, self.records, self.bins,
+                                       self.cfg, peel_depth=peel)
+        from toyrenderer_tpu_torch.parallel.sp_raster import raster_frame_sp
+        return raster_frame_sp(self.setup, self.records, self.cfg,
+                               *self.sp_mesh, peel_depth=peel,
+                               bands=self.bands)[:3]
+
+
 def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
-                       frame_inputs, carry, pair_inst, cfg, settings, passes):
+                       frame_inputs, carry, pair_inst, cfg, settings, passes,
+                       sp_mesh=None):
     """GPU-driven 2-phase occlusion-culled GBuffer pass (reference
     package, frame.py:1311-1401).
 
@@ -504,7 +544,8 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     render on top, continuing the early planes.  The final depth's HZB
     culls the next frame.  The pair lists' capacities are Python ints
     (pair_inst only sets the early one), so nothing here waits on the
-    device.  `passes` opens each step's profiler range.  Returns (interp
+    device.  `passes` opens each step's profiler range; sp_mesh shards
+    both fills' tile rows (_raster_with_records).  Returns (interp
     planes, depth, tri_id, aux, new_hzb)."""
     planes = frame_inputs['cull_frustum_planes']
     cam = frame_inputs['cull_cam_pos']
@@ -532,7 +573,7 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
         scene, inst_world, frame_inputs['view_proj'], pi1, pm1, pv1)
     setup1, _, depth1, tid1, interp1, rs1 = _raster_with_records(
         scene, geo1, cfg, inst_world, inst_adj, prev_inst_world, prev_vp,
-        padded_io=True)
+        sp_mesh=sp_mesh, padded_io=True)
     passes.begin('HZB(SPD)')
     hzb_mid = hzb_mod.build_hzb(crop_image(depth1, cfg), w, h)
 
@@ -552,8 +593,9 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
         scene, inst_world, frame_inputs['view_proj'], pi2, pm2, pv2)
     _, _, depth, tri_id, interp, rs2 = _raster_with_records(
         scene, geo2, cfg, inst_world, inst_adj, prev_inst_world, prev_vp,
-        init_depth=depth1, init_tri_id=tid1, init_rec=interp1,
-        emit_base=setup1['valid'].shape[0], padded_io=True)
+        sp_mesh=sp_mesh, init_depth=depth1, init_tri_id=tid1,
+        init_rec=interp1, emit_base=setup1['valid'].shape[0],
+        padded_io=True)
 
     interp = crop_image(interp, cfg)
     depth = crop_image(depth, cfg)
@@ -574,19 +616,21 @@ def _gbuffer_two_phase(scene, inst_world, inst_adj, prev_inst_world,
     return interp, depth, tri_id, aux, new_hzb
 
 
-def _shadow_raw(bvh, normal, depth, frame_inputs, carry, settings):
+def _shadow_raw(bvh, normal, depth, frame_inputs, carry, settings,
+                sp_mesh=None):
     """The raw 1-spp sun visibility (H, W) of the ShadowMask pass
     (reference package, frame.py:830-887).  With shadow_ray_scale = sc
     (a power of two dividing the frame), rays trace at 1/sc resolution
     from each sc x sc quad's nearest surface (reverse-Z max depth; the
     quad's mean normal for the bias), on the checkerboard half of that
     grid when shadow_checkerboard is on (alternating with the frame's
-    parity); the result expands back to full resolution."""
+    parity); the result expands back to full resolution.  sp_mesh
+    shards the rays (trace_shadow_mask)."""
     h, w = depth.shape
     inv_vp = frame_inputs['inv_view_proj']
     to_light = -frame_inputs['sun_direction']
     trace = dict(frame_index=carry['frame_index'],
-                 max_steps=settings.shadow_max_steps)
+                 max_steps=settings.shadow_max_steps, sp_mesh=sp_mesh)
     sc = max(settings.shadow_ray_scale, 1)
     if not (sc > 1 and h % sc == 0 and w % sc == 0 and (sc & (sc - 1)) == 0):
         wp = world_pos_from_depth(depth, inv_vp, w, h)
@@ -646,13 +690,15 @@ def _host_sun_sig(fh):
 
 
 def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
-             host: HostMirror, settings, sky_fn, sun_vis_fn=None):
+             host: HostMirror, settings, sky_fn, sun_vis_fn=None,
+             sp_mesh=None):
     """The GI pass (reference package, frame.py:898-1105): the
     convergence test, the probe update on update frames, and the probe
     field sampled per pixel.  `trace_inputs()` gives (tree, shade
     records, pair tables or None) on update frames; `sun_vis_fn(points)`,
     when given, the probe hits' sun visibility (the sun map's taps) in
-    place of their any-hit rays.
+    place of their any-hit rays; sp_mesh shards the probe rays
+    (trace_probe_block).
 
     The reference holds the probes through a device-side branch (hold
     frames: 3 of every 4 with gi_update_phases=4 in interval mode, and
@@ -714,7 +760,7 @@ def _gi_pass(volume, trace_inputs, depth, wp, normal, frame_inputs, carry,
                 max_steps=settings.gi_max_steps,
                 probe_offset=carry['ddgi_offset'],
                 probe_state=carry['ddgi_state'], sun_vis_fn=sun_vis_fn,
-                pair_tables=tables)
+                pair_tables=tables, sp_mesh=sp_mesh)
         gic = ddgi_mod.update_probe_block(
             volume, dict(carry, ddgi_var_samples=var_samples), radiance,
             ray_dist, ray_dirs, blk,
@@ -802,7 +848,8 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
                  ddgi_volume=None, rt_static_gi=None, gi_pair_inst=None,
                  gi_pair_meshlet=None, trans_pair_inst=None,
                  trans_pair_meshlet=None,
-                 trans_raster_cfg: RasterConfig | None = None):
+                 trans_raster_cfg: RasterConfig | None = None,
+                 sp_mesh=None):
     """One frame.
 
     frame_inputs (tensors on the scene's device, see
@@ -850,6 +897,15 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
     after an instance moved).
     trans_pair_inst / trans_pair_meshlet: the blend set (alpha mode
     BLEND), drawn with enable_transparency.
+    sp_mesh: (parallel.Mesh, axis), the frame over that axis's devices
+    (reference package, frame.py:344-369, 564-650, 869-887, 1021,
+    1185-1200): every fill of the opaque, masked and blend sets with its
+    tile rows sharded (parallel.sp_raster.raster_frame_sp; the masked
+    set then takes one fused fill per layer, without the compact merge
+    and its K2 fill, as the reference does), the shadow rays and the
+    probe rays in slices (bvh_cuda.traverse_auto); the rest of the frame
+    runs on the scene's device, the mesh's first.  Unlike the
+    reference's, each band keeps the peel bound and reports its drops.
     Returns (image_u8 (H, W, 3), new_carry, aux dict).  aux holds the
     opaque set's raster counters as `raster_*` (`raster_dropped` sums its
     drop counters, as the reference's does) or, culled, the reference's
@@ -883,7 +939,7 @@ def render_frame(scene, pair_inst, pair_meshlet, frame_inputs: dict,
             gi_pair_inst=gi_pair_inst, gi_pair_meshlet=gi_pair_meshlet,
             trans_pair_inst=trans_pair_inst,
             trans_pair_meshlet=trans_pair_meshlet,
-            trans_raster_cfg=trans_raster_cfg)
+            trans_raster_cfg=trans_raster_cfg, sp_mesh=sp_mesh)
     finally:
         passes.end()
 
@@ -905,7 +961,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
            settings, *, mask_pair_inst, mask_pair_meshlet, raster_cfg,
            mask_raster_cfg, rt_static, rt_pair_inst, rt_pair_meshlet,
            ddgi_volume, rt_static_gi, gi_pair_inst, gi_pair_meshlet,
-           trans_pair_inst, trans_pair_meshlet, trans_raster_cfg):
+           trans_pair_inst, trans_pair_meshlet, trans_raster_cfg, sp_mesh):
     """render_frame's body: its arguments, with the ranges `passes`,
     which render_frame closes whether or not the frame raises."""
     check_settings(settings)
@@ -959,7 +1015,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
     if settings.enable_culling and not settings.use_bruteforce_raster:
         interp, depth, tri_id, raster_aux, new_hzb = _gbuffer_two_phase(
             scene, inst_world, inst_adj, prev_inst_world, frame_inputs,
-            carry, pair_inst, cfg, settings, passes)
+            carry, pair_inst, cfg, settings, passes, sp_mesh=sp_mesh)
     else:
         passes.begin('BasePass(fill+resolve)')
         geo = geo_mod.meshlet_clip_triangles(
@@ -977,7 +1033,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
         else:
             _, _, depth, tri_id, interp, rstats = _raster_with_records(
                 scene, geo, cfg, inst_world, inst_adj, prev_inst_world,
-                prev_vp)
+                prev_vp, sp_mesh=sp_mesh)
             raster_aux = {f'raster_{k}': v for k, v in rstats.items()}
     mstats = {}     # the masked set's counters, when it is drawn
     tstats = {}     # the blend set's
@@ -1008,8 +1064,8 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
         setup_m = raster_mod.setup_triangles(geo_m, cfg_m)
         records_m = pack_resolve_records(
             setup_m, scene, inst_world, inst_adj, prev_inst_world, prev_vp)
-        bins_m = bin_pairs_with_budget(setup_m, cfg_m)
-        mstats = _raster_stats(setup_m, bins_m)
+        fill_m = _LayerFill(setup_m, records_m, cfg_m, sp_mesh)
+        mstats = fill_m.stats()
         n_layers = max(settings.alpha_layers, 1)
         # the merged channels: the packed words or the float planes, and
         # uv when a debug view may read it
@@ -1032,12 +1088,13 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
             return (torch.where(passes_px, depth_m, depth),
                     torch.where(passes_px, tid_m, tri_id))
 
-        if settings.peel_merge_frac > 0 and h0 % 2 == 0 and w0 % 2 == 0:
+        if (sp_mesh is None and settings.peel_merge_frac > 0
+                and h0 % 2 == 0 and w0 % 2 == 0):
             # every layer in ONE occluder-seeded peel fill (K2), then
             # resolve + texture at compact rate, only on the quads a
             # fragment reaches (reference package, frame.py:598-640)
             depth_l, tid_l = fill_peel_stream(
-                setup_m, bins_m, cfg_m, layers=n_layers,
+                setup_m, fill_m.bins, cfg_m, layers=n_layers,
                 occluder_depth=depth)
             cap_q = max(int((h0 // 2) * (w0 // 2)
                             * settings.peel_merge_frac), 256)
@@ -1054,8 +1111,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
             chosen = torch.zeros_like(depth, dtype=torch.bool)
             peel = None
             for _layer in range(n_layers):
-                depth_m, tid_m, rec_m = fill_resolve_stream(
-                    setup_m, records_m, bins_m, cfg_m, peel_depth=peel)
+                depth_m, tid_m, rec_m = fill_m(peel)
                 gb_m = gbuffer(rec_m, depth_m, tid_m, feedback=False)
                 won = ((gb_m['alpha'] >= gb_m['alpha_cutoff'])
                        & (depth_m > depth) & (depth_m > 0.0) & ~chosen)
@@ -1151,7 +1207,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
         passes.begin('ShadowMask')
         if needs_rays:
             raw = _shadow_raw(bvh, normal, depth, frame_inputs, carry,
-                              settings)
+                              settings, sp_mesh=sp_mesh)
         else:
             raw = shadowmap.sample_shadow_map(
                 sun_map(), sm_res, sun_vp,
@@ -1224,7 +1280,7 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
             return tree, shade, tables
         gi_irradiance, gi_carry, gi_aux, mirror = _gi_pass(
             ddgi_volume, trace_inputs, depth, wp, normal, frame_inputs,
-            carry, host, settings, sky_fn, sun_vis_fn)
+            carry, host, settings, sky_fn, sun_vis_fn, sp_mesh=sp_mesh)
         new_carry.update(gi_carry)
 
     # -- ReSTIR DI: the emissive triangles of the RT pair stream as lights,
@@ -1283,15 +1339,14 @@ def _frame(passes, scene, pair_inst, pair_meshlet, frame_inputs, carry,
         setup_t = raster_mod.setup_triangles(geo_t, cfg_t)
         records_t = pack_resolve_records(
             setup_t, scene, inst_world, inst_adj, prev_inst_world, prev_vp)
-        bins_t = bin_pairs_with_budget(setup_t, cfg_t)
-        tstats = _raster_stats(setup_t, bins_t)
+        fill_t = _LayerFill(setup_t, records_t, cfg_t, sp_mesh)
+        tstats = fill_t.stats()
         layers = []
         peel = None
         for layer in range(max(settings.oit_layers, 1)):
             if layer:
                 passes.begin(f'TransparentForward(layer {layer})')
-            depth_t, tid_t, rec_t = fill_resolve_stream(
-                setup_t, records_t, bins_t, cfg_t, peel_depth=peel)
+            depth_t, tid_t, rec_t = fill_t(peel)
             # the reference resolves these layers with the per-pixel
             # sampler (no quad taps)
             gb_t = finish_gbuffer(

@@ -1,7 +1,7 @@
 """Native (C++) host-side builders, compiled with g++ at first use.
 
 The four sources are the JAX package's own host builders, copied so the
-port imports nothing of it: the EXT_meshopt_compression decoders, the
+port imports nothing of it: the EXT_meshopt_compression codecs, the
 greedy meshlet builder, the quadric simplifier and the binned-SAH 8-wide
 tree builder of the GI tree.  There is no Python
 fallback: a fallback would produce other meshlets and LODs than the
@@ -44,8 +44,18 @@ def simplify_lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=1)
 def meshopt_lib() -> ctypes.CDLL:
-    """ctypes handle to the EXT_meshopt_compression decoders."""
+    """ctypes handle to the EXT_meshopt_compression codecs."""
     lib = _load("meshopt_codec.cpp")
+    fn = lib.mcodec_encode_vertex_buffer
+    fn.restype = ctypes.c_ssize_t
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                   ctypes.c_size_t, ctypes.c_size_t]
+    for name in ("mcodec_encode_index_buffer",
+                 "mcodec_encode_index_sequence"):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_ssize_t
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                       ctypes.c_size_t]
     fn = lib.mcodec_decode_vertex_buffer
     fn.restype = ctypes.c_ssize_t
     fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_size_t,

@@ -409,11 +409,16 @@ def traverse_auto(bvh, origins, directions, t_max, any_hit: bool = False,
     falls through to its lockstep traversal elsewhere; the port takes
     its accelerator branch on every device, so on the CPU the routes run
     their plain folds.  `max_steps` is accepted and, as for the
-    reference's kernel, does not bound the walk.  `sp_mesh` (multi-device
-    rays) is not ported yet and raises, naming its ROADMAP item."""
+    reference's kernel, does not bound the walk.  `sp_mesh` = (Mesh,
+    axis) with more than one device on the axis traces the rays in
+    slices, one per device (_traverse_sharded)."""
     if sp_mesh is not None:
-        raise NotImplementedError("traverse_auto sp_mesh (multi-device "
-                                  "rays): ROADMAP queue 1 item 10")
+        mesh, axis = _mesh_axis(sp_mesh)
+        if mesh.shape[axis] > 1:
+            return _traverse_sharded(
+                bvh, origins, directions, t_max, any_hit, live, mesh, axis,
+                group_dirs=group_dirs, chunked=chunked, pairs=pairs,
+                pair_tables=pair_tables)
     if chunked:
         from toyrenderer_tpu_torch.ops import rt_chunks
         return rt_chunks.traverse_chunks(bvh, origins, directions, t_max,
@@ -427,6 +432,94 @@ def traverse_auto(bvh, origins, directions, t_max, any_hit: bool = False,
         group_dirs = None
     return traverse(bvh, origins, directions, t_max, any_hit, live,
                     group_dirs)
+
+
+def _mesh_axis(sp_mesh):
+    """(mesh, axis) of an sp_mesh argument, or TypeError."""
+    try:
+        mesh, axis = sp_mesh
+        mesh.shape[axis]
+    except (TypeError, ValueError, KeyError, AttributeError) as e:
+        raise TypeError(f"sp_mesh must be (parallel.Mesh, axis name), got "
+                        f"{sp_mesh!r}") from e
+    return mesh, axis
+
+
+def _traverse_sharded(bvh, origins, directions, t_max, any_hit, live, mesh,
+                      axis, group_dirs=None, chunked: bool = False,
+                      pairs: bool = False, pair_tables=None) -> dict:
+    """traverse_auto over the devices of `axis` (bvh_pallas.py:189-260):
+    the rays, padded with dead rays to a multiple of the axis, are cut
+    into one slice per device, each traced against that device's copy of
+    the tree (Mesh.put: copied once per tree) in the asked route, the
+    results gathered onto the mesh's first device and cut back to N.
+    With grouped directions the multiple is axis x 128, so no slice
+    splits a 128-ray group; the pair and chunk routes, which fold blocks
+    of 128 rays, get the same multiple, so each slice holds whole blocks
+    of the unsharded call.  Their pair list has a capacity for the whole
+    call (rt_pairs.pair_list): each slice continues the list of the
+    slices before it (its offset, the pairs they listed, passes from
+    device to device without a host read), so the same blocks overflow
+    to the per-ray fallback as in the unsharded call, where the
+    reference caps each shard's list on its own.  Nothing else mixes
+    rays, so the result is the unsharded call's bit for bit.  The pair
+    and chunk routes' tables are built once per device."""
+    from toyrenderer_tpu_torch.ops import rt_chunks, rt_pairs
+    from toyrenderer_tpu_torch.parallel.mesh import gather, run_on, to_device
+    devices = mesh.along(axis)
+    nsp = len(devices)
+    n = origins.shape[0]
+    grouped = group_dirs is not None and n % GROUP == 0
+    blocked = pairs or chunked
+    quant = nsp * GROUP if (grouped or blocked) else nsp
+    n_pad = -(-n // quant) * quant
+    per = n_pad // nsp
+    t_max, live_f = _rays(origins, t_max, live)
+
+    def pad(x):
+        return torch.nn.functional.pad(
+            x, (0, 0, 0, n_pad - n) if x.dim() == 2 else (0, n_pad - n))
+    o_p, d_p, t_p, l_p = (pad(x) for x in (origins, directions, t_max,
+                                           live_f))
+    g_p = pad(group_dirs) if grouped else None
+    # the unsharded call's list capacity and each slice's place in it
+    cap = rt_pairs.list_capacity(-(-n // GROUP), rt_pairs.PAIR_FACTOR)
+    offset = 0
+    tables = {}
+    parts = []
+    for i, dev in enumerate(devices):
+        sl = slice(i * per, (i + 1) * per)
+        with run_on(dev):
+            tree = mesh.put(bvh, dev)
+            o, d, t, lv = (to_device(x[sl], dev).contiguous()
+                           for x in (o_p, d_p, t_p, l_p))
+            key = str(dev)
+            if blocked:
+                if key not in tables:
+                    tables[key] = (
+                        rt_chunks.chunk_table(tree) if chunked
+                        else mesh.put(pair_tables, dev)
+                        if pair_tables is not None
+                        else rt_pairs.mt_tables(tree))
+                route = (rt_chunks.traverse_chunks if chunked
+                         else rt_pairs.traverse_pairs)
+                st = {}
+                res = route(tree, o, d, t, any_hit=any_hit, live=lv,
+                            tables=tables[key], stats=st,
+                            budget=(to_device(offset, dev), cap))
+                offset = to_device(offset, dev) + st['counts'].sum()
+            else:
+                kw = {}
+                if grouped:
+                    kw['group_dirs'] = to_device(
+                        g_p[i * per // GROUP:(i + 1) * per // GROUP],
+                        dev).contiguous()
+                res = traverse_auto(tree, o, d, t, any_hit=any_hit, live=lv,
+                                    **kw)
+        parts.append(res)
+    out_dev = mesh.first
+    return {k: gather([p[k] for p in parts], out_dev, 0)[:n]
+            for k in parts[0]}
 
 
 def _entry_nodes_complete(bvh, max_entries: int = 128):

@@ -39,7 +39,7 @@ import torch
 from toyrenderer_tpu_torch.ops import bvh_cuda
 from toyrenderer_tpu_torch.ops.bvh import LEAF_TRIS
 from toyrenderer_tpu_torch.ops.rt_pairs import (
-    _EPS_DIR, INF_KEY, _block_boxes, pair_list, unpack_keys)
+    _EPS_DIR, INF_KEY, PAIR_FACTOR, _block_boxes, pair_list, unpack_keys)
 from toyrenderer_tpu_torch.utils.timing import profiler_range
 
 CHUNK_ROWS = 8                          # leaf rows per chunk
@@ -150,9 +150,10 @@ def chunk_fold_plain(rays, data, pchk, starts, n_walk,
 
 
 def traverse_chunks(bvh, origins, directions, t_max, any_hit: bool = False,
-                    live=None, block: int = BLOCK, pair_factor: int = 64,
+                    live=None, block: int = BLOCK,
+                    pair_factor: int = PAIR_FACTOR,
                     tables=None, fallback: bool = True,
-                    stats: dict | None = None) -> dict:
+                    stats: dict | None = None, budget=None) -> dict:
     """Trace rays through the chunk route (reference rt_chunks.py:101):
     bvh_cuda's contract -- dict(hit, t, tri, steps) -- plus u and v,
     zero as in the reference; steps is the ray's block's pair count.
@@ -163,7 +164,9 @@ def traverse_chunks(bvh, origins, directions, t_max, any_hit: bool = False,
     mode; without it they keep the fold over their pairs inside the cap
     (none for a block whose list starts past it).  With `stats` (a
     dict), it also receives the per-block `counts`, `overflow` and
-    `n_walk` and the list capacity `pcap`."""
+    `n_walk` and the list capacity `pcap`.  `budget`: these rays are a
+    slice of a longer call's, whose list they continue
+    (rt_pairs.pair_list)."""
     from toyrenderer_tpu_torch.ops import chunks_cuda
     n = origins.shape[0]
     dev = origins.device
@@ -183,7 +186,8 @@ def traverse_chunks(bvh, origins, directions, t_max, any_hit: bool = False,
         sd = torch.where(torch.abs(d_p) < _EPS_DIR,
                          torch.where(d_p < 0, -_EPS_DIR, _EPS_DIR), d_p)
         ok_b = _block_boxes(o_p, 1.0 / sd, cap_p, lv_p > 0.0, boxes, block)
-        pchk, counts, starts, overflow, pcap = pair_list(ok_b, pair_factor)
+        pchk, counts, starts, overflow, pcap = pair_list(ok_b, pair_factor,
+                                                         budget)
         # a block walks its pairs inside the cap (the reference's list)
         n_walk = torch.clamp(torch.clamp(starts + counts, max=pcap)
                              - starts, min=0)

@@ -53,6 +53,7 @@ SLAB = 128                              # lanes per form slab (tris, padded)
 NSLAB = 4                               # det | u_num | v_num | t_num
 NFEAT = 16                              # [1, o(3), d(3), o(x)d(9)]
 BLOCK = 128                             # rays per block
+PAIR_FACTOR = 64                        # the list's pairs per ray block
 _EPS_DIR = 1e-12
 _BOX_ELEMS = 1 << 24                    # (rays, chunks) box-phase tile
 _FOLD_ELEMS = 1 << 22                   # (pairs, rays, tris) plain tile
@@ -215,28 +216,41 @@ def _block_boxes(o, inv, cap, live, boxes, block: int = BLOCK):
     return torch.cat(out)
 
 
-def pair_list(ok_b, pair_factor: int):
+def list_capacity(blocks: int, pair_factor: int) -> int:
+    """The pair list's capacity for `blocks` ray blocks: pair_factor *
+    blocks rounded up to 1024 (the reference's)."""
+    return max(-(-pair_factor * blocks // 1024) * 1024, 1024)
+
+
+def pair_list(ok_b, pair_factor: int, budget=None):
     """The (block, chunk) pair list of a (B, C) overlap matrix, without a
     host read: (pchk, counts, starts, overflow, pcap).  pchk (min(pcap,
     B * C),) i32 holds the chunk of each listed pair, the overlapping
     flat indices b * C + c in ascending order, capped at pcap =
-    pair_factor * B rounded up to 1024 (0 past the list); counts (B,)
-    each block's pairs, starts (B,) its first position in the list,
-    overflow (B,) bool whether its pairs end past the cap."""
+    list_capacity(B, pair_factor) (0 past the list); counts (B,) each
+    block's pairs, starts (B,) its first position in the list, overflow
+    (B,) bool whether its pairs end past the cap.  budget = (offset,
+    cap): these blocks are a slice of a longer call's (a sharded trace,
+    bvh_cuda._traverse_sharded) whose first pair lies at position
+    `offset` (an int or a device scalar) of that call's list, capped at
+    `cap`; a block overflows where its pairs end past `cap` in that list,
+    as in the unsharded call, and the returned pcap is cap - offset, the
+    cap in this list's positions."""
     b, c = ok_b.shape
-    pcap = max(-(-pair_factor * b // 1024) * 1024, 1024)
+    offset, pcap = ((0, list_capacity(b, pair_factor)) if budget is None
+                    else budget)
     flat = torch.arange(b * c, device=ok_b.device)
     keys = torch.where(ok_b.reshape(-1), flat, b * c)
     pidx = torch.sort(keys).values[:pcap]
     pchk = torch.where(pidx < b * c, pidx % c, 0).to(torch.int32)
     counts = ok_b.sum(1)
     ends = torch.cumsum(counts, 0)
-    return pchk, counts, ends - counts, ends > pcap, pcap
+    return pchk, counts, ends - counts, ends + offset > pcap, pcap - offset
 
 
 def traverse_pairs(bvh, origins, directions, t_max, any_hit: bool = False,
-                   live=None, pair_factor: int = 64, tables=None,
-                   stats: dict | None = None) -> dict:
+                   live=None, pair_factor: int = PAIR_FACTOR, tables=None,
+                   stats: dict | None = None, budget=None) -> dict:
     """Trace rays through the pair route (reference rt_pairs.py:229):
     bvh_cuda's contract -- dict(hit, t, tri, steps) -- plus u and v,
     zero as in the reference (no consumer reads RT barycentrics); steps
@@ -245,7 +259,8 @@ def traverse_pairs(bvh, origins, directions, t_max, any_hit: bool = False,
     (dense tests have no early exit); overflowed blocks' live rays take
     traverse_auto on `bvh` in the asked mode.  With `stats` (a dict), it
     also receives the per-block `counts`, `overflow` and `n_walk` and the
-    list capacity `pcap`."""
+    list capacity `pcap`.  `budget`: these rays are a slice of a longer
+    call's, whose list they continue (pair_list)."""
     from toyrenderer_tpu_torch.ops import pairs_cuda
     n = origins.shape[0]
     dev = origins.device
@@ -274,7 +289,8 @@ def traverse_pairs(bvh, origins, directions, t_max, any_hit: bool = False,
         # lie inside the cap (the reference's rule: every pair of a block
         # whose list ends past the cap is completed by the fallback, and
         # only the block that straddles the cap walks part of its list)
-        pchk, counts, starts, overflow, pcap = pair_list(ok_b, pair_factor)
+        pchk, counts, starts, overflow, pcap = pair_list(ok_b, pair_factor,
+                                                         budget)
         n_walk = torch.clamp(torch.clamp(starts + counts, max=pcap)
                              - starts, min=0)
     if stats is not None:

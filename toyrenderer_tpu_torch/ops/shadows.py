@@ -88,7 +88,8 @@ def _shadow_gdir_enabled() -> bool:
 def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
                       frame_index, half_angle: float = SUN_ANGULAR_RADIUS,
                       normal_bias: float = 2e-2, t_max: float = 1e4,
-                      max_steps: int = 96, gdir: bool | None = None):
+                      max_steps: int = 96, gdir: bool | None = None,
+                      sp_mesh=None):
     """1 spp cone-sampled sun visibility per pixel.
 
     world_pos, normal (H, W, 3), hit_mask (H, W) bool, sun_dir_to_light
@@ -100,7 +101,8 @@ def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
     TR_SHADOW_GDIR, as the reference does): one cone sample per 64x2
     strip of the 64x64 ray blocks, so every 128 rays share a direction
     and trace through the grouped-direction kernel K5, its directions
-    in the `group_dirs` side table."""
+    in the `group_dirs` side table.  sp_mesh = (Mesh, axis) traces the
+    rays in slices over the axis's devices (traverse_auto)."""
     h, w = hit_mask.shape
     if gdir is None:
         gdir = _shadow_gdir_enabled()
@@ -129,7 +131,7 @@ def trace_shadow_mask(bvh, world_pos, normal, hit_mask, sun_dir_to_light,
     res = traverse_auto(bvh, _to_blocks(origins).contiguous(),
                         _to_blocks(dirs).contiguous(), t_max=t_max,
                         max_steps=max_steps, any_hit=True, live=live,
-                        group_dirs=gd)
+                        group_dirs=gd, sp_mesh=sp_mesh)
     lit = 1.0 - _from_blocks(res['hit'].to(torch.float32), h, w)
     lit = torch.where(ndotl <= 0.0, 0.0, lit)
     return torch.where(hit_mask, lit, 1.0)

@@ -1,8 +1,9 @@
-"""EXT_meshopt_compression decoders (numpy in/out).
+"""EXT_meshopt_compression codecs (numpy in/out).
 
-Counterpart of toyrenderer_tpu/scene/meshopt.py, decode side only: the
-port loads compressed assets, it does not write them.  Modes map per the
-extension spec: ATTRIBUTES -> vertex codec, TRIANGLES -> index codec,
+Counterpart of toyrenderer_tpu/scene/meshopt.py: the decoders the glTF
+loader runs, and the encoders tools/gen_scene.py writes compressed
+assets with (native/meshopt_codec.cpp's, through ctypes).  Modes map per
+the extension spec: ATTRIBUTES -> vertex codec, TRIANGLES -> index codec,
 INDICES -> index sequence codec; filters OCTAHEDRAL / QUATERNION /
 EXPONENTIAL post-process decoded elements.
 """
@@ -16,6 +17,43 @@ from toyrenderer_tpu_torch.native import meshopt_lib
 
 class MeshoptError(RuntimeError):
     pass
+
+
+def encode_vertex_buffer(data: np.ndarray) -> bytes:
+    """data: (count, stride_bytes) u8 -> compressed bytes."""
+    data = np.ascontiguousarray(data, np.uint8)
+    count, stride = data.shape
+    cap = 1 + count * stride * 2 + max(stride, 32) + 1024
+    out = np.zeros(cap, np.uint8)
+    n = meshopt_lib().mcodec_encode_vertex_buffer(
+        out.ctypes.data, cap, data.ctypes.data, count, stride)
+    if n < 0:
+        raise MeshoptError("vertex encode failed")
+    return out[:n].tobytes()
+
+
+def encode_index_buffer(indices: np.ndarray) -> bytes:
+    """Triangle indices (a multiple of 3, u32) -> compressed bytes."""
+    idx = np.ascontiguousarray(indices.reshape(-1), np.uint32)
+    cap = 1 + len(idx) * 6 + 16 + 1024
+    out = np.zeros(cap, np.uint8)
+    n = meshopt_lib().mcodec_encode_index_buffer(
+        out.ctypes.data, cap, idx.ctypes.data, len(idx))
+    if n < 0:
+        raise MeshoptError("index encode failed")
+    return out[:n].tobytes()
+
+
+def encode_index_sequence(indices: np.ndarray) -> bytes:
+    """Any index sequence (u32) -> compressed bytes."""
+    idx = np.ascontiguousarray(indices.reshape(-1), np.uint32)
+    cap = 1 + len(idx) * 5 + 64
+    out = np.zeros(cap, np.uint8)
+    n = meshopt_lib().mcodec_encode_index_sequence(
+        out.ctypes.data, cap, idx.ctypes.data, len(idx))
+    if n < 0:
+        raise MeshoptError("index sequence encode failed")
+    return out[:n].tobytes()
 
 
 def decode_vertex_buffer(src: bytes, count: int, stride: int) -> np.ndarray:

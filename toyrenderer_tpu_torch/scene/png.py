@@ -20,8 +20,9 @@ toyrenderer_tpu/scene/textures.py:131-132), bit for bit:
 
 All five scanline filters are undone, Paeth included.  A file that is
 not a well-formed PNG (bad signature, chunk CRC, header or data size)
-raises PngError.  `encode_png` writes (H, W, 3) u8 RGB as an 8-bit RGB
-PNG (filter 0 on every row).
+raises PngError.  `encode_png` writes (H, W, C) u8 -- grey, grey +
+alpha, RGB or RGBA -- as an 8-bit PNG of that colour type (filter 0 on
+every row).
 """
 
 from __future__ import annotations
@@ -218,16 +219,25 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+_CTYPE_OF = {1: 0, 2: 4, 3: 2, 4: 6}          # samples -> colour type
+
+
 def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3) u8 RGB -> PNG bytes (8-bit RGB, non-interlaced)."""
+    """(H, W) or (H, W, C) u8 -> PNG bytes, 8 bits a sample,
+    non-interlaced, filter 0 on every row: C = 1 grey, 2 grey + alpha,
+    3 RGB, 4 RGBA (what a texture writer and the frame writer need)."""
     img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
-        raise PngError(f"encode_png takes (H, W, 3) u8, got "
+    if img.ndim == 2:
+        img = img[..., None]
+    if (img.dtype != np.uint8 or img.ndim != 3
+            or img.shape[-1] not in _CTYPE_OF):
+        raise PngError(f"encode_png takes (H, W[, 1-4]) u8, got "
                        f"{img.shape} {img.dtype}")
-    h, w, _ = img.shape
+    h, w, ch = img.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           img.reshape(h, w * 3)], axis=1)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+                           np.ascontiguousarray(img).reshape(h, w * ch)],
+                          axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, _CTYPE_OF[ch], 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _chunk(b"IEND", b""))

@@ -1,8 +1,11 @@
 """Ray-traversal benchmark: Mrays/s of the traversal kernels on the ray
 populations the frame produces.
 
-Counterpart of toyrenderer_tpu/tools/rtbench.py.  Its rows, on the
-courtyard with the bench's 60% pair cut (bench.py parity):
+Counterpart of toyrenderer_tpu/tools/rtbench.py.  Its scenes: `stress`
+(the default, as the reference's: the procedural stress scene of
+--objects objects, sphere_res 24, untextured, every pair, rtbench.py:
+132-135) and `courtyard` (with the bench's 60% pair cut, bench.py
+parity).  Its rows:
   shadow(any-hit)   64x64-tile-ordered any-hit sun rays from ground points
                     (the shadow pass's packing), complete tree: K3
   probe(closest)    direction-major DDGI probe rays in the cone layout
@@ -46,6 +49,7 @@ from toyrenderer_tpu_torch.ops.bvh_sah import build_rt_static_sah, refit_sah
 from toyrenderer_tpu_torch.ops.ddgi import (
     GDIR_BRICK, GDIR_DIRS, _cone_block, _cone_order, cone_layout)
 from toyrenderer_tpu_torch.scene import load_scene
+from toyrenderer_tpu_torch.scene.procedural import make_stress_scene
 
 COURTYARD = (Path(__file__).resolve().parent.parent.parent / "resources"
              / "courtyard.glb")
@@ -115,11 +119,29 @@ def ray_sets(n_rays, aabb_lo, aabb_hi, sun_dir):
     return (sh_o[:n_rays], sh_d[:n_rays]), (pr_o, pr_d), (gd_o, gd_d, gd_g)
 
 
+def scene_pairs(name: str, objects: int = 192):
+    """(host scene, pair_inst, pair_meshlet) of a row set: the stress
+    scene with every pair, or the courtyard's opaque pairs cut to 60%."""
+    if name == "stress":
+        if objects < 1:
+            raise ValueError(f"--objects must be >= 1, got {objects}")
+        host = make_stress_scene(n_objects=objects, sphere_res=24,
+                                 textured=False)
+        return (host, *G.static_meshlet_pairs(host))
+    host = load_scene(COURTYARD)
+    mk_i, _ = G.static_meshlet_pairs(host, 'mask')
+    pi, pm = G.static_meshlet_pairs(host, 'not_mask' if len(mk_i) else 'all')
+    cap = max(int(len(pi) * PAIR_CUT), 256)
+    return host, pi[:cap], pm[:cap]
+
+
 def _parse(argv):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rays", type=int, default=1 << 20)
-    p.add_argument("--scene", default="courtyard",
-                   choices=("courtyard", "stress"))
+    p.add_argument("--scene", default="stress",
+                   choices=("stress", "courtyard"))
+    p.add_argument("--objects", type=int, default=192,
+                   help="the stress scene's objects")
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--nosah", action="store_true",
                    help="skip the SAH tree rows")
@@ -155,17 +177,9 @@ def run(argv=None) -> list[dict]:
     result, ms, mrays_s (and, for the binned rows, the first run's
     `stats` of traverse_binned)."""
     args = _parse(argv)
-    if args.scene == "stress":
-        raise NotImplementedError(
-            "rtbench --scene stress (its stress rows): not ported yet "
-            "(ROADMAP queue 1 item 8)")
     dev = resolve_device(args.device)
     print("[stage] scene build...", flush=True)
-    host = load_scene(COURTYARD)
-    mk_i, _ = G.static_meshlet_pairs(host, 'mask')
-    pi, pm = G.static_meshlet_pairs(host, 'not_mask' if len(mk_i) else 'all')
-    cap = max(int(len(pi) * PAIR_CUT), 256)
-    pi, pm = pi[:cap], pm[:cap]
+    host, pi, pm = scene_pairs(args.scene, args.objects)
     scene = host.to_device(dev)
 
     def on(a):
