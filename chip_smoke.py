@@ -162,6 +162,17 @@ both main paths through the port's entry points at 1920x1080:
   /frame.jpg and /stats.json fetched over localhost, the JPEG decoded by
   the port's decoder within SHELL_PSNR dB of the frame.  The mesh
   frames' and sharded calls' launches add to the kernels line's counts.
+* slice 12, every JPEG kind the reference decodes through Pillow: 4 of
+  the courtyard's base-colour textures (stone0, stone2, brick, wood)
+  encoded by scene/jpeg_encode.py, each transcoded by tests/
+  jpeg_streams.py to progressive Huffman, sequential arithmetic and
+  progressive arithmetic, every stream decoded on the host bit-equal to
+  the baseline decode, each decoder's host seconds per megapixel (best
+  of 3 decodes) beside the card's name and power limit; the culled
+  courtyard frame at 1920x1080 with the progressive textures in place
+  bit-equal to the frame with the baseline ones (image, HDR, launches)
+  and unlike the PNG-textured frame.  Its frames' K1 and K2 launches add
+  to the kernels line's counts.
 
 Each K6 line gives its even split's census (pairs_cuda.census: ray
 blocks with pairs, their largest and mean walk, work items and the grid,
@@ -3573,6 +3584,133 @@ def slice11(dev, ctx: dict) -> dict:
     return out
 
 
+JPEG_TEXTURES = (3, 5, 8, 10)    # the courtyard's base colours of stone0,
+#                                  stone2, brick and wood (opaque)
+JPEG_DECODE_REPS = 3             # decodes of each stream: the best timed
+JPEG_KINDS = {"baseline": b"\xff\xc0", "progressive": b"\xff\xc2",
+              "arithmetic": b"\xff\xc9",
+              "progressive arithmetic": b"\xff\xca"}
+
+
+def slice12(dev, ctx: dict) -> dict:
+    """Slice 12's phase, the JPEG decoder's every kind: 4 of the
+    courtyard's base-colour textures encoded by scene/jpeg_encode.py,
+    each transcoded by tests/jpeg_streams.py to progressive Huffman,
+    sequential arithmetic and progressive arithmetic and decoded on the
+    host, every stream bit-equal to the baseline decode; the decoders'
+    host seconds per megapixel (the best of 3 decodes of each stream)
+    beside the card's name and power limit;
+    the culled courtyard frame at 1920x1080 with the progressive
+    textures in place, bit-equal to the frame with the baseline ones,
+    and unlike the PNG-textured frame (the textures are sampled).
+    Returns the frames' launches."""
+    import numpy as np
+    import torch
+
+    from toyrenderer_tpu_torch.engine import init_carry, make_render_fn
+    from toyrenderer_tpu_torch.scene import textures as TX
+    from toyrenderer_tpu_torch.scene.gltf import load_gltf
+    from toyrenderer_tpu_torch.scene.jpeg import (
+        decode_jpeg, read_coefficients)
+    from toyrenderer_tpu_torch.scene.jpeg_encode import encode_jpeg
+    from toyrenderer_tpu_torch.scene.png import decode_png
+    sys.path.insert(0, str(ROOT / "tests"))
+    import jpeg_streams
+    host, scene, c_pairs, c_kw, c_set = (ctx['host'], ctx['scene'],
+                                         ctx['c_pairs'], ctx['c_kw'],
+                                         ctx['c_set'])
+    mask_kw, fi_np, card = ctx['mask_kw'], ctx['fi_np'], ctx['card']
+    t12 = time.time()
+    doc = load_gltf(SCENE)
+    streams = {k: {} for k in JPEG_KINDS}
+    seconds = dict.fromkeys(JPEG_KINDS, 0.0)
+    megapixels = 0.0
+    for ti in JPEG_TEXTURES:
+        rgb = np.ascontiguousarray(decode_png(doc.textures[ti].image_bytes)
+                                   [..., :3])
+        base = encode_jpeg(rgb)
+        co = read_coefficients(base)
+        streams["baseline"][ti] = base
+        streams["progressive"][ti] = jpeg_streams.write(
+            co, progression="default")
+        streams["arithmetic"][ti] = jpeg_streams.write(co, "arithmetic")
+        streams["progressive arithmetic"][ti] = jpeg_streams.write(
+            co, "arithmetic", "default")
+        megapixels += rgb.shape[0] * rgb.shape[1] / 1e6
+        want = None
+        for kind, sof in JPEG_KINDS.items():
+            raw = streams[kind][ti]
+            if sof not in raw:
+                raise AssertionError(f"texture {ti}: the {kind} stream has "
+                                     f"no {sof.hex()} frame")
+            times = []
+            for _ in range(JPEG_DECODE_REPS):
+                t = time.perf_counter()
+                img = decode_jpeg(raw)
+                times.append(time.perf_counter() - t)
+            seconds[kind] += min(times)
+            if want is None:
+                want = img
+            elif not np.array_equal(img, want):
+                raise AssertionError(
+                    f"texture {ti}: the {kind} stream decodes to "
+                    f"{int((img != want).any(-1).sum())} pixels unlike the "
+                    "baseline's")
+    phase("jpeg decode", card=json.dumps(card), textures=len(JPEG_TEXTURES),
+          megapixels=f"{megapixels:.4f}", bit_equal=True,
+          host_s_per_megapixel=json.dumps(
+              {k: round(v / megapixels, 4) for k, v in seconds.items()}),
+          stream_bytes=json.dumps({k: sum(len(r) for r in v.values())
+                                   for k, v in streams.items()}))
+
+    def textured(kind):
+        """The courtyard's device scene with the kind's streams in place
+        of the 4 textures (the port's loader decodes every texture)."""
+        d = dataclasses.replace(doc, textures=list(doc.textures))
+        for ti in JPEG_TEXTURES:
+            d.textures[ti] = dataclasses.replace(
+                d.textures[ti], image_bytes=streams[kind][ti])
+        h = dataclasses.replace(host)
+        atlas = TX.build_atlas(d)
+        h.attach_atlas(atlas)
+        return atlas.texels, h.to_device()
+    render = make_render_fn(c_set, **c_kw)
+    frames, launches = {}, dict.fromkeys(LAUNCH_NAMES, 0)
+    texels = {}
+    for kind in ("baseline", "progressive", None):
+        if kind is None:
+            sc = scene
+        else:
+            texels[kind], sc = textured(kind)
+        (img, _, aux), n = counted(lambda: render(
+            sc, *c_pairs, fi_np, init_carry(sc, c_set), **mask_kw))
+        for k, v in zip(LAUNCH_NAMES, n):
+            launches[k] += v
+        if (n[0] < 1 or n[1] < 1 or drops_of(aux) != (0, 0)
+                or not bool(torch.isfinite(aux['hdr']).all())):
+            raise AssertionError(f"jpeg frame ({kind}): launches {n}, "
+                                 f"drops {drops_of(aux)}")
+        frames[kind] = (img, aux['hdr'], n)
+    if not np.array_equal(texels["baseline"], texels["progressive"]):
+        raise AssertionError("jpeg frame: the atlases differ")
+    (ib, hb, nb), (ip, hp, np_) = frames["baseline"], frames["progressive"]
+    if not (torch.equal(ib, ip) and torch.equal(hb, hp)) or nb != np_:
+        raise AssertionError(
+            f"jpeg frame: progressive textures give "
+            f"{int((ib != ip).any(-1).sum())} pixels unlike the baseline's "
+            f"(launches {np_} against {nb})")
+    png_px = int((ib != frames[None][0]).any(-1).sum())
+    if png_px == 0:
+        raise AssertionError("jpeg frame: equal to the PNG-textured frame "
+                             "(the textures are not sampled)")
+    phase("jpeg frame", path="culled", size=f"{WIDTH}x{HEIGHT}",
+          textures=json.dumps(list(JPEG_TEXTURES)), bit_equal=True,
+          launches_k1=nb[0], launches_k2=nb[1],
+          pixels_unlike_png_frame=png_px)
+    phase("slice 12 timing", step="all", seconds=f"{time.time() - t12:.1f}")
+    return dict(launches=launches)
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -4814,6 +4952,12 @@ def main() -> int:
         host=host, scene=scene, c_pairs=c_pairs, c_kw=c_kw, c_set=c_set,
         mask_kw=mask_kw, a_set=a_set, a_kw=a_kw, card=card, glass=glass))
     sl = s11['launches']
+
+    # ===== every JPEG kind the reference decodes (slice 12) ================
+    s12 = slice12(dev, dict(
+        host=host, scene=scene, c_pairs=c_pairs, c_kw=c_kw, c_set=c_set,
+        mask_kw=mask_kw, fi_np=fi_np, card=card))
+    sl = {k: v + s12['launches'][k] for k, v in sl.items()}
 
     # 32. kernels -------------------------------------------------------------
     #     fill_resolve: the mean over the inputs of one frame of each main

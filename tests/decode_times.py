@@ -1,7 +1,7 @@
 """Time the port's texture decoders on the CPU, beside Pillow's (the
 reference's path), on inputs written here from a seed: a 1024 x 1024
-RGBA PNG (Pillow's encoder), a 1024 x 1024 4:2:0 quality-90 JPEG, a
-1024 x 1024 BC1 DDS, and the downscale of a 2048 x 2048 RGBA image to
+RGBA PNG (Pillow's encoder), a 1024 x 1024 4:2:0 quality-90 JPEG,
+baseline and progressive, a 1024 x 1024 BC1 DDS, and the downscale of a 2048 x 2048 RGBA image to
 1024 x 1024.  Prints the best of 3 runs of each, in seconds.
 
     python tests/decode_times.py
@@ -42,6 +42,10 @@ def main():
     Image.fromarray(img[..., :3]).save(buf, format="JPEG", quality=90,
                                        subsampling=2)
     jpg = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(img[..., :3]).save(buf, format="JPEG", quality=90,
+                                       subsampling=2, progressive=True)
+    pjpg = buf.getvalue()
     head = np.zeros(31, np.uint32)
     head[0], head[1], head[2], head[3], head[6] = 124, 0x100F, 1024, 1024, 1
     head[18], head[20] = 32, 0x4
@@ -56,6 +60,8 @@ def main():
              best(lambda: pil(png))),
             ("jpeg 1 MP 4:2:0 q90", best(lambda: decode_jpeg(jpg)),
              best(lambda: pil(jpg))),
+            ("jpeg progressive, same", best(lambda: decode_jpeg(pjpg)),
+             best(lambda: pil(pjpg))),
             ("dds BC1 1 MP", best(lambda: load_dds(dds)), None),
             ("resize 4 MP -> 1 MP", best(lambda: resize.resize_rgba(
                 big, 1024, 1024), 1), best(lambda: Image.fromarray(

@@ -8,8 +8,9 @@ with libjpeg-turbo: islow IDCT, fancy upsampling, fixed-point YCbCr).
 * Pillow's colour handling of three components: without a JFIF marker,
   an Adobe APP14 marker with transform 0 (RGB: no conversion) and with
   transform 1 (YCbCr), and component ids 'R', 'G', 'B' (RGB).
-* Progressive and CMYK JPEGs raise NotImplementedError naming the
-  ROADMAP item; a truncated file raises JpegError, and the texture
+* Pillow's progressive and CMYK JPEGs, bit-equal through the decoder
+  and the texture loader (tests/test_torch_jpeg_modes.py holds every
+  other kind); a truncated file raises JpegError, and the texture
   loader leaves it missing and counts it, as the reference leaves it.
 * The loader's whole path on a JPEG above MAX_TEXTURE_DIM: decoded and
   downscaled as the reference's Pillow path does.
@@ -111,11 +112,10 @@ def test_unported_and_corrupt_jpegs():
     img = _picture(48, 48, seed=7)
     for raw in (_encode(img, progressive=True),
                 _encode(img, mode="CMYK")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 6"):
-            decode_jpeg(raw)
-        with pytest.raises(NotImplementedError):
-            TT._decode_image(GltfTexture(uri=None, image_bytes=raw))
+        want = _pil(raw)
+        np.testing.assert_array_equal(decode_jpeg(raw), want)
+        np.testing.assert_array_equal(
+            TT._decode_image(GltfTexture(uri=None, image_bytes=raw)), want)
     cut = _encode(img)[:300]
     with pytest.raises(JpegError):
         decode_jpeg(cut)

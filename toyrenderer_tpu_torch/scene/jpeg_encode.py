@@ -25,7 +25,8 @@ import struct
 
 import numpy as np
 
-from toyrenderer_tpu_torch.scene.jpeg import _ZIGZAG
+from toyrenderer_tpu_torch.scene.jpeg import (
+    _AC_BITS, _AC_VALS, _DC_BITS, _DC_VALS, _ZIGZAG)
 
 # Annex K.1 / K.2 quantization tables, in zigzag order
 _BASE_Q = (
@@ -36,26 +37,6 @@ _BASE_Q = (
               101, 103, 99]),
     np.array([17, 18, 18, 24, 21, 24, 47, 26, 26, 47, 99, 66, 56, 66]
              + [99] * 50))
-# Annex K.3 Huffman tables: (counts of codes of length 1..16, symbols)
-_DC_BITS = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
-            (0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0))
-_DC_VALS = (bytes(range(12)), bytes(range(12)))
-_AC_BITS = ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D),
-            (0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77))
-_AC_VALS = (bytes.fromhex(
-    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
-    "2433627282090a161718191a25262728292a3435363738393a43444546474849"
-    "4a535455565758595a636465666768696a737475767778797a83848586878889"
-    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5"
-    "c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8"
-    "f9fa"), bytes.fromhex(
-    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
-    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
-    "494a535455565758595a636465666768696a737475767778797a828384858687"
-    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
-    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
-    "f9fa"))
-
 
 def quant_tables(quality: int) -> tuple[np.ndarray, np.ndarray]:
     """The luminance and chrominance tables (zigzag order) at `quality`

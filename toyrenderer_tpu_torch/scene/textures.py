@@ -3,10 +3,13 @@
 The port's copy of toyrenderer_tpu/scene/textures.py: the same atlas, row
 for row, so both packages sample the same texels.  Images decode with the
 port's own readers -- DDS (scene/dds.py), every PNG kind (scene/png.py)
-and baseline JPEG (scene/jpeg.py) -- to the reference's pixels, and
-images above MAX_TEXTURE_DIM downscale as the reference's do
-(scene/resize.py).  An image that cannot be decoded is left missing, as
-in the reference, and counted (`decode_failures`).
+and every JPEG that Pillow decodes (scene/jpeg.py: sequential,
+progressive, arithmetic-coded, lossless; grey, YCbCr, RGB, CMYK, YCCK)
+-- to the reference's pixels, and images above MAX_TEXTURE_DIM
+downscale as the reference's do (scene/resize.py).  An image that
+cannot be decoded is left missing, as in the reference, and counted
+(`decode_failures`): corrupt data, and the JPEGs Pillow refuses too
+(12-bit, hierarchical, non-integral sampling).
 
 Atlas entries are MATERIAL MAP SETS, not single textures: each textured
 material contributes one entry whose texel rows interleave all four glTF
@@ -112,11 +115,36 @@ class TextureAtlas:
             tex_min_mip=on(self.min_resident_mip))
 
 
-# magic bytes of image formats the reference package decodes (through its
-# imaging library) and the port does not yet: such a texture raises
-_UNPORTED_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
-                     (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-                     (b"\x00\x00\x01\x00", "ICO"))
+# signatures of the image formats the reference package decodes (its
+# imaging library both writes and reads them) and the port does not yet:
+# such a texture raises NotImplementedError (ROADMAP queue 1 item 6).
+# TGA has no signature, so a TGA texture is left missing.
+_UNPORTED_FORMATS = (
+    (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+    (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"\x00\x00\x01\x00", "ICO"),
+    *((b"P" + bytes([c]), "PNM") for c in b"0123456fy"),
+    (b"qoif", "QOI"), (b"\x01\xda", "SGI"),
+    *((bytes([10, v]), "PCX") for v in (0, 2, 3, 5)),
+    (b"Image type:", "IM"), (b"\xff\x4f\xff\x51", "JPEG 2000"),
+    (b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (b"BLP1", "BLP"), (b"BLP2", "BLP"), (b"icns", "ICNS"),
+    (b"DanM", "MSP"), (b"LinS", "MSP"))
+
+
+def _unported_format(raw: bytes) -> str | None:
+    """The name of the format whose signature `raw` starts with, among
+    those the reference decodes and the port does not yet."""
+    for magic, name in _UNPORTED_FORMATS:
+        if raw.startswith(magic):
+            return name
+    if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
+        return "WebP"
+    if raw[4:8] == b"ftyp" and raw[8:12] in (b"avif", b"avis"):
+        return "AVIF"
+    if raw.lstrip().startswith(b"#define"):
+        return "XBM"
+    return None
+
 
 # the textures the loader could not decode (the reference package leaves
 # them missing too), by name, since the process started
@@ -140,15 +168,11 @@ def _read_image(raw: bytes) -> np.ndarray | list:
     elif raw[:3] == b"\xff\xd8\xff":
         img = decode_jpeg(raw)
     else:
-        for magic, name in _UNPORTED_FORMATS:
-            if raw.startswith(magic):
-                raise NotImplementedError(
-                    f"texture format {name}: the port decodes DDS, PNG and "
-                    "baseline JPEG (ROADMAP queue 1 item 6)")
-        if raw[:4] == b"RIFF" and raw[8:12] == b"WEBP":
+        name = _unported_format(raw)
+        if name is not None:
             raise NotImplementedError(
-                "texture format WebP: the port decodes DDS, PNG and "
-                "baseline JPEG (ROADMAP queue 1 item 6)")
+                f"texture format {name}: the port decodes DDS, PNG and JPEG "
+                "(ROADMAP queue 1 item 6)")
         raise DecodeError(f"unknown image format {raw[:4]!r}")
     h, w = img.shape[:2]
     if max(h, w) > MAX_TEXTURE_DIM:
@@ -160,12 +184,14 @@ def _decode_image(tex) -> np.ndarray | list | None:
     """GltfTexture -> (H, W, 4) u8 RGBA, a DDS mip list, or None: when it
     names no image, or, as in the reference package (its
     textures.py:109-139), when its image cannot be read or decoded
-    (truncated or corrupt data, a DDS format without a decoder); each
-    such texture is appended to `decode_failures` with a warning naming
-    it.  Images above MAX_TEXTURE_DIM are downscaled as the reference
-    does (scene/resize.py).  A format the reference decodes and the port
-    does not yet (progressive, arithmetic-coded or 12-bit JPEG, GIF, BMP,
-    TIFF, WebP) raises NotImplementedError."""
+    (truncated or corrupt data, a DDS format without a decoder, a JPEG
+    that Pillow refuses: 12-bit, hierarchical, non-integral sampling);
+    each such texture is appended to `decode_failures` with a warning
+    naming it.  Images above MAX_TEXTURE_DIM are downscaled as the
+    reference does (scene/resize.py).  A format the reference decodes
+    and the port does not yet (GIF, BMP, TIFF, ICO, WebP, PNM, QOI, SGI,
+    PCX, IM, JPEG 2000, BLP, ICNS, MSP, XBM, AVIF) raises
+    NotImplementedError."""
     base_dir = getattr(tex, 'base_dir', None)
     try:
         if tex.image_bytes is not None:
